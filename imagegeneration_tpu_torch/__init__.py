@@ -1,0 +1,27 @@
+"""imagegeneration_tpu_torch — the PyTorch + CUDA port of imagegeneration_tpu.
+
+The JAX package `imagegeneration_tpu` stays the reference; this package does
+the same work in PyTorch on one NVIDIA H100 (Hopper, sm_90a). It imports
+`torch` and never `jax`, `flax`, `optax`, `orbax` or anything of the JAX
+package. Every TPU (Pallas) kernel on a ported path has a hand-written CUDA
+kernel here, built on first use from `csrc/` by nvcc and bound with ctypes,
+with a plain PyTorch version of the same function beside it: a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel or raises.
+
+Ported so far: the SNDCGAN training path (cli -> engine -> step -> models ->
+layers -> kernels).
+
+Package layout (mirrors imagegeneration_tpu):
+  core/     platform (CUDA only, TF32 off), PRNG streams, data, metrics,
+            checkpoints
+  nn/       Keras-semantics layers (TF-SAME padding, Keras BatchNorm,
+            glorot init) and spectral norm
+  ops/      kernel wrappers + plain versions; native.py builds csrc/*.cu
+  csrc/     CUDA C++ sources of the kernels
+  models/   SNDCGAN generator and discriminator
+  train/    Keras-form Adam, losses, the fused SNDCGAN step, the engine
+  cli/      reference-signature entry points
+  bridge.py JAX (flax) variables <-> port state, for tests and imports
+"""
+
+__version__ = "0.1.0"

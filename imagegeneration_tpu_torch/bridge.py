@@ -1,0 +1,209 @@
+"""JAX (flax) variables <-> the port's modules and train state.
+
+Takes and returns nested dicts of numpy arrays, so it needs no jax: a test
+or an import script pulls the JAX side to numpy (`jax.device_get`) first.
+Collections covered: flax `params`, `batch_stats` (BN mean/var), `spectral`
+(SN `u`), and Adam `mu`/`nu`/`count` (optax.ScaleByAdamState), whose trees
+have the params' structure.
+
+Layout rules, per kind of leaf:
+
+- conv kernel: flax HWIO (kh, kw, in, out) <-> torch OIHW;
+- dense kernel: flax (in, out) <-> torch (out, in). The generator stem's
+  outputs and the discriminator head's inputs are in NHWC order on both
+  sides (the port reshapes/flattens channels_last tensors), so no further
+  permutation is needed;
+- flax ConvTranspose kernel (kh, kw, in, out), unflipped
+  (`transpose_kernel=False`) <-> torch ConvTranspose2d (in, out, kh, kw):
+  spatial flip;
+- the generator's `to_rgb` is a 3x3 stride-1 ConvTranspose in the JAX
+  model, lowered to a plain conv there and stored as `to_rgb/
+  ConvTranspose_0/kernel` (HWIO): it bridges as a conv, with no flip.
+
+flax path of a layer named N: `N/<inner>/...` for the JAX package's
+wrapper modules (`Dense_0`, `Conv_0`, `ConvTranspose_0`, `BatchNorm_0`),
+`N/...` for the spectral-norm modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+from torch import nn
+
+from imagegeneration_tpu_torch.models.sndcgan import Generator
+from imagegeneration_tpu_torch.nn.layers import BatchNorm, Conv, ConvTranspose, Dense
+from imagegeneration_tpu_torch.nn.spectral_norm import (
+    SpectralNormConv,
+    SpectralNormDense,
+)
+
+_INNER = {
+    Dense: "Dense_0", Conv: "Conv_0", ConvTranspose: "ConvTranspose_0",
+    BatchNorm: "BatchNorm_0", SpectralNormConv: None, SpectralNormDense: None,
+}
+# (model class, layer name) -> inner flax name, where the default is wrong.
+_INNER_OVERRIDES = {(Generator, "to_rgb"): "ConvTranspose_0"}
+_WEIGHT_KIND = {
+    Dense: "dense", SpectralNormDense: "dense", Conv: "conv",
+    SpectralNormConv: "conv", ConvTranspose: "convT",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    torch_name: str  # e.g. "up0.weight"
+    collection: str  # "params" | "batch_stats" | "spectral"
+    path: tuple[str, ...]  # flax path inside the collection
+    kind: str  # "dense" | "conv" | "convT" | "vec"
+
+
+def leaves(model: nn.Module) -> list[Leaf]:
+    out = []
+    for name, layer in model.named_children():
+        inner = _INNER_OVERRIDES.get((type(model), name), _INNER[type(layer)])
+        prefix = (name,) if inner is None else (name, inner)
+        if isinstance(layer, BatchNorm):
+            out += [
+                Leaf(f"{name}.scale", "params", prefix + ("scale",), "vec"),
+                Leaf(f"{name}.bias", "params", prefix + ("bias",), "vec"),
+                Leaf(f"{name}.mean", "batch_stats", prefix + ("mean",), "vec"),
+                Leaf(f"{name}.var", "batch_stats", prefix + ("var",), "vec"),
+            ]
+            continue
+        out.append(Leaf(f"{name}.weight", "params", prefix + ("kernel",),
+                        _WEIGHT_KIND[type(layer)]))
+        if layer.bias is not None:
+            out.append(Leaf(f"{name}.bias", "params", prefix + ("bias",), "vec"))
+        if isinstance(layer, (SpectralNormConv, SpectralNormDense)):
+            out.append(Leaf(f"{name}.u", "spectral", prefix + ("u",), "vec"))
+    return out
+
+
+def to_torch_layout(kind: str, a: np.ndarray) -> np.ndarray:
+    a = np.asarray(a)
+    if kind == "dense":
+        a = a.T
+    elif kind == "conv":
+        a = a.transpose(3, 2, 0, 1)
+    elif kind == "convT":
+        a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+    return np.array(a, order="C")  # a writable copy
+
+
+def to_flax_layout(kind: str, a: np.ndarray) -> np.ndarray:
+    if kind == "dense":
+        a = a.T
+    elif kind == "conv":
+        a = a.transpose(2, 3, 1, 0)
+    elif kind == "convT":
+        a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return np.ascontiguousarray(a)
+
+
+def _get(tree: dict, path: tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set(tree: dict, path: tuple[str, ...], value: Any) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _tensors(model: nn.Module) -> dict[str, torch.Tensor]:
+    return {**dict(model.named_parameters()), **dict(model.named_buffers())}
+
+
+def _param_leaves(model: nn.Module) -> Iterator[Leaf]:
+    by_name = {leaf.torch_name: leaf for leaf in leaves(model)}
+    for name, _ in model.named_parameters():
+        yield by_name[name]
+
+
+@torch.no_grad()
+def copy_in(dst: torch.Tensor, kind: str, a: np.ndarray) -> None:
+    src = torch.from_numpy(to_torch_layout(kind, a))
+    if src.shape != dst.shape:
+        raise ValueError(f"shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+def _to_numpy(t: torch.Tensor, kind: str) -> np.ndarray:
+    return to_flax_layout(kind, t.detach().cpu().numpy())
+
+
+def load_flax_variables(model: nn.Module, variables: dict[str, dict]) -> None:
+    """Copy flax variables ({"params": ..., "batch_stats"/"spectral": ...})
+    into the model's parameters and buffers, in place."""
+    tensors = _tensors(model)
+    for leaf in leaves(model):
+        copy_in(tensors[leaf.torch_name], leaf.kind,
+                 _get(variables[leaf.collection], leaf.path))
+
+
+def flax_variables(model: nn.Module) -> dict[str, dict]:
+    """The model's state as flax variables (numpy leaves)."""
+    tensors = _tensors(model)
+    out: dict[str, dict] = {}
+    for leaf in leaves(model):
+        _set(out.setdefault(leaf.collection, {}), leaf.path,
+             _to_numpy(tensors[leaf.torch_name], leaf.kind))
+    return out
+
+
+def load_param_tree(model: nn.Module, tree: dict, dst: list[torch.Tensor]) -> None:
+    """Copy a params-shaped flax tree (e.g. Adam mu) into `dst`, a list in
+    `model.parameters()` order."""
+    for leaf, t in zip(_param_leaves(model), dst, strict=True):
+        copy_in(t, leaf.kind, _get(tree, leaf.path))
+
+
+def param_tree(model: nn.Module, tensors: list[torch.Tensor]) -> dict:
+    """Inverse of `load_param_tree`."""
+    out: dict = {}
+    for leaf, t in zip(_param_leaves(model), tensors, strict=True):
+        _set(out, leaf.path, _to_numpy(t, leaf.kind))
+    return out
+
+
+def load_jax_train_state(state, jax_state: dict) -> None:
+    """Copy a JAX SNDCGANState (as a dict of numpy trees: step, g_params,
+    g_batch_stats, g_opt {count, mu, nu}, d_params, d_spectral, d_opt) into
+    a port SNDCGANState, in place."""
+    with torch.no_grad():
+        state.step.fill_(int(jax_state["step"]))
+    load_flax_variables(state.gen, {"params": jax_state["g_params"],
+                                    "batch_stats": jax_state["g_batch_stats"]})
+    load_flax_variables(state.disc, {"params": jax_state["d_params"],
+                                     "spectral": jax_state["d_spectral"]})
+    for model, opt, key in ((state.gen, state.g_opt, "g_opt"),
+                            (state.disc, state.d_opt, "d_opt")):
+        with torch.no_grad():
+            opt.count.fill_(int(jax_state[key]["count"]))
+        load_param_tree(model, jax_state[key]["mu"], opt.mu)
+        load_param_tree(model, jax_state[key]["nu"], opt.nu)
+
+
+def jax_train_state(state) -> dict:
+    """Inverse of `load_jax_train_state` (numpy leaves)."""
+    g = flax_variables(state.gen)
+    d = flax_variables(state.disc)
+    return {
+        "step": np.asarray(int(state.step)),
+        "g_params": g["params"],
+        "g_batch_stats": g.get("batch_stats", {}),
+        "g_opt": {"count": np.asarray(int(state.g_opt.count)),
+                  "mu": param_tree(state.gen, state.g_opt.mu),
+                  "nu": param_tree(state.gen, state.g_opt.nu)},
+        "d_params": d["params"],
+        "d_spectral": d.get("spectral", {}),
+        "d_opt": {"count": np.asarray(int(state.d_opt.count)),
+                  "mu": param_tree(state.disc, state.d_opt.mu),
+                  "nu": param_tree(state.disc, state.d_opt.nu)},
+    }

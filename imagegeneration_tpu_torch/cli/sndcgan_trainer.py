@@ -1,0 +1,117 @@
+"""SNDCGAN training CLI — signature-compatible with sndcgan/Trainer.py:10-37.
+
+  python -m imagegeneration_tpu_torch.cli.sndcgan_trainer <bSize> <epochs>
+      [-cf N] [-d DIR] [-x DATA] [-r RATE] [-ld LR] [-lg LR] [-lo NAME] [-ct]
+      [--spectral-norm] [--loss {bce,hinge}] [--d-updates {1,2}] [--bf16]
+      [--height H] [--width W] [--z Z] [--seed S] [--device {cuda,cpu}]
+
+The flags are those of imagegeneration_tpu.cli.sndcgan_trainer. Training
+runs on one CUDA device; `--device cpu` runs the same code on the CPU with
+the plain versions of the kernels (tests, debugging). The multi-device
+flags `--mesh-data`/`--mesh-spatial` are refused: multi-GPU training is not
+ported yet. `-lo` is accepted for compatibility, but live-preview PDFs are
+not written yet. As in the reference, `epochs + 1` epochs are trained.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="GAN Trainer to generate landscape images."
+    )
+    parser.add_argument("bSize", type=int, help="Batch Size to use.")
+    parser.add_argument("epochs", type=int, help="Number of epochs to train.")
+    parser.add_argument(
+        "-cf", "--checkpointFrequency", type=int, dest="ckptFreq", default=5,
+        help="Take checkpoint every x epochs. Default = 5",
+    )
+    parser.add_argument(
+        "-d", "--directory", type=str, dest="dirPath", default="training",
+        help="The output directory where the checkpoints and others are saved. "
+        "It will be created if it dosen't exist and overritten (!) if it does.",
+    )
+    parser.add_argument(
+        "-x", "--data", type=str, dest="data", default="dataset",
+        help="The directory containing subdirectories (labels) with images to "
+        "use for training.",
+    )
+    parser.add_argument(
+        "-r", "--dropout", type=float, dest="dropout", default=0.5,
+        help="The dropout rate to use for the discriminator. Default = 0.5",
+    )
+    parser.add_argument(
+        "-ld", "--learnRateDisc", type=float, dest="learnRateDisc",
+        default=0.0002, help="The learning rate for the discriminator to use.",
+    )
+    parser.add_argument(
+        "-lg", "--learnRateGen", type=float, dest="learnRateGen",
+        default=0.0002, help="The learning rate for the generator to use.",
+    )
+    parser.add_argument(
+        "-lo", "--liveOutput", type=str, dest="liveOutput", default="live",
+        help="Accepted for compatibility; live previews are not written yet.",
+    )
+    parser.add_argument(
+        "-ct", "--continue", dest="continue_", action="store_true",
+        default=False, help="Continue training (default: Start from the beginning)",
+    )
+    parser.add_argument("--spectral-norm", action="store_true", default=False)
+    parser.add_argument("--loss", choices=["bce", "hinge"], default="bce")
+    parser.add_argument("--d-updates", type=int, choices=[1, 2], default=2,
+                        help="D optimizer applies per batch: 2 = the "
+                        "reference's double apply, 1 = one combined update")
+    parser.add_argument("--bf16", action="store_true", default=False)
+    parser.add_argument("--mesh-data", type=int, default=0,
+                        help="not supported: multi-GPU training is not ported")
+    parser.add_argument("--mesh-spatial", type=int, default=1,
+                        help="not supported: multi-GPU training is not ported")
+    parser.add_argument("--height", type=int, default=144)
+    parser.add_argument("--width", type=int, default=256)
+    parser.add_argument("--z", type=int, dest="z_size", default=128)
+    parser.add_argument("--seed", type=int, default=62)
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default; fails without a GPU) or cpu "
+                        "(plain kernel versions, for tests and debugging)")
+    return parser
+
+
+def main(argv=None) -> None:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.mesh_data or args.mesh_spatial != 1:
+        parser.error(
+            "--mesh-data/--mesh-spatial: multi-device training is not ported "
+            "to PyTorch yet; this trainer runs on one GPU"
+        )
+
+    from imagegeneration_tpu_torch.core.platform import resolve_device
+    from imagegeneration_tpu_torch.train.sndcgan_engine import SNDCGANEngine
+
+    engine = SNDCGANEngine(
+        args.dirPath,
+        args.data,
+        args.bSize,
+        args.dropout,
+        args.learnRateDisc,
+        args.learnRateGen,
+        args.continue_,
+        (args.height, args.width, 3),
+        args.z_size,
+        device=resolve_device(args.device),
+        spectral_norm=args.spectral_norm,
+        loss=args.loss,
+        d_updates=args.d_updates,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        seed=args.seed,
+    )
+    # Reference quirk preserved: Trainer.py:37 trains epochs+1.
+    engine.train(args.epochs + 1, args.ckptFreq)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,208 @@
+"""Host-side image datasets and the on-device uint8 -> float rescale.
+
+The counterpart of imagegeneration_tpu/core/data.py, re-implemented because
+that module imports jax (through its PRNG streams) and PIL at module top,
+and the GPU machine has neither. Semantics kept:
+
+- an image folder is decoded once into one contiguous uint8 (N, H, W, 3)
+  array: center crop to the target aspect ratio, then bilinear resize
+  (keras `image_dataset_from_directory(crop_to_aspect_ratio=True)`);
+- each epoch reshuffles images (not batches) from a seeded stream and drops
+  the remainder, so every batch has the static batch size;
+- batches leave the host as uint8 and are rescaled on the device by
+  `normalize` (x / 127.5 - 1).
+
+The decoders (cv2, else PIL) are imported only when a folder is read.
+Shuffles come from the port's own numpy generator (core/rng.py); they are
+stable for a seed but differ from the JAX package's batch order.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from imagegeneration_tpu_torch.core.rng import DEFAULT_DATA_SEED, KeyChain
+
+# Extensions accepted by keras.utils.image_dataset_from_directory.
+ALLOWED_EXTENSIONS = (".bmp", ".gif", ".jpeg", ".jpg", ".png")
+
+
+def list_image_files(
+    root: str | Path, labeled: bool = True, follow_links: bool = False
+) -> tuple[list[Path], list[int], list[str]]:
+    """Enumerate image files the way image_dataset_from_directory does.
+
+    labeled=True: each subdirectory of `root` is one class; labeled=False:
+    all images under root, recursively. Deterministically sorted."""
+    root = Path(root)
+    if not root.exists():
+        raise FileNotFoundError(f"dataset directory not found: {root}")
+
+    def _walk(d: Path) -> list[Path]:
+        return [
+            p for p in sorted(d.rglob("*"))
+            if p.is_file() and p.suffix.lower() in ALLOWED_EXTENSIONS
+            and (follow_links or not p.is_symlink())
+        ]
+
+    if labeled:
+        class_dirs = sorted(p for p in root.iterdir() if p.is_dir())
+        files: list[Path] = []
+        labels: list[int] = []
+        for idx, d in enumerate(class_dirs):
+            fs = _walk(d)
+            files.extend(fs)
+            labels.extend([idx] * len(fs))
+        if not files:
+            raise FileNotFoundError(f"no images under class dirs of {root}")
+        return files, labels, [d.name for d in class_dirs]
+    files = _walk(root)
+    if not files:
+        raise FileNotFoundError(f"no images under {root}")
+    return files, [0] * len(files), []
+
+
+def _decode_rgb(path: Path) -> np.ndarray:
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+        if img is not None:
+            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _resize(img: np.ndarray, th: int, tw: int) -> np.ndarray:
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        return np.asarray(Image.fromarray(img).resize((tw, th), Image.BILINEAR))
+    return cv2.resize(img, (tw, th), interpolation=cv2.INTER_LINEAR)
+
+
+def load_image(
+    path: str | Path, image_size: tuple[int, int], crop_to_aspect_ratio: bool = True
+) -> np.ndarray:
+    """Decode one image to uint8 (H, W, 3): largest centered crop with the
+    target aspect ratio, then bilinear resize."""
+    th, tw = image_size
+    img = _decode_rgb(Path(path))
+    h, w = img.shape[:2]
+    if crop_to_aspect_ratio and h * tw != w * th:
+        if h * tw > w * th:  # too tall -> crop height
+            ch = (w * th) // tw
+            top = (h - ch) // 2
+            img = img[top:top + ch]
+        else:  # too wide -> crop width
+            cw = (h * tw) // th
+            left = (w - cw) // 2
+            img = img[:, left:left + cw]
+    if img.shape[:2] != (th, tw):
+        img = _resize(img, th, tw)
+    return np.ascontiguousarray(img, dtype=np.uint8)
+
+
+class _ShuffledImages:
+    """Per-epoch reshuffled uint8 batches over an in-memory image array."""
+
+    _images: np.ndarray
+    _chain: KeyChain
+
+    def __len__(self) -> int:
+        return self._images.shape[0]
+
+    @property
+    def images(self) -> np.ndarray:
+        return self._images
+
+    def num_batches(self, batch_size: int, drop_remainder: bool = True) -> int:
+        n = len(self)
+        return n // batch_size if drop_remainder else -(-n // batch_size)
+
+    def epoch_batches(
+        self, batch_size: int, epoch: int, drop_remainder: bool = True
+    ) -> Iterator[np.ndarray]:
+        """Yield uint8 (B, H, W, 3) batches, reshuffled per epoch."""
+        perm = self._chain.numpy_rng("data", epoch).permutation(len(self))
+        for b in range(self.num_batches(batch_size, drop_remainder)):
+            yield self._images[perm[b * batch_size:(b + 1) * batch_size]]
+
+
+class ImageFolderDataset(_ShuffledImages):
+    """Decoded-and-cached image folder."""
+
+    def __init__(
+        self,
+        root: str | Path,
+        image_size: tuple[int, int],
+        labeled: bool = True,
+        follow_links: bool = False,
+        seed: int = DEFAULT_DATA_SEED,
+    ) -> None:
+        self.files, self.labels, self.class_names = list_image_files(
+            root, labeled, follow_links
+        )
+        h, w = image_size
+        self._images = np.empty((len(self.files), h, w, 3), dtype=np.uint8)
+        for i, f in enumerate(self.files):
+            self._images[i] = load_image(f, image_size)
+        self._chain = KeyChain(seed)
+
+
+class SyntheticImageDataset(_ShuffledImages):
+    """Deterministic random-image dataset (tests, smoke runs; no disk I/O)."""
+
+    def __init__(
+        self, num_images: int, image_size: tuple[int, int],
+        seed: int = DEFAULT_DATA_SEED,
+    ) -> None:
+        h, w = image_size
+        self._images = np.random.default_rng(seed).integers(
+            0, 256, size=(num_images, h, w, 3), dtype=np.uint8
+        )
+        self._chain = KeyChain(seed)
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Yield from `iterator`, filled ahead by one background thread."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+    error: list[Exception] = []
+
+    def _worker() -> None:
+        try:
+            for item in iterator:
+                q.put(item)
+        except Exception as e:  # handed to the consumer, re-raised there
+            error.append(e)
+        finally:
+            q.put(sentinel)
+
+    t = threading.Thread(target=_worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            t.join()
+            if error:
+                raise error[0]
+            return
+        yield item
+
+
+def normalize(x_u8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The Rescaling(1/127.5, -1) layer, on the tensor's device."""
+    return x_u8.to(dtype) / 127.5 - 1.0

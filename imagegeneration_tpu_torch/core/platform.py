@@ -1,0 +1,62 @@
+"""Device selection and the facts printed beside every measured number.
+
+The port's main path runs on one CUDA card and never falls back to the CPU:
+`require_cuda()` raises when no card is visible. The CPU runs only where a
+caller asks for it by name (tests, debugging), and there every kernel takes
+its plain PyTorch version.
+
+Float32 numerics are pinned, not left to defaults: cuDNN runs float32
+convolutions in TF32 unless told otherwise, which keeps about three decimal
+digits. The JAX reference computes float32 convolutions in full float32, so
+`configure_numerics()` turns TF32 off for both cuDNN and cuBLAS and returns
+the setting so that callers can print it. bfloat16 compute is unaffected.
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+
+import torch
+
+
+def configure_numerics() -> dict[str, bool]:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+    }
+
+
+def require_cuda() -> torch.device:
+    """The one CUDA device of the main path; raises without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device visible: the port's main path needs an NVIDIA "
+            "GPU and has no CPU fallback"
+        )
+    configure_numerics()
+    return torch.device("cuda", 0)
+
+
+def resolve_device(name: str) -> torch.device:
+    """'cuda' -> require_cuda(); 'cpu' -> the CPU (plain kernel versions)."""
+    if name == "cuda":
+        return require_cuda()
+    if name == "cpu":
+        configure_numerics()
+        return torch.device("cpu")
+    raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
+
+
+def card_description() -> str:
+    """`name, power.limit` of the first card as nvidia-smi reports it."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        raise RuntimeError("nvidia-smi not found")
+    out = subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()

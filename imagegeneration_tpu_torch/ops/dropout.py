@@ -1,0 +1,212 @@
+"""Fused LeakyReLU(0.1) + counter-hash dropout, with a recomputed-mask VJP.
+
+Replaces the TPU kernel pair of imagegeneration_tpu/ops/pallas/dropout.py
+(`_kernel`, `_bwd_kernel` behind `leaky_relu_dropout`). The mask is the JAX
+main path's (imagegeneration_tpu/ops/bitdropout.py, `_hash_mask` with
+rounds=1), not the TPU hardware PRNG, so the port is held to the JAX
+discriminator bit for bit given the same two key words:
+
+    idx  = NHWC linear index (the memory offset of a channels_last tensor)
+    h    = fmix32(idx ^ k0) + k1                       (uint32 arithmetic)
+    keep = (h & 0xFF) >= cut,   cut = round(rate * 256)
+    y    = keep ? leaky_relu(x, 0.1) * 256 / (256 - cut) : 0
+
+This mask is a constant of the port: the JAX config's other mask choices
+(`dropout_bits`, `dropout_hash`, `dropout_hash_rounds`) have no
+counterpart, because its main path uses this one ("hash1": counter hash,
+one fmix32 round) and nothing else is ported.
+
+The backward regenerates the mask, so the only saved activation is `x`.
+
+On the H100 both passes are bound by device-memory bandwidth (forward reads
+x and writes y; backward reads x and g and writes dx); the kernel
+(`csrc/leaky_relu_dropout.cu`) keeps the mask out of device memory and
+reads the key words from a device tensor, so a launch never syncs the host.
+
+`leaky_relu_dropout` is the wrapper. A CPU tensor takes the plain PyTorch
+version below (the same function, emulating uint32 in int64 ops); a CUDA
+tensor launches the kernel or raises. `LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from imagegeneration_tpu_torch.core.rng import fmix32
+from imagegeneration_tpu_torch.ops import native
+
+NEGATIVE_SLOPE = 0.1
+_U32 = 0xFFFFFFFF
+
+LAUNCHES = {"leaky_relu_dropout_fwd": 0, "leaky_relu_dropout_bwd": 0}
+
+
+def dropout_cut(rate: float) -> int:
+    """Byte threshold of the mask: rate quantized to 1/256 (bitdropout)."""
+    cut = round(rate * 256.0)
+    if not 0 <= cut < 256:
+        raise ValueError(f"dropout rate must be in [0, 255.5/256), got {rate!r}")
+    return cut
+
+
+def keep_scale(cut: int) -> float:
+    """Inverted-dropout scale for the exact quantized keep probability."""
+    return 256.0 / (256 - cut)
+
+
+# ------------------------------------------------------------ plain version
+def hash_keep_mask(kw: torch.Tensor, numel: int, cut: int) -> torch.Tensor:
+    """Keep mask over linear indices 0..numel-1 (bool, flat)."""
+    idx = torch.arange(numel, device=kw.device, dtype=torch.int64)
+    h = (fmix32(idx ^ kw[0]) + kw[1]) & _U32
+    return (h & 0xFF) >= cut
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def fwd_plain(x: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
+    xn = _nhwc(x).float()
+    keep = hash_keep_mask(kw, x.numel(), cut).view(xn.shape)
+    leaky = torch.where(xn >= 0, xn, xn * NEGATIVE_SLOPE)
+    y = torch.where(keep, leaky * keep_scale(cut), torch.zeros((), device=x.device))
+    return _nchw(y.to(x.dtype))
+
+
+def bwd_plain(
+    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int
+) -> torch.Tensor:
+    xn = _nhwc(x).float()
+    keep = hash_keep_mask(kw, x.numel(), cut).view(xn.shape)
+    gs = _nhwc(g).float() * keep_scale(cut)
+    d = torch.where(xn >= 0, gs, gs * NEGATIVE_SLOPE)
+    dx = torch.where(keep, d, torch.zeros((), device=x.device))
+    return _nchw(dx.to(x.dtype))
+
+
+# ------------------------------------------------------------------- kernel
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_ARGS_TAIL = [ctypes.c_int64, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+              ctypes.c_void_p]
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library, its entry points typed once per process."""
+    lib = native.load("leaky_relu_dropout")
+    for suffix in _DTYPES.values():
+        fwd = getattr(lib, f"lrd_fwd_{suffix}")
+        fwd.restype = ctypes.c_int
+        fwd.argtypes = [ctypes.c_void_p] * 3 + _ARGS_TAIL
+        bwd = getattr(lib, f"lrd_bwd_{suffix}")
+        bwd.restype = ctypes.c_int
+        bwd.argtypes = [ctypes.c_void_p] * 4 + _ARGS_TAIL
+    return lib
+
+
+def _check_kernel_args(x: torch.Tensor, kw: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
+    _check_channels_last(x)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.numel() >= 2**32:
+        raise ValueError("the uint32 element index covers < 2**32 elements")
+    if (kw.device != x.device or kw.dtype != torch.int64
+            or kw.shape != (2,) or not kw.is_contiguous()):
+        raise ValueError(
+            f"kw must be a contiguous int64 (2,) tensor on {x.device}, got "
+            f"{kw.dtype} {tuple(kw.shape)} on {kw.device}"
+        )
+
+
+def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
+    _check_kernel_args(x, kw)
+    lib = _lib()
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    rc = getattr(lib, f"lrd_fwd_{_DTYPES[x.dtype]}")(
+        x.data_ptr(), y.data_ptr(), kw.data_ptr(), x.numel(), cut,
+        keep_scale(cut), NEGATIVE_SLOPE, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout forward")
+    LAUNCHES["leaky_relu_dropout_fwd"] += 1
+    return y
+
+
+def bwd_kernel(
+    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int
+) -> torch.Tensor:
+    _check_kernel_args(x, kw)
+    if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
+        raise ValueError("gradient must match x in dtype, shape and device")
+    _check_channels_last(g)
+    lib = _lib()
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    rc = getattr(lib, f"lrd_bwd_{_DTYPES[x.dtype]}")(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), kw.data_ptr(), x.numel(),
+        cut, keep_scale(cut), NEGATIVE_SLOPE,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout backward")
+    LAUNCHES["leaky_relu_dropout_bwd"] += 1
+    return dx
+
+
+# ------------------------------------------------------------------ wrapper
+def _check_channels_last(x: torch.Tensor) -> None:
+    # The mask is indexed by memory offset; only a channels_last tensor has
+    # its NHWC linear index there. Any other layout would silently draw a
+    # different mask, so it is refused.
+    if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(
+            "leaky_relu_dropout needs a 4-D channels_last-contiguous tensor "
+            f"(NCHW logical, NHWC memory); got shape {tuple(x.shape)} "
+            f"strides {x.stride()}"
+        )
+
+
+def fwd(x: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
+    """Forward: the plain version for a CPU tensor, else the kernel."""
+    if x.device.type == "cpu":
+        return fwd_plain(x, kw, cut)
+    return fwd_kernel(x, kw, cut)
+
+
+def bwd(x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
+    """Backward: the plain version for a CPU tensor, else the kernel."""
+    if x.device.type == "cpu":
+        return bwd_plain(x, g, kw, cut)
+    return bwd_kernel(x, g, kw, cut)
+
+
+class _LeakyReluDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kw, cut):
+        ctx.save_for_backward(x, kw)
+        ctx.cut = cut
+        return fwd(x, kw, cut)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kw = ctx.saved_tensors
+        g = g.contiguous(memory_format=torch.channels_last)
+        return bwd(x, g, kw, ctx.cut), None, None
+
+
+def leaky_relu_dropout(
+    x: torch.Tensor, kw: torch.Tensor, rate: float
+) -> torch.Tensor:
+    """dropout(leaky_relu(x, 0.1)) with the hash1 mask of key words `kw`.
+
+    x: (B, C, H, W) channels_last, float32 or bfloat16. kw: (2,) int64
+    holding two uint32 words, on x's device."""
+    _check_channels_last(x)
+    return _LeakyReluDropout.apply(x, kw, dropout_cut(rate))

@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Where the headline SNDCGAN step's time goes, on one CUDA card.
+
+    python -m imagegeneration_tpu_torch.tools.profile_step --out DIR
+
+The step is the headline configuration: 256x144, batch 32, base_width 512,
+spectral-norm D, hinge loss, bf16 compute, d_updates=2, random weights from
+the default seed, synthetic uint8 batches made on the card. Phases:
+
+1. rate: host clock around windows of WINDOW steps, each ending in a
+   synchronize; the device memory one step takes at its peak.
+2. profile: torch.profiler over PROFILE_STEPS steps. Device time by kernel
+   class and by kernel name, self device time by aten op, and the device's
+   busy share: the union of the trace's kernel, copy and memset intervals
+   over the span of the profiled window. That is the busy share under the
+   profiler, whose host overhead lengthens the window.
+3. ab: windows of the step with both hand kernels ("kernels"), with the
+   plain dropout chain in place of the dropout kernels ("plain_dropout"),
+   and with the plain Adam apply in place of the Adam kernel
+   ("plain_adam"), in turns k d a a d k, twice. nvidia-smi samples the SM
+   clock and the power draw every 100 ms beside the windows.
+4. data: the engine's resident and streaming epochs, in turns r s s r:
+   steps/s of the second epoch of a fresh engine.
+
+Writes summary.json, kernels.txt, ops.txt and trace.json.gz under DIR. The
+card's name and power limit are printed before the last line, which is
+the summary as one JSON object. Without a CUDA card the tool fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import datetime
+import gc
+import gzip
+import json
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from imagegeneration_tpu_torch.core import platform
+from imagegeneration_tpu_torch.core.data import SyntheticImageDataset
+from imagegeneration_tpu_torch.models.sndcgan import SNDCGANConfig
+from imagegeneration_tpu_torch.ops import adam, dropout
+from imagegeneration_tpu_torch.train import sndcgan_engine
+from imagegeneration_tpu_torch.train import sndcgan_step as steplib
+
+HEIGHT, WIDTH, BATCH, BASE = 144, 256, 32, 512
+CONFIG = f"{WIDTH}x{HEIGHT} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2"
+N_BATCHES = 8  # distinct device batches the step cycles through
+WINDOW = 10
+RATE_WINDOWS = 3
+PROFILE_STEPS = 5
+AB_ORDER = ("kernels", "plain_dropout", "plain_adam",
+            "plain_adam", "plain_dropout", "kernels") * 2
+DATA_EPOCH_BATCHES = 16
+DATA_ORDER = ("resident", "streaming", "streaming", "resident")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+# Module attributes swapped for each A/B variant: the wrappers look their
+# kernel entry points up at call time, so the plain version runs instead.
+VARIANTS = {
+    "kernels": {},
+    "plain_dropout": {dropout: {"fwd_kernel": dropout.fwd_plain,
+                                "bwd_kernel": dropout.bwd_plain}},
+    "plain_adam": {adam: {"adam_leaf_kernel": adam.adam_leaf_plain}},
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def headline_config() -> steplib.SNDCGANTrainConfig:
+    return steplib.SNDCGANTrainConfig(
+        model=SNDCGANConfig(image_size=(HEIGHT, WIDTH, 3), base_width=BASE,
+                            spectral_norm=True, dtype=torch.bfloat16),
+        batch_size=BATCH, loss="hinge")
+
+
+class StepLoop:
+    """The train step over a few synthetic uint8 batches held on the card."""
+
+    def __init__(self, cfg: steplib.SNDCGANTrainConfig, dev: torch.device):
+        self.state = steplib.init_state(cfg, dev)
+        self.step = steplib.make_train_step(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        self.batches = torch.randint(
+            0, 256, (N_BATCHES, cfg.batch_size, *cfg.model.image_size),
+            generator=gen, device=dev, dtype=torch.uint8)
+        self.i = 0
+
+    def run(self, n: int) -> None:
+        for _ in range(n):
+            self.state, _ = self.step(self.state, self.batches[self.i % N_BATCHES])
+            self.i += 1
+        torch.cuda.synchronize()
+
+    def ms_per_step(self, n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.run(n)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+
+# ------------------------------------------------------------------ rate
+def phase_rate(loop: StepLoop, dev: torch.device) -> dict:
+    loop.run(3)  # warm-up: cuDNN algorithm choice, the caching allocator
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    loop.run(1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = [loop.ms_per_step(WINDOW) for _ in range(RATE_WINDOWS)]
+    return {
+        "ms_per_step": ms,
+        "steps_per_sec": [1e3 / m for m in ms],
+        "allocated_before_step_bytes": before,
+        "step_peak_allocated_bytes": peak,
+        "free_bytes": torch.cuda.mem_get_info(dev)[0],
+        "resident_budget_bytes": sndcgan_engine.resident_budget(dev),
+    }
+
+
+# --------------------------------------------------------------- profile
+def kernel_class(name: str) -> str:
+    n = name.lower()
+    if "lrd_" in n:
+        return "dropout kernels (csrc/leaky_relu_dropout.cu)"
+    if "adam_kernel" in n:
+        return "adam kernel (csrc/adam.cu)"
+    if any(s in n for s in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad")):
+        return "convolution (cuDNN)"
+    if any(s in n for s in ("gemm", "cutlass", "cublas", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "reduce" in n:
+        return "reduction"
+    if "elementwise" in n or "vectorized" in n or "unrolled" in n:
+        return "elementwise"
+    if "copy" in n or "memcpy" in n or "memset" in n:
+        return "copy / memset"
+    return "other"
+
+
+def union_us(intervals: list[tuple[float, float]]) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def _self_device_us(avg) -> float:
+    # The attribute's name changed from `cuda` to `device` in torch 2.4.
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(avg, attr):
+            return float(getattr(avg, attr))
+    raise AttributeError("profiler average has no self device time")
+
+
+def phase_profile(loop: StepLoop, out: Path) -> dict:
+    loop.run(2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        with record_function("profile_window"):
+            loop.run(PROFILE_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(raw))
+        text = raw.read_text()
+    with gzip.open(out / "trace.json.gz", "wt") as f:
+        f.write(text)
+    events = [e for e in json.loads(text)["traceEvents"] if e.get("ph") == "X"]
+
+    window = [e for e in events
+              if e.get("name") == "profile_window" and e.get("cat") == "user_annotation"]
+    if len(window) != 1:
+        raise RuntimeError(f"expected one profile_window span, found {len(window)}")
+    t0 = float(window[0]["ts"])
+    t1 = t0 + float(window[0]["dur"])
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if not device:
+        raise RuntimeError("the trace holds no device activity")
+    busy = union_us([(max(t0, float(e["ts"])), min(t1, float(e["ts"]) + float(e["dur"])))
+                     for e in device
+                     if float(e["ts"]) < t1 and float(e["ts"]) + float(e["dur"]) > t0])
+
+    by_name: dict[str, list[float]] = {}
+    for e in device:
+        rec = by_name.setdefault(e["name"], [0.0, 0])
+        rec[0] += float(e["dur"])
+        rec[1] += 1
+    by_class: dict[str, float] = {}
+    for name, (us, _) in by_name.items():
+        cls = kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + us / PROFILE_STEPS / 1e3
+    device_ms = sum(by_class.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    with open(out / "kernels.txt", "w") as f:
+        f.write(f"device ms/step, calls/step, class, kernel ({PROFILE_STEPS} steps)\n")
+        for name, (us, calls) in ranked:
+            f.write(f"{us / PROFILE_STEPS / 1e3:9.4f} {calls / PROFILE_STEPS:7.1f}  "
+                    f"{kernel_class(name)}  {name[:200]}\n")
+
+    with open(out / "ops.txt", "w") as f:
+        for title, avgs in (
+            ("by aten op", prof.key_averages()),
+            ("by aten op and input shapes", prof.key_averages(group_by_input_shape=True)),
+        ):
+            rows = sorted((a for a in avgs if _self_device_us(a) > 0),
+                          key=lambda a: -_self_device_us(a))
+            f.write(f"# self device ms/step, calls/step, {title}\n")
+            for a in rows[:60]:
+                shapes = f"  {a.input_shapes}" if "shapes" in title else ""
+                f.write(f"{_self_device_us(a) / PROFILE_STEPS / 1e3:9.4f} "
+                        f"{a.count / PROFILE_STEPS:7.1f}  {a.key}{shapes}\n")
+            f.write("\n")
+
+    return {
+        "steps": PROFILE_STEPS,
+        "window_ms_per_step": (t1 - t0) / PROFILE_STEPS / 1e3,
+        "device_busy_ms_per_step": busy / PROFILE_STEPS / 1e3,
+        "busy_share_under_profiler": busy / (t1 - t0),
+        "device_ms_per_step_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        "device_share_by_class": {k: v / device_ms for k, v in by_class.items()},
+        "top_kernels_ms_per_step": [
+            [name[:120], us / PROFILE_STEPS / 1e3, calls / PROFILE_STEPS]
+            for name, (us, calls) in ranked[:12]],
+    }
+
+
+# -------------------------------------------------------------------- ab
+@contextlib.contextmanager
+def swapped(module, attr: str, value):
+    old = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, old)
+
+
+def variant(name: str) -> contextlib.ExitStack:
+    """A context in which the A/B variant `name` is in place."""
+    stack = contextlib.ExitStack()
+    for module, attrs in VARIANTS[name].items():
+        for attr, fn in attrs.items():
+            stack.enter_context(swapped(module, attr, fn))
+    return stack
+
+
+def _smi_time(stamp: str) -> float:
+    return datetime.datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f").timestamp()
+
+
+@contextlib.contextmanager
+def smi_samples(path: Path):
+    """nvidia-smi writes timestamp, SM clock, power draw every 100 ms to
+    `path` while the block runs; yields a list filled after it ends."""
+    samples: list[tuple[float, float, float]] = []
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [shutil.which("nvidia-smi") or "nvidia-smi",
+             "--query-gpu=timestamp,clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=f, stderr=subprocess.DEVNULL)
+        try:
+            yield samples
+        finally:
+            proc.terminate()
+            proc.wait(timeout=10)
+    for line in path.read_text().splitlines():
+        try:  # a line nvidia-smi could not fill ("[N/A]") is left out
+            stamp, clock, power = line.split(",")
+            samples.append((_smi_time(stamp), float(clock), float(power)))
+        except ValueError:
+            continue
+
+
+def phase_ab(loop: StepLoop, out: Path) -> dict:
+    windows = []
+    with smi_samples(out / "smi_ab.csv") as samples:
+        for name in AB_ORDER:
+            with variant(name):
+                loop.run(1)
+                t0 = time.time()
+                ms = loop.ms_per_step(WINDOW)
+                t1 = time.time()
+            windows.append({"variant": name, "ms_per_step": ms, "t0": t0, "t1": t1})
+            log(f"ab: {name} {ms:.2f} ms/step")
+    for w in windows:
+        inside = [s for s in samples if w["t0"] <= s[0] <= w["t1"]]
+        w["smi_samples"] = len(inside)
+        w["sm_clock_mhz"] = sum(s[1] for s in inside) / len(inside) if inside else None
+        w["power_w"] = sum(s[2] for s in inside) / len(inside) if inside else None
+        del w["t0"], w["t1"]
+    return {
+        "order": list(AB_ORDER),
+        "windows": windows,
+        "ms_per_step": {v: [w["ms_per_step"] for w in windows if w["variant"] == v]
+                        for v in VARIANTS},
+    }
+
+
+# ------------------------------------------------------------------ data
+def phase_data(dev: torch.device) -> dict:
+    ds = SyntheticImageDataset(DATA_EPOCH_BATCHES * BATCH, (HEIGHT, WIDTH))
+    rates: dict[str, list[float]] = {"resident": [], "streaming": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, mode in enumerate(DATA_ORDER):
+            with contextlib.ExitStack() as stack:
+                if mode == "streaming":
+                    stack.enter_context(swapped(sndcgan_engine, "resident_budget",
+                                                 lambda device: 0))
+                eng = sndcgan_engine.SNDCGANEngine(
+                    f"{tmp}/{i}", ds, BATCH, image_size=(HEIGHT, WIDTH, 3),
+                    device=dev, spectral_norm=True, loss="hinge",
+                    dtype=torch.bfloat16, base_width=BASE)
+                if eng.resident != (mode == "resident"):
+                    raise RuntimeError(f"engine picked the wrong data path for {mode}")
+                eng.train(2, 100)  # epoch 0 warms up; epoch 1 is read
+            perf = json.loads(Path(f"{tmp}/{i}/perf.jsonl").read_text().splitlines()[-1])
+            rates[mode].append(perf["steps_per_sec"])
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    return {"epoch_steps": DATA_EPOCH_BATCHES, "order": list(DATA_ORDER),
+            "steps_per_sec": rates}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", required=True, help="directory for the results")
+    args = ap.parse_args(argv)
+    dev = platform.require_cuda()
+    card = platform.card_description()
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    log(f"torch {torch.__version__}, cuda {torch.version.cuda}; {CONFIG}; card: {card}")
+
+    summary: dict = {"card": card, "config": CONFIG, "torch": torch.__version__}
+    loop = StepLoop(headline_config(), dev)
+    rate = summary["rate"] = phase_rate(loop, dev)
+    log(f"rate: {[f'{s:.3f}' for s in rate['steps_per_sec']]} steps/s over "
+        f"{WINDOW}-step windows; one step's peak allocation "
+        f"{rate['step_peak_allocated_bytes'] / 2**30:.2f} GiB ({card})")
+    prof = summary["profile"] = phase_profile(loop, out)
+    log(f"profile: {prof['window_ms_per_step']:.2f} ms/step under the profiler, "
+        f"device busy {prof['device_busy_ms_per_step']:.2f} ms/step "
+        f"(share {prof['busy_share_under_profiler']:.3f}) ({card})")
+    for cls, ms in prof["device_ms_per_step_by_class"].items():
+        log(f"  {ms:8.3f} ms/step  {cls}")
+    ab = summary["ab"] = phase_ab(loop, out)
+    for v, ms in ab["ms_per_step"].items():
+        log(f"ab: {v} ms/step {[round(m, 2) for m in ms]} ({card})")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = summary["data"] = phase_data(dev)
+    log(f"data: steps/s {data['steps_per_sec']} ({card})")
+
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(card)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

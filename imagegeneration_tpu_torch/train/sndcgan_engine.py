@@ -1,0 +1,216 @@
+"""SNDCGAN training engine: epoch loop, checkpoint/resume, loss history.
+
+The counterpart of imagegeneration_tpu/train/sndcgan_engine.py (itself the
+reference class `SNDCGAN`, sndcgan/SNDCGAN.py:148-335), on one device:
+
+- the constructor wipes the output directory unless continuing, loads
+  `losses.pickle`, keeps `max_to_keep=2` checkpoints and restores the
+  latest one when `continue_`;
+- `train(num_epochs, checkpoint_frequency)` runs epochs [start,
+  num_epochs); every `checkpoint_frequency` epochs it checkpoints the whole
+  train state and appends + pickles the loss history; every epoch appends a
+  line to `perf.jsonl`.
+
+A dataset that fits `resident_budget` is resident on the device (uint8):
+each epoch is a Python loop of train steps over a permutation gather, and
+the metrics stay on the device until the epoch's one sync. A larger
+dataset streams uint8 batches from the host through a prefetch thread.
+
+Not here yet: multi-device training, live-preview PDFs and the loss plot
+(both need matplotlib, which the GPU machine lacks; they wait for the
+core/preview.py port) and params-only msgpack exports.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import sys
+from os import path
+from time import gmtime, perf_counter, strftime
+
+import numpy as np
+import torch
+
+from imagegeneration_tpu_torch.core import checkpoint as ckptlib
+from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import metrics as metricslib
+from imagegeneration_tpu_torch.core import rng as rnglib
+from imagegeneration_tpu_torch.models import sndcgan as modellib
+from imagegeneration_tpu_torch.train import sndcgan_step as steplib
+
+LOSS_KEYS = ("epoch", "avg_g_loss", "avg_d_loss", "d_real", "d_fake")
+RESIDENT_SHARE = 0.5
+
+
+def resident_budget(device: torch.device) -> int:
+    """Bytes of uint8 images the engine keeps on `device`.
+
+    On a card: half of the memory free once the train state is placed; the
+    step's own activations take the other half (PERF.md gives the headline
+    step's measured peak). On the CPU the images already live in host
+    memory and `torch.from_numpy` shares them, so every dataset fits."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return int(free * RESIDENT_SHARE)
+    return sys.maxsize
+
+
+class SNDCGANEngine:
+    """Capability match for the reference SNDCGAN trainer class."""
+
+    def __init__(
+        self,
+        dir_path: str,
+        dataset,  # path to an image folder, or any object with images/epoch_batches
+        batch_size: int,
+        dropout: float = 0.5,
+        learning_rate_disc: float = 2e-4,
+        learning_rate_gen: float = 2e-4,
+        continue_: bool = False,
+        image_size: tuple[int, int, int] = (144, 256, 3),
+        z_size: int = 128,
+        *,
+        device: torch.device,
+        spectral_norm: bool = False,
+        loss: str = "bce",
+        d_updates: int = 2,
+        quirk_eval_bn: bool = False,
+        base_width: int = 512,
+        dtype: torch.dtype = torch.float32,
+        seed: int = rnglib.DEFAULT_MODEL_SEED,
+    ) -> None:
+        if not continue_ and os.path.exists(dir_path):
+            shutil.rmtree(dir_path)
+        os.makedirs(dir_path, exist_ok=True)
+        self.dir_path = dir_path
+        self.device = torch.device(device)
+        if isinstance(dataset, (str, os.PathLike)):
+            dataset = datalib.ImageFolderDataset(dataset, image_size[:2], labeled=True)
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_batches = len(dataset.images) // batch_size
+        if self.num_batches < 1:
+            raise ValueError(
+                f"dataset of {len(dataset.images)} images has no full batch "
+                f"of {batch_size}"
+            )
+        self.cfg = steplib.SNDCGANTrainConfig(
+            model=modellib.SNDCGANConfig(
+                image_size=image_size, z_size=z_size, dropout_rate=dropout,
+                base_width=base_width, spectral_norm=spectral_norm,
+                quirk_eval_bn=quirk_eval_bn, dtype=dtype,
+            ),
+            batch_size=batch_size,
+            lr_gen=learning_rate_gen,
+            lr_disc=learning_rate_disc,
+            loss=loss,
+            d_updates=d_updates,
+            seed=seed,
+        )
+        self.chain = rnglib.KeyChain(seed)
+        self.state = steplib.init_state(self.cfg, self.device)
+        self._step = steplib.make_train_step(self.cfg)
+        self.resident = self.dataset.images.nbytes <= resident_budget(self.device)
+        self._epoch_runner = (
+            steplib.make_epoch_runner(self.cfg) if self.resident else None
+        )
+        self._resident_images: torch.Tensor | None = None
+        self._sample = steplib.make_sampler(self.cfg)
+        self.last_epoch_metrics: dict[str, float] | None = None
+
+        self.losses = metricslib.LossHistory(
+            path.join(dir_path, "losses.pickle"), LOSS_KEYS
+        )
+        self.ckpt_manager = ckptlib.CheckpointManager(
+            path.join(dir_path, "checkpoints"), max_to_keep=2
+        )
+        if continue_ and self.ckpt_manager.latest_epoch() is not None:
+            self.state.load_state_dict(self.ckpt_manager.restore())
+            self.start_epoch = self.ckpt_manager.latest_epoch() + 1
+            print("Latest checkpoint restored!!")
+        else:
+            self.start_epoch = 0
+            print("No checkpoints were restored!!")
+
+        n_g = sum(p.numel() for p in self.state.gen.parameters())
+        n_d = sum(p.numel() for p in self.state.disc.parameters())
+        print(f"Generator params: {n_g:,} | Discriminator params: {n_d:,}")
+        print("\nInitialized SNDCGAN successfully!\n")
+
+    def sample(self, z: torch.Tensor) -> np.ndarray:
+        """G(z) in [0, 1], (B, H, W, C) (generator_output semantics)."""
+        return self._sample(self.state, z.to(self.device)).cpu().numpy()
+
+    # --------------------------------------------------------------- train
+    def _run_epoch_streaming(self, epoch: int):
+        per_step = []
+        pinned = self.device.type == "cuda"
+        for batch in datalib.prefetch(
+            self.dataset.epoch_batches(self.batch_size, epoch), depth=2
+        ):
+            t = torch.from_numpy(batch)
+            if pinned:
+                t = t.pin_memory()
+            self.state, m = self._step(self.state, t.to(self.device, non_blocking=True))
+            per_step.append(m)
+        stacked = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+        return stacked, len(per_step)
+
+    def _run_epoch_resident(self, epoch: int):
+        if self._resident_images is None:
+            self._resident_images = torch.from_numpy(self.dataset.images).to(self.device)
+        nb = self.num_batches
+        rng = self.chain.numpy_rng("data", epoch)
+        perm = rng.permutation(len(self.dataset.images))[: nb * self.batch_size]
+        perm = torch.from_numpy(perm.reshape(nb, self.batch_size)).to(self.device)
+        self.state, metrics = self._epoch_runner(
+            self.state, self._resident_images, perm
+        )
+        return metrics, nb
+
+    def train(self, num_epochs: int, checkpoint_frequency: int = 5) -> None:
+        start_time = perf_counter()
+        watch = metricslib.Stopwatch()
+        local = {k: [] for k in LOSS_KEYS}
+
+        for epoch in range(self.start_epoch, num_epochs):
+            watch.epoch_start()
+            if self.resident:
+                metrics, n_steps = self._run_epoch_resident(epoch)
+            else:
+                metrics, n_steps = self._run_epoch_streaming(epoch)
+            # The epoch's one host sync: the device finishes its steps here.
+            agg = {k: float(v.float().mean()) for k, v in metrics.items()}
+            perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
+            metricslib.write_metrics_jsonl(
+                path.join(self.dir_path, "perf.jsonl"),
+                {"epoch": epoch, "device": device_name(self.device), **perf},
+            )
+            local["epoch"].append(epoch)
+            local["avg_g_loss"].append(agg["g_loss"])
+            local["avg_d_loss"].append(agg["d_loss"])
+            local["d_real"].append(agg["d_loss_real"])
+            local["d_fake"].append(agg["d_loss_fake"])
+            self.last_epoch_metrics = agg
+
+            print(
+                "Epoch {:04d} | ET {} min | Avg Losses G/D {:.4f}/{:.4f} "
+                "[D-Real: {:.4f} D-Fake {:.4f}] | {:.2f} steps/s".format(
+                    epoch,
+                    strftime("%H:%M:%S", gmtime(perf_counter() - start_time)),
+                    agg["g_loss"], agg["d_loss"], agg["d_loss_real"],
+                    agg["d_loss_fake"], perf["steps_per_sec"],
+                )
+            )
+            if epoch % checkpoint_frequency == 0:
+                self.losses.extend(local)
+                local = {k: [] for k in LOSS_KEYS}
+                self.ckpt_manager.save(epoch, self.state.state_dict())
+                self.losses.save()
+
+
+def device_name(device: torch.device) -> str:
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"

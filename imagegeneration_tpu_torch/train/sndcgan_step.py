@@ -1,0 +1,218 @@
+"""The SNDCGAN train step: one G update and two D updates per batch.
+
+The counterpart of imagegeneration_tpu/train/sndcgan_step.py, in the
+reference's order (sndcgan/SNDCGAN.py:241-269):
+
+1. G pass: G(z) with train-mode BN (its running statistics update here,
+   once per step), D on the fresh fake at the OLD spectral-norm `u` without
+   writing it, the G loss, G gradients, G Adam apply.
+2. D-real pass: D on the real batch, writing the new `u`; D gradients; D
+   Adam apply.
+3. D-fake pass: the real-updated D, at the new `u` (not written again), on
+   the fake batch of step 1 (the PRE-update generator's); D gradients; D
+   Adam apply. With `d_updates=1` steps 2 and 3 are one combined loss and
+   one apply.
+
+Dropout sites are numbered G-pass 0-6, D-real 7-13, D-fake 14-20; their key
+words come from a (21, 2) table `kw`, derived on the device from the step
+counter (core/rng.py) unless the caller passes one. The latent `z` comes
+from the state's device generator unless passed. Parameters, moments, BN
+statistics and `u` are updated in place (PyTorch idiom; the JAX step
+returns new arrays); `train_step` returns the same state object.
+
+No host sync happens inside a step: the step counter, the key words, Adam's
+alpha and the metrics all stay on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from imagegeneration_tpu_torch.core import rng as rnglib
+from imagegeneration_tpu_torch.core.data import normalize
+from imagegeneration_tpu_torch.models import sndcgan
+from imagegeneration_tpu_torch.train import common
+
+N_SITES = 3 * sndcgan.N_DROPOUT_SITES
+METRIC_KEYS = (
+    "g_loss", "d_loss", "d_loss_real", "d_loss_fake", "d_prob_real",
+    "d_prob_fake",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SNDCGANTrainConfig:
+    model: sndcgan.SNDCGANConfig = sndcgan.SNDCGANConfig()
+    batch_size: int = 32
+    lr_gen: float = 2e-4  # sndcgan/Trainer.py:26-27
+    lr_disc: float = 2e-4
+    loss: str = "bce"  # "bce" (reference) | "hinge" (SN-GAN)
+    # D optimizer applies per batch: 2 = the reference's (real, then the
+    # stale fake on the real-updated D); 1 = one combined update.
+    d_updates: int = 2
+    seed: int = rnglib.DEFAULT_MODEL_SEED
+
+    def __post_init__(self) -> None:
+        if self.loss not in ("bce", "hinge"):
+            raise ValueError(f"unknown loss {self.loss!r}")
+        if self.d_updates not in (1, 2):
+            raise ValueError(f"d_updates must be 1 or 2, got {self.d_updates}")
+
+
+@dataclasses.dataclass
+class SNDCGANState:
+    step: torch.Tensor  # 0-d int64 on the device
+    gen: sndcgan.Generator
+    disc: sndcgan.Discriminator
+    g_opt: common.AdamState
+    d_opt: common.AdamState
+    z_gen: torch.Generator  # the "z" stream, on the device
+
+    @property
+    def device(self) -> torch.device:
+        return self.step.device
+
+    def state_dict(self) -> dict:
+        return {
+            "step": self.step,
+            "gen": self.gen.state_dict(),
+            "disc": self.disc.state_dict(),
+            "g_opt": self.g_opt.state_dict(),
+            "d_opt": self.d_opt.state_dict(),
+            "z_gen": self.z_gen.get_state(),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        with torch.no_grad():
+            self.step.copy_(sd["step"])
+        self.gen.load_state_dict(sd["gen"])
+        self.disc.load_state_dict(sd["disc"])
+        self.g_opt.load_state_dict(sd["g_opt"])
+        self.d_opt.load_state_dict(sd["d_opt"])
+        self.z_gen.set_state(sd["z_gen"].cpu())
+
+
+def init_state(cfg: SNDCGANTrainConfig, device: torch.device | str) -> SNDCGANState:
+    """Initial state; weights are drawn on the CPU from the "params" stream,
+    so they are the same on every device for a seed."""
+    chain = rnglib.KeyChain(cfg.seed)
+    gen = sndcgan.Generator(cfg.model, chain.generator("params", step=0))
+    disc = sndcgan.Discriminator(cfg.model, chain.generator("params", step=1))
+    gen.to(device)
+    disc.to(device)
+    return SNDCGANState(
+        step=torch.zeros((), dtype=torch.int64, device=device),
+        gen=gen,
+        disc=disc,
+        g_opt=common.adam_init(list(gen.parameters())),
+        d_opt=common.adam_init(list(disc.parameters())),
+        z_gen=chain.generator("z", device),
+    )
+
+
+def make_train_step(cfg: SNDCGANTrainConfig):
+    """Build `train_step(state, batch_u8, z=None, kw=None) -> (state,
+    metrics)`. batch_u8: (B, H, W, C) uint8 on the state's device; z: (B,
+    z_size) float32; kw: (21, 2) int64 dropout key words. Metrics are 0-d
+    float32 device tensors."""
+    chain = rnglib.KeyChain(cfg.seed)
+    mcfg = cfg.model
+    hinge = cfg.loss == "hinge"
+
+    def loss_real(logits):
+        if hinge:
+            return common.hinge_d_loss_real(logits)
+        return common.bce_logits_mean(torch.ones_like(logits), logits)
+
+    def loss_fake(logits):
+        if hinge:
+            return common.hinge_d_loss_fake(logits)
+        return common.bce_logits_mean(torch.zeros_like(logits), logits)
+
+    def train_step(state: SNDCGANState, batch_u8: torch.Tensor,
+                   z: torch.Tensor | None = None,
+                   kw: torch.Tensor | None = None):
+        gen, disc, device = state.gen, state.disc, state.device
+        g_params = list(gen.parameters())
+        d_params = list(disc.parameters())
+        x_real = normalize(batch_u8, mcfg.dtype).permute(0, 3, 1, 2)
+        if kw is None:
+            kw = chain.dropout_kw(state.step, N_SITES)
+        if z is None:
+            z = rnglib.uniform_z(state.z_gen, batch_u8.shape[0], mcfg.z_size, device)
+        n = sndcgan.N_DROPOUT_SITES
+        kw_g, kw_real, kw_fake = kw[:n], kw[n:2 * n], kw[2 * n:3 * n]
+
+        # ---- Generator update (D at the old `u`, not written).
+        fake = gen(z, train=True)
+        logits_g = disc(fake, kw_g, update_sn=False)
+        if hinge:
+            g_loss = common.hinge_g_loss(logits_g)
+        else:
+            g_loss = common.bce_logits_mean(torch.ones_like(logits_g), logits_g)
+        g_grads = torch.autograd.grad(g_loss, g_params)
+        common.adam_apply(g_params, g_grads, state.g_opt, cfg.lr_gen)
+        fake = fake.detach()  # the PRE-update generator's batch
+
+        if cfg.d_updates == 1:
+            logits_real = disc(x_real, kw_real, update_sn=True)
+            logits_fake = disc(fake, kw_fake, update_sn=False)
+            d_loss_real = loss_real(logits_real)
+            d_loss_fake = loss_fake(logits_fake)
+            d_grads = torch.autograd.grad(d_loss_real + d_loss_fake, d_params)
+            common.adam_apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
+        else:
+            # ---- D update #1: real batch, writes the new `u`.
+            logits_real = disc(x_real, kw_real, update_sn=True)
+            d_loss_real = loss_real(logits_real)
+            d_grads = torch.autograd.grad(d_loss_real, d_params)
+            common.adam_apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
+            # ---- D update #2: stale fake batch on the real-updated D.
+            logits_fake = disc(fake, kw_fake, update_sn=False)
+            d_loss_fake = loss_fake(logits_fake)
+            d_grads = torch.autograd.grad(d_loss_fake, d_params)
+            common.adam_apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
+
+        with torch.no_grad():
+            state.step.add_(1)
+            metrics = {
+                "g_loss": g_loss.detach(),
+                "d_loss": (d_loss_real + d_loss_fake).detach(),
+                "d_loss_real": d_loss_real.detach(),
+                "d_loss_fake": d_loss_fake.detach(),
+                "d_prob_real": torch.mean(torch.sigmoid(logits_real.float())),
+                "d_prob_fake": torch.mean(torch.sigmoid(logits_fake.float())),
+            }
+        return state, metrics
+
+    return train_step
+
+
+def make_sampler(cfg: SNDCGANTrainConfig):
+    """`sample(state, z) -> (B, H, W, C)` float32 images in [0, 1]:
+    G(z) with inference-mode BN, denormalized (generator_output.py)."""
+
+    @torch.no_grad()
+    def sample(state: SNDCGANState, z: torch.Tensor) -> torch.Tensor:
+        imgs = state.gen(z, train=False)
+        return ((imgs + 1.0) / 2.0).permute(0, 2, 3, 1)
+
+    return sample
+
+
+def make_epoch_runner(cfg: SNDCGANTrainConfig):
+    """`run_epoch(state, images_u8, perm) -> (state, metrics)` over a
+    device-resident uint8 dataset (N, H, W, C) and a (nb, B) device index
+    table; metrics come back stacked per batch, still on the device."""
+    step_fn = make_train_step(cfg)
+
+    def run_epoch(state: SNDCGANState, images_u8: torch.Tensor, perm: torch.Tensor):
+        per_step = []
+        for b in range(perm.shape[0]):
+            state, m = step_fn(state, images_u8.index_select(0, perm[b]))
+            per_step.append(m)
+        return state, {k: torch.stack([m[k] for m in per_step]) for k in METRIC_KEYS}
+
+    return run_epoch

@@ -7,20 +7,34 @@ Phases (any failure raises, and the exit code is non-zero):
 
 1. Require a CUDA device; print the Python/torch/CUDA versions and the
    card's name and power limit.
-2. Build the hand-written CUDA kernels from csrc/ (nvcc + ctypes).
+2. Build the hand-written CUDA kernels from csrc/ (one nvcc per source, all
+   started together; ctypes binding).
 3. Each kernel against its plain PyTorch version on the card, at the shapes
-   of the headline SNDCGAN step (256x144, batch 32, base_width 512, bf16):
-   the fused LeakyReLU + hash dropout forward and backward at each of the
-   four distinct discriminator site shapes (timed at the largest), and
-   Keras Adam on every generator and discriminator leaf. Both times are
-   measured with CUDA events.
-4. A small float32 step on the card against the same step on the CPU (the
-   plain kernel versions), from the same weights, latents and key words.
-5. The training slice through its entry point, SNDCGANEngine: spectral-norm
-   D, hinge loss, bf16, one epoch with a checkpoint, then a new engine that
-   resumes from it for a second epoch. The kernels' launch counters are
-   zeroed just before and read just after; every kernel must have run, as
-   often as the step's structure says.
+   of the headline steps, with times beside the least time the card could
+   take (bytes over 3.35 TB/s, or operations over 67 TFLOP/s float32,
+   whichever is larger) and, where one PyTorch call computes the same
+   function, that call's time. A time is the device time of the kernels a
+   call launches, summed from the profiler over back-to-back calls:
+   - SNDCGAN (256x144, batch 32, base_width 512, bf16): the fused LeakyReLU
+     + hash dropout forward and backward at each of the four distinct
+     discriminator site shapes (timed at the largest);
+   - Keras Adam on every generator and discriminator leaf of each slice,
+     with that slice's b1 (SNDCGAN 0.9, CycleGAN 0.5), timed per slice;
+   - CycleGAN (128x128, batch 4, base_width 64, 9 res blocks): the
+     InstanceNorm forward and backward, with and without ReLU, at each of
+     the seven distinct norm shapes, float32 and bfloat16; timed at the
+     most frequent shape (4, 256, 32, 32) and the largest (4, 64, 128, 128)
+     against the plain version and F.instance_norm.
+4. A small float32 step of each model on the card against the same step on
+   the CPU (the plain kernel versions), from the same weights and inputs.
+5. Each training slice through its entry point, one after the other, the
+   launch counters zeroed just before and read just after; every kernel
+   of the path must have run exactly as often as the step's structure
+   says, and no other:
+   - SNDCGANEngine: spectral-norm D, hinge loss, bf16, one epoch with a
+     checkpoint, then a new engine that resumes from it for a second epoch;
+   - CycleGANEngine at the headline configuration (float32): one epoch, then
+     a new engine on the same directory auto-resumes for a second.
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -31,23 +45,43 @@ from __future__ import annotations
 
 import json
 import math
+import pickle
 import sys
 import tempfile
 import time
 
 import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core.data import SyntheticImageDataset
 from imagegeneration_tpu_torch.core.rng import KeyChain
+from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import DISC_TRUNK, SNDCGANConfig
 from imagegeneration_tpu_torch.ops import adam, dropout, native
+from imagegeneration_tpu_torch.ops import instance_norm as inorm
+from imagegeneration_tpu_torch.tools.profile_step import self_device_us
+from imagegeneration_tpu_torch.train import cyclegan_step
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
+from imagegeneration_tpu_torch.train.cyclegan_engine import LOSS_KEYS as CG_LOSS_KEYS
+from imagegeneration_tpu_torch.train.cyclegan_engine import CycleGANEngine
 from imagegeneration_tpu_torch.train.sndcgan_engine import SNDCGANEngine
 
 HEIGHT, WIDTH, BATCH, BASE = 144, 256, 32, 512
 EPOCH_BATCHES = 8
 BF16_ULP = 2.0**-7  # one bfloat16 ulp is at most |v| * 2^-7
+# The headline CycleGAN configuration (bench.py:489-503).
+CG_SIZE, CG_BATCH, CG_BASE, CG_RES = 128, 4, 64, 9
+# Distinct InstanceNorm shapes (B, C, H, W) of its step: G stem/up1,
+# down0/up0, down1 + 18 res-block norms, to_rgb; D conv1-3.
+IN_SHAPES = [(4, 64, 128, 128), (4, 128, 64, 64), (4, 256, 32, 32), (4, 3, 128, 128),
+             (4, 128, 30, 30), (4, 256, 14, 14), (4, 512, 6, 6)]
+IN_FREQUENT, IN_LARGEST = IN_SHAPES[2], IN_SHAPES[0]
+EPS = 1e-3  # tfa InstanceNormalization's epsilon, the models' value
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_FLOP_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
+KERNELS = ("leaky_relu_dropout", "adam", "instance_norm")
 
 
 def log(msg: str) -> None:
@@ -59,19 +93,48 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of `fn`, by CUDA events."""
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of `fn`: the summed durations of
+    the kernels it launches, from the profiler's CUDA activity."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(self_device_us(a) for a in prof.key_averages())
+    require(us > 0, "the profiler recorded no device time")
+    return us / iters / 1e3
+
+
+def timing(kernel, plain, library=None, iters: int = 20) -> dict:
+    """Device ms of the kernel's wrapper, its plain version and, where there
+    is one, the library call."""
+    out = {"library_ms": None}
+    for prefix, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        if fn is not None:
+            out[f"{prefix}ms"] = device_ms(fn, iters)
+    return out
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def zero_launches() -> None:
+    for counts in (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict[str, int]:
+    torch.cuda.synchronize()
+    return {**dropout.LAUNCHES, **adam.LAUNCHES, **inorm.LAUNCHES}
 
 
 def max_ulp_f32(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -143,61 +206,91 @@ def check_dropout(dev: torch.device, card: str) -> list[dict]:
         (names[1], lambda: dropout.bwd_kernel(x, g, kw, cut),
          lambda: dropout.bwd_plain(x, g, kw, cut), 61),
     ):
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        times = timing(kernel, plain)
+        n_tensors = 2 if name == names[0] else 3  # x, y / x, g, dx
         out.append({
             "name": name, "route": "cuda",
             "source": "imagegeneration_tpu_torch/csrc/leaky_relu_dropout.cu",
             "replaces": f"imagegeneration_tpu/ops/pallas/dropout.py:{line}",
             "max_abs_err": max_err[name], "tolerance": "1 bf16 ulp, mask exact",
             "checked_shapes_nchw": [list(s) for s in shapes],
-            "ms": ms, "plain_ms": plain_ms, "timed_shape_nhwc": [b, h, w, c],
-            "dtype": "bfloat16",
+            **times, "timed_shape_nhwc": [b, h, w, c], "dtype": "bfloat16",
+            # ~20 integer and float operations per element (hash, select, scale)
+            **bound(n_tensors * x.numel() * x.element_size(), 20 * x.numel()),
+            "library_note": "no PyTorch call computes this hash-masked dropout",
         })
-        log(f"{name} at {shapes[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"({card})")
+        log(f"{name} at {shapes[0]}: kernel {times['ms']:.4f} ms, plain "
+            f"{times['plain_ms']:.4f} ms device time ({card})")
     return out
 
 
-def check_adam(dev: torch.device, card: str) -> dict:
-    """Kernel vs plain on every leaf of the headline G and D, one apply."""
-    cfg = steplib.SNDCGANTrainConfig(model=SNDCGANConfig(
-        image_size=(HEIGHT, WIDTH, 3), base_width=BASE, spectral_norm=True,
-        dtype=torch.bfloat16))
-    state = steplib.init_state(cfg, dev)
-    leaves = [p.detach() for p in state.gen.parameters()] + [
-        p.detach() for p in state.disc.parameters()]
+def adam_leaves(path: str, dev: torch.device) -> tuple[list[torch.Tensor], float]:
+    """Every G and D leaf of one headline slice's state, and its b1."""
+    if path == "sndcgan":
+        state = steplib.init_state(steplib.SNDCGANTrainConfig(model=SNDCGANConfig(
+            image_size=(HEIGHT, WIDTH, 3), base_width=BASE, spectral_norm=True,
+            dtype=torch.bfloat16)), dev)
+        return [p.detach() for m in (state.gen, state.disc) for p in m.parameters()], 0.9
+    cfg = cyclegan_step.CycleGANTrainConfig(model=CycleGANConfig(
+        image_size=(CG_SIZE, CG_SIZE, 3), base_width=CG_BASE, n_res_blocks=CG_RES))
+    state = cyclegan_step.init_state(cfg, dev)
+    models = (state.gen_g, state.gen_f, state.disc_x, state.disc_y)
+    return [p.detach() for m in models for p in m.parameters()], cfg.beta1
+
+
+def check_adam_path(path: str, dev: torch.device, card: str) -> dict:
+    """Kernel vs plain on every leaf of one slice, with its b1; then one
+    apply over all of them timed."""
+    leaves, b1 = adam_leaves(path, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     grads = [torch.randn(p.shape, generator=gen, device=dev) for p in leaves]
     ms_ = [torch.randn(p.shape, generator=gen, device=dev) for p in leaves]
     vs_ = [torch.rand(p.shape, generator=gen, device=dev) for p in leaves]
-    alpha = adam.adam_alpha(torch.tensor(3, device=dev), 2e-4, 0.9, 0.999)
+    alpha = adam.adam_alpha(torch.tensor(3, device=dev), 2e-4, b1, 0.999)
     worst = 0
     max_err = 0.0
     for p, g, m, v in zip(leaves, grads, ms_, vs_):
         pk, mk, vk = p.clone(), m.clone(), v.clone()
         pp, mp, vp = p.clone(), m.clone(), v.clone()
-        adam.adam_leaf_kernel(pk, g, mk, vk, alpha, 0.9, 0.999)
-        adam.adam_leaf_plain(pp, g, mp, vp, alpha, 0.9, 0.999)
+        adam.adam_leaf_kernel(pk, g, mk, vk, alpha, b1, 0.999)
+        adam.adam_leaf_plain(pp, g, mp, vp, alpha, b1, 0.999)
         for a, b in ((pk, pp), (mk, mp), (vk, vp)):
             worst = max(worst, max_ulp_f32(a, b))
             max_err = max(max_err, (a - b).abs().max().item())
-    require(worst <= 2, f"adam kernel {worst} ulp from plain (bound 2)")
+    require(worst <= 2, f"adam kernel {worst} ulp from plain on {path} leaves (bound 2)")
 
     def run(apply_leaf):
         for p, g, m, v in zip(leaves, grads, ms_, vs_):
-            apply_leaf(p, g, m, v, alpha, 0.9, 0.999)
+            apply_leaf(p, g, m, v, alpha, b1, 0.999)
 
-    ms = cuda_ms(lambda: run(adam.adam_leaf_kernel), iters=10)
-    plain_ms = cuda_ms(lambda: run(adam.adam_leaf_plain), iters=10)
+    times = timing(lambda: run(adam.adam_leaf_kernel),
+                   lambda: run(adam.adam_leaf_plain), iters=10)
     n = sum(p.numel() for p in leaves)
-    log(f"adam ({len(leaves)} leaves, {n:,} elements): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, max {worst} ulp ({card})")
+    log(f"adam on {path} ({len(leaves)} leaves, {n:,} elements, b1={b1}): kernel "
+        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms device time, max "
+        f"{worst} ulp ({card})")
+    # read p, g, m, v and write p, m, v; ~12 float32 operations each
+    return {"b1": b1, "leaves": len(leaves), "elements": n, "max_abs_err": max_err,
+            "max_ulp": worst, **times, **bound(28 * n, 12 * n)}
+
+
+def check_adam(dev: torch.device, card: str) -> dict:
+    """Kernel vs plain on the leaves of both slices. The record's times and
+    bound are one apply over the CycleGAN leaves, the path whose launches it
+    reports; `by_path` holds each slice's own."""
+    by_path = {p: check_adam_path(p, dev, card) for p in ("sndcgan", "cyclegan")}
+    main = by_path["cyclegan"]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "leaves", "elements")
     return {
         "name": "adam", "route": "cuda", "source": "imagegeneration_tpu_torch/csrc/adam.cu",
         "replaces": "imagegeneration_tpu/ops/pallas/adam.py:69",
-        "max_abs_err": max_err, "max_ulp": worst, "tolerance": "2 ulp",
-        "ms": ms, "plain_ms": plain_ms, "leaves": len(leaves), "elements": n,
-        "ms_is_per": "one apply over every G and D leaf",
+        "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
+        "max_ulp": max(r["max_ulp"] for r in by_path.values()), "tolerance": "2 ulp",
+        **{k: main[k] for k in keys}, "by_path": by_path,
+        "ms_is_per": "one apply over every CycleGAN G and D leaf (b1 0.5)",
+        "library_note": "torch.optim.Adam adds eps to sqrt(v_hat) after bias-"
+                        "correcting m and v; Keras adds it to sqrt(v) and folds the "
+                        "correction into the step size, a different update",
     }
 
 
@@ -230,7 +323,181 @@ def check_small_step_against_cpu(dev: torch.device) -> None:
     log(f"small float32 step, card vs CPU: metrics within 1e-3, samples max abs err {err:.3g}")
 
 
-def run_slice(dev: torch.device, card: str) -> dict:
+def in_inputs(dev: torch.device, shape, dtype) -> tuple[torch.Tensor, ...]:
+    """x ~ N(2, 3), dy ~ N(0, 1) (channels_last), gamma ~ N(1, 0.1), beta ~
+    N(0, 0.1), as the JAX package's kernel tests draw them."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (2.0 + 3.0 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(shape[1], generator=gen, device=dev)
+    beta = 0.1 * torch.randn(shape[1], generator=gen, device=dev)
+    cl = torch.channels_last
+    return x.contiguous(memory_format=cl), dy.contiguous(memory_format=cl), gamma, beta
+
+
+def in_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+             terms: int = 128) -> float:
+    """Require |got - want| <= tol * sqrt(terms / 128) + (tol + ulp) |want|:
+    rtol/atol `tol` (tests/test_pallas_ops.py), the atol of a sum of `terms`
+    float32 values scaled by sqrt(terms / 128) from those tests' 128, and one
+    bf16 ulp (2^-7 |v|) for a bf16 output. Returns the max abs error."""
+    ulp = BF16_ULP if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = tol * max(1.0, (terms / 128) ** 0.5) + (tol + ulp) * want.abs()
+    require(bool((err <= limit).all()),
+            f"{what}: beyond tolerance by {(err - limit).max().item():.3g}")
+    return err.max().item()
+
+
+def time_instance_norm(shape) -> dict:
+    """Kernel, plain and library device times (float32) at one shape."""
+    dev = torch.device("cuda", 0)
+    x, dy, gamma, beta = in_inputs(dev, shape, torch.float32)
+    b, c, h, w = shape
+    n = x.numel()
+    _, mean, rstd = inorm.in_fwd_plain(x, gamma, beta, EPS, False)
+    # The library's backward: F.instance_norm runs batch norm over the
+    # (1, B*C, H, W) view of the NCHW-contiguous input; its backward is one
+    # aten call on that view, with gamma repeated per sample.
+    x_r, dy_r = (t.contiguous().view(1, b * c, h, w) for t in (x, dy))
+    g_r = gamma.repeat(b)
+
+    def library_bwd():
+        return torch.ops.aten.native_batch_norm_backward(
+            dy_r, x_r, g_r, None, None, mean.view(-1), rstd.view(-1), True, EPS,
+            [True, True, True])
+
+    dx_lib = library_bwd()[0].view(b, c, h, w)
+    dx_plain = inorm.in_bwd_plain(x, dy, gamma, beta, mean, rstd, False)[0]
+    require(torch.allclose(dx_lib, dx_plain, rtol=1e-4, atol=1e-4),
+            f"native_batch_norm_backward is not the same function at {shape}")
+    xg, gg, bg = (t.detach().clone().requires_grad_(True) for t in (x, gamma, beta))
+
+    def fwd_bwd(norm):
+        return lambda: torch.autograd.grad(norm(xg, gg, bg), (xg, gg, bg), dy)
+
+    return {
+        "fwd": {
+            **timing(lambda: inorm.in_fwd_kernel(x, gamma, beta, EPS, False),
+                     lambda: inorm.in_fwd_plain(x, gamma, beta, EPS, False),
+                     lambda: F.instance_norm(x, weight=gamma, bias=beta, eps=EPS)),
+            # read x, write y, mean, rstd; ~10 operations per element (3 passes)
+            **bound(4 * (2 * n + 2 * b * c + 2 * c), 10 * n),
+        },
+        "bwd": {
+            **timing(lambda: inorm.in_bwd_kernel(x, dy, gamma, beta, mean, rstd, False),
+                     lambda: inorm.in_bwd_plain(x, dy, gamma, beta, mean, rstd, False),
+                     library_bwd),
+            # read x, dy, mean, rstd; write dx and the (B, C) partials; ~14 ops
+            **bound(4 * (3 * n + 4 * b * c + 2 * c), 14 * n),
+        },
+        "fwd_bwd_ms": device_ms(fwd_bwd(lambda x, g, b: inorm.instance_norm(x, g, b, EPS))),
+        "library_fwd_bwd_ms": device_ms(
+            fwd_bwd(lambda x, g, b: F.instance_norm(x, weight=g, bias=b, eps=EPS))),
+    }
+
+
+def check_instance_norm(card: str) -> list[dict]:
+    """Kernel vs plain at every distinct norm shape of the headline CycleGAN
+    step, float32 and bfloat16, with and without the fused ReLU. The
+    backward takes the plain forward's mean and rstd, so both rebuild the
+    same ReLU mask. Timed in float32 at the most frequent and the largest
+    shape."""
+    dev = torch.device("cuda", 0)
+    names = ("instance_norm_fwd", "instance_norm_bwd")
+    max_err = {(k, dt): 0.0 for k in names for dt in ("float32", "bfloat16")}
+    for shape in IN_SHAPES:
+        terms = shape[0] * shape[2] * shape[3]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy, gamma, beta = in_inputs(dev, shape, dtype)
+            dt = str(dtype).split(".")[1]
+            for relu in (False, True):
+                at = f"{shape} {dt} relu={relu}"
+                y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, EPS, relu)
+                yp, meanp, rstdp = inorm.in_fwd_plain(x, gamma, beta, EPS, relu)
+                errs = [in_close(f"fwd y {at}", y, yp, 2e-5),
+                        in_close(f"fwd mean {at}", mean, meanp, 1e-5),
+                        in_close(f"fwd rstd {at}", rstd, rstdp, 1e-5)]
+                max_err[names[0], dt] = max(max_err[names[0], dt], *errs)
+                if relu:
+                    require(torch.equal(y == 0, yp == 0), f"fwd zero pattern {at}")
+                dx, dg, db = inorm.in_bwd_kernel(x, dy, gamma, beta, meanp, rstdp, relu)
+                dxp, dgp, dbp = inorm.in_bwd_plain(x, dy, gamma, beta, meanp, rstdp, relu)
+                errs = [in_close(f"bwd dx {at}", dx, dxp, 2e-5),
+                        in_close(f"bwd dgamma {at}", dg, dgp, 2e-5, terms),
+                        in_close(f"bwd dbeta {at}", db, dbp, 2e-5, terms)]
+                max_err[names[1], dt] = max(max_err[names[1], dt], *errs)
+        log(f"instance norm kernels at {shape}: within tolerance, f32/bf16, relu off/on, "
+            "ReLU zero pattern identical")
+    torch.cuda.synchronize()
+
+    timed = {"most_frequent": time_instance_norm(IN_FREQUENT),
+             "largest": time_instance_norm(IN_LARGEST)}
+    out = []
+    for name, part, line in ((names[0], "fwd", 66), (names[1], "bwd", 137)):
+        rec = {
+            "name": name, "route": "cuda",
+            "source": "imagegeneration_tpu_torch/csrc/instance_norm.cu",
+            "replaces": f"imagegeneration_tpu/ops/pallas/instance_norm.py:{line}",
+            "max_abs_err": max_err[name, "float32"],
+            "max_abs_err_bf16": max_err[name, "bfloat16"],
+            "tolerance": "rtol/atol 2e-5 (mean, rstd 1e-5; dgamma/dbeta atol x "
+                         "sqrt(B*H*W/128)); bf16 + 1 ulp",
+            "checked_shapes_nchw": [list(s) for s in IN_SHAPES],
+            **timed["most_frequent"][part],
+            "timed_shape_nchw": list(IN_FREQUENT), "dtype": "float32",
+            "library_call": "F.instance_norm" if part == "fwd"
+                            else "aten.native_batch_norm_backward on the (1, B*C, H, W) view",
+            "at_largest": {"shape_nchw": list(IN_LARGEST), **timed["largest"][part]},
+        }
+        if part == "bwd":
+            rec["fwd_bwd_ms"] = {k: timed[k]["fwd_bwd_ms"] for k in timed}
+            rec["library_fwd_bwd_ms"] = {k: timed[k]["library_fwd_bwd_ms"] for k in timed}
+        out.append(rec)
+        for where, t in timed.items():
+            log(f"{name} at {where} {IN_FREQUENT if where == 'most_frequent' else IN_LARGEST}"
+                f" f32 device time: kernel {t[part]['ms']:.4f} ms, plain "
+                f"{t[part]['plain_ms']:.4f} ms, library {t[part]['library_ms']:.4f} ms, "
+                f"bound {t[part]['bound_ms']:.4f} ms ({card})")
+    for where, t in timed.items():
+        log(f"instance norm fwd+bwd through autograd at {where}, device time: kernels "
+            f"{t['fwd_bwd_ms']:.4f} ms, F.instance_norm {t['library_fwd_bwd_ms']:.4f} ms "
+            f"({card})")
+    return out
+
+
+def check_small_cyclegan_step_against_cpu(dev: torch.device) -> None:
+    """Two float32 CycleGAN steps (96x96, base 8, 2 res blocks, batch 1) on
+    the card and on the CPU, from the same weights and batches."""
+    cfg = cyclegan_step.CycleGANTrainConfig(
+        model=CycleGANConfig(image_size=(96, 96, 3), base_width=8, n_res_blocks=2))
+    gen = torch.Generator().manual_seed(5)
+    batches = torch.randint(0, 256, (2, 2, 1, 96, 96, 3), generator=gen, dtype=torch.uint8)
+    probe = batches[0, 0].float() / 127.5 - 1.0
+    translate_g, _ = cyclegan_step.make_translators()
+    results = []
+    for d in (torch.device("cpu"), dev):
+        state = cyclegan_step.init_state(cfg, d)
+        step = cyclegan_step.make_train_step(cfg)
+        ms = []
+        for bx, by in batches:
+            state, m = step(state, bx.to(d), by.to(d))
+            ms.append({k: float(v) for k, v in m.items()})
+        results.append((ms, translate_g(state, probe.to(d)).cpu()))
+    (m_cpu, img_cpu), (m_gpu, img_gpu) = results
+    for i, (a, b) in enumerate(zip(m_gpu, m_cpu)):
+        for k in b:
+            require(math.isfinite(a[k]) and abs(a[k] - b[k]) <= 1e-3 * max(1.0, abs(b[k])),
+                    f"small cyclegan step {i} {k}: cuda {a[k]} vs cpu {b[k]}")
+    err = (img_gpu - img_cpu).abs().max().item()
+    require(err <= 1e-3, f"small cyclegan step translations differ by {err}")
+    log(f"small float32 CycleGAN step, card vs CPU: 9 metrics within 1e-3, "
+        f"translation max abs err {err:.3g}")
+
+
+def run_sndcgan_slice(card: str) -> dict:
+    dev = torch.device("cuda", 0)
     dataset = SyntheticImageDataset(EPOCH_BATCHES * BATCH, (HEIGHT, WIDTH))
     kwargs = dict(image_size=(HEIGHT, WIDTH, 3), device=dev, spectral_norm=True,
                   loss="hinge", dtype=torch.bfloat16, base_width=BASE)
@@ -239,17 +506,14 @@ def run_slice(dev: torch.device, card: str) -> dict:
         engine = SNDCGANEngine(out, dataset, BATCH, **kwargs)
         n_g = len(list(engine.state.gen.parameters()))
         n_d = len(list(engine.state.disc.parameters()))
-        for counts in (dropout.LAUNCHES, adam.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
+        zero_launches()
         engine.train(1, 1)  # epoch 0, checkpointed
         first = engine.last_epoch_metrics
         resumed = SNDCGANEngine(out, dataset, BATCH, continue_=True, **kwargs)
         require(resumed.start_epoch == 1, "resume did not start at epoch 1")
         require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
         resumed.train(2, 1)  # epoch 1
-        torch.cuda.synchronize()
-        launches = {**dropout.LAUNCHES, **adam.LAUNCHES}
+        launches = read_launches()
         second = resumed.last_epoch_metrics
         with open(f"{out}/perf.jsonl") as f:
             perf = [json.loads(line) for line in f]
@@ -261,14 +525,76 @@ def run_slice(dev: torch.device, card: str) -> dict:
         "leaky_relu_dropout_fwd": steplib.N_SITES * steps,
         "leaky_relu_dropout_bwd": steplib.N_SITES * steps,
         "adam": (n_g + 2 * n_d) * steps,
+        "instance_norm_fwd": 0, "instance_norm_bwd": 0,
     }
     require(launches == want, f"launch counts {launches}, expected {want}")
-    log(f"slice: {steps} steps over 2 epochs (one resumed), losses {second}")
-    log(f"slice: launches {launches}")
-    log(f"slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
+    log(f"sndcgan slice: {steps} steps over 2 epochs (one resumed), losses {second}")
+    log(f"sndcgan slice: launches {launches}")
+    log(f"sndcgan slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
         f"{perf[-1]['images_per_sec']:.1f} images/s at {WIDTH}x{HEIGHT} bs{BATCH} "
         f"base {BASE} SN hinge bf16 ({card})")
-    return {"launches": launches, "perf": perf, "metrics": second}
+    return {"launches": launches, "perf": perf,
+            "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2"}
+
+
+def run_cyclegan_slice(card: str) -> dict:
+    """The headline CycleGAN configuration through CycleGANEngine: one epoch,
+    then a new engine that auto-resumes on the same directory."""
+    dev = torch.device("cuda", 0)
+    datasets = [SyntheticImageDataset(EPOCH_BATCHES * CG_BATCH, (CG_SIZE, CG_SIZE), seed=s)
+                for s in (1, 2)]
+    kwargs = dict(device=dev, base_width=CG_BASE, n_res_blocks=CG_RES, dtype=torch.float32)
+    size = (CG_SIZE, CG_SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/cyclegan"
+        engine = CycleGANEngine(*datasets, out, CG_BATCH, size, **kwargs)
+        require(engine.epoch == 0 and engine.resident, "fresh resident engine")
+        n_g = len(list(engine.state.gen_g.parameters()))
+        n_d = len(list(engine.state.disc_x.parameters()))
+        zero_launches()
+        engine.train(1)  # epoch 0, checkpoint 1
+        first = engine.last_epoch_metrics
+        resumed = CycleGANEngine(*datasets, out, CG_BATCH, size, **kwargs)
+        require(resumed.epoch == 1, f"auto-resume gave epoch {resumed.epoch}")
+        require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
+        resumed.train(1)  # epoch 1, checkpoint 2
+        launches = read_launches()
+        second = resumed.last_epoch_metrics
+        with open(f"{out}/perf.jsonl") as f:
+            perf = [json.loads(line) for line in f]
+        with open(f"{out}/losses.pickle", "rb") as f:
+            history = pickle.load(f)
+        checkpoints = resumed.ckpt_manager.all_epochs()
+        probe = torch.from_numpy(datasets[0].images[:1]).to(dev).float() / 127.5 - 1.0
+        image = resumed.translate_g(resumed.state, probe)
+        steps = int(resumed.state.step)
+    require(steps == 2 * EPOCH_BATCHES, f"step counter {steps}")
+    for name, m in (("epoch 0", first), ("epoch 1", second)):
+        require(all(math.isfinite(v) for v in m.values()), f"{name} losses {m}")
+    require(sorted(history) == sorted(CG_LOSS_KEYS)
+            and all(len(v) == 2 for v in history.values()), f"losses.pickle {history}")
+    require(checkpoints == [1, 2], f"checkpoints {checkpoints}")
+    require(image.shape == (1, CG_SIZE, CG_SIZE, 3) and bool(torch.isfinite(image).all())
+            and image.abs().max().item() <= 1.0, "translated image")
+    # Per step: 6 generator passes of 6 + 2 * n_res norms, 4 discriminator
+    # passes of 3; backward: pulls 1 and 2 each run one D pass and four G
+    # passes, pull 3 the four D passes (PERF.md gives the derivation).
+    in_g, in_d = 6 + 2 * CG_RES, 3
+    per_step = {"instance_norm_fwd": 6 * in_g + 4 * in_d,
+                "instance_norm_bwd": 2 * (in_d + 4 * in_g) + 4 * in_d,
+                "adam": 2 * n_g + 2 * n_d}
+    require(per_step == {"instance_norm_fwd": 156, "instance_norm_bwd": 210, "adam": 224},
+            f"per-step structure {per_step}")
+    want = {"leaky_relu_dropout_fwd": 0, "leaky_relu_dropout_bwd": 0,
+            **{k: v * steps for k, v in per_step.items()}}
+    require(launches == want, f"launch counts {launches}, expected {want}")
+    log(f"cyclegan slice: {steps} steps over 2 epochs (one auto-resumed), losses {second}")
+    log(f"cyclegan slice: launches {launches}")
+    log(f"cyclegan slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
+        f"{perf[-1]['images_per_sec']:.2f} images/s at {CG_SIZE}x{CG_SIZE} bs{CG_BATCH} "
+        f"base {CG_BASE} {CG_RES} res blocks f32 ({card})")
+    return {"launches": launches, "perf": perf,
+            "config": f"{CG_SIZE}x{CG_SIZE} bs{CG_BATCH} base{CG_BASE} res{CG_RES} f32"}
 
 
 def main() -> int:
@@ -280,23 +606,33 @@ def main() -> int:
     log(f"card: {card}")
 
     t0 = time.perf_counter()
-    for name in ("leaky_relu_dropout", "adam"):
+    native.build_all(list(KERNELS))
+    for name in KERNELS:
         native.load(name)
         info = native.BUILD_LOG[name]
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         log(f"built {name}.cu in {info['seconds']:.2f} s: {regs}")
-    log(f"kernel build total {time.perf_counter() - t0:.2f} s")
+    log(f"kernel build total {time.perf_counter() - t0:.2f} s (parallel)")
 
     kernels = check_dropout(dev, card)
     kernels.append(check_adam(dev, card))
+    kernels += check_instance_norm(card)
     check_small_step_against_cpu(dev)
-    result = run_slice(dev, card)
+    check_small_cyclegan_step_against_cpu(dev)
+    slices = {"sndcgan": run_sndcgan_slice(card), "cyclegan": run_cyclegan_slice(card)}
     for k in kernels:
-        k["launches"] = result["launches"][k["name"]]
-    print(json.dumps({"kernels": kernels, "slice": {
-        "steps_per_sec": result["perf"][-1]["steps_per_sec"],
-        "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2",
-        "card": card}}))
+        k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in slices.items()}
+        # The path that runs it; Adam runs on both, and its record's times
+        # are the CycleGAN apply's, as are its launches.
+        k["launches"] = k["launches_by_path"][
+            "sndcgan" if k["name"].startswith("leaky") else "cyclegan"]
+        for p, r in k.get("by_path", {}).items():
+            r["launches"] = k["launches_by_path"][p]
+    print(json.dumps({"kernels": kernels, "slices": {
+        p: {"steps_per_sec": r["perf"][-1]["steps_per_sec"],
+            "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"]}
+        for p, r in slices.items()}, "card": card,
+        "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,19 +8,22 @@ kernel here, built on first use from `csrc/` by nvcc and bound with ctypes,
 with a plain PyTorch version of the same function beside it: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
 
-Ported so far: the SNDCGAN training path (cli -> engine -> step -> models ->
-layers -> kernels).
+Ported so far: the SNDCGAN and CycleGAN training paths (cli -> engine ->
+step -> models -> layers -> kernels).
 
 Package layout (mirrors imagegeneration_tpu):
   core/     platform (CUDA only, TF32 off), PRNG streams, data, metrics,
             checkpoints
   nn/       Keras-semantics layers (TF-SAME padding, Keras BatchNorm,
-            glorot init) and spectral norm
+            glorot init, tfa InstanceNorm, the CycleGAN ResBlock) and
+            spectral norm
   ops/      kernel wrappers + plain versions; native.py builds csrc/*.cu
   csrc/     CUDA C++ sources of the kernels
-  models/   SNDCGAN generator and discriminator
-  train/    Keras-form Adam, losses, the fused SNDCGAN step, the engine
+  models/   SNDCGAN and CycleGAN generators and discriminators
+  train/    Keras-form Adam, losses, the SNDCGAN and CycleGAN steps and
+            engines
   cli/      reference-signature entry points
+  tools/    profile_step: where a headline step's time goes on a card
   bridge.py JAX (flax) variables <-> port state, for tests and imports
 """
 

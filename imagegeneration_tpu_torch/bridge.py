@@ -16,13 +16,20 @@ Layout rules, per kind of leaf:
 - flax ConvTranspose kernel (kh, kw, in, out), unflipped
   (`transpose_kernel=False`) <-> torch ConvTranspose2d (in, out, kh, kw):
   spatial flip;
-- the generator's `to_rgb` is a 3x3 stride-1 ConvTranspose in the JAX
-  model, lowered to a plain conv there and stored as `to_rgb/
-  ConvTranspose_0/kernel` (HWIO): it bridges as a conv, with no flip.
+- the SNDCGAN generator's `to_rgb` is a 3x3 stride-1 ConvTranspose in the
+  JAX model, lowered to a plain conv there and stored as `to_rgb/
+  ConvTranspose_0/kernel` (HWIO): it bridges as a conv, with no flip. The
+  CycleGAN `to_rgb` is a plain `Conv` (`to_rgb/Conv_0`);
+- the CycleGAN up-sampling ConvTransposes (3x3 s2) are stored unflipped as
+  `upN/ConvTranspose_0/kernel` (kh, kw, in, out) and bridge as convT;
+- an InstanceNorm's `scale` and `bias` sit at `N/scale`, `N/bias` (no inner
+  module), with the flax shape on both sides ((C,), or (H, 1, 1) for the
+  quirk_axis1 form).
 
 flax path of a layer named N: `N/<inner>/...` for the JAX package's
 wrapper modules (`Dense_0`, `Conv_0`, `ConvTranspose_0`, `BatchNorm_0`),
-`N/...` for the spectral-norm modules.
+`N/...` for the spectral-norm modules and InstanceNorm; a ResBlock's layers
+nest under its name (`res3/conv1/Conv_0/kernel`, `res3/in1/scale`).
 """
 
 from __future__ import annotations
@@ -35,7 +42,14 @@ import torch
 from torch import nn
 
 from imagegeneration_tpu_torch.models.sndcgan import Generator
-from imagegeneration_tpu_torch.nn.layers import BatchNorm, Conv, ConvTranspose, Dense
+from imagegeneration_tpu_torch.nn.layers import (
+    BatchNorm,
+    Conv,
+    ConvTranspose,
+    Dense,
+    InstanceNorm,
+    ResBlock,
+)
 from imagegeneration_tpu_torch.nn.spectral_norm import (
     SpectralNormConv,
     SpectralNormDense,
@@ -44,6 +58,7 @@ from imagegeneration_tpu_torch.nn.spectral_norm import (
 _INNER = {
     Dense: "Dense_0", Conv: "Conv_0", ConvTranspose: "ConvTranspose_0",
     BatchNorm: "BatchNorm_0", SpectralNormConv: None, SpectralNormDense: None,
+    InstanceNorm: None,
 }
 # (model class, layer name) -> inner flax name, where the default is wrong.
 _INNER_OVERRIDES = {(Generator, "to_rgb"): "ConvTranspose_0"}
@@ -61,25 +76,33 @@ class Leaf:
     kind: str  # "dense" | "conv" | "convT" | "vec"
 
 
-def leaves(model: nn.Module) -> list[Leaf]:
+def leaves(model: nn.Module, names: tuple[str, ...] = ()) -> list[Leaf]:
+    """The model's leaves; `names` prefixes both paths (for nested blocks)."""
     out = []
     for name, layer in model.named_children():
-        inner = _INNER_OVERRIDES.get((type(model), name), _INNER[type(layer)])
-        prefix = (name,) if inner is None else (name, inner)
-        if isinstance(layer, BatchNorm):
-            out += [
-                Leaf(f"{name}.scale", "params", prefix + ("scale",), "vec"),
-                Leaf(f"{name}.bias", "params", prefix + ("bias",), "vec"),
-                Leaf(f"{name}.mean", "batch_stats", prefix + ("mean",), "vec"),
-                Leaf(f"{name}.var", "batch_stats", prefix + ("var",), "vec"),
-            ]
+        tname = ".".join((*names, name))
+        if isinstance(layer, ResBlock):
+            out += leaves(layer, (*names, name))
             continue
-        out.append(Leaf(f"{name}.weight", "params", prefix + ("kernel",),
+        inner = _INNER_OVERRIDES.get((type(model), name), _INNER[type(layer)])
+        prefix = (*names, name) if inner is None else (*names, name, inner)
+        if isinstance(layer, (BatchNorm, InstanceNorm)):
+            out += [
+                Leaf(f"{tname}.scale", "params", prefix + ("scale",), "vec"),
+                Leaf(f"{tname}.bias", "params", prefix + ("bias",), "vec"),
+            ]
+            if isinstance(layer, BatchNorm):
+                out += [
+                    Leaf(f"{tname}.mean", "batch_stats", prefix + ("mean",), "vec"),
+                    Leaf(f"{tname}.var", "batch_stats", prefix + ("var",), "vec"),
+                ]
+            continue
+        out.append(Leaf(f"{tname}.weight", "params", prefix + ("kernel",),
                         _WEIGHT_KIND[type(layer)]))
         if layer.bias is not None:
-            out.append(Leaf(f"{name}.bias", "params", prefix + ("bias",), "vec"))
+            out.append(Leaf(f"{tname}.bias", "params", prefix + ("bias",), "vec"))
         if isinstance(layer, (SpectralNormConv, SpectralNormDense)):
-            out.append(Leaf(f"{name}.u", "spectral", prefix + ("u",), "vec"))
+            out.append(Leaf(f"{tname}.u", "spectral", prefix + ("u",), "vec"))
     return out
 
 
@@ -101,7 +124,9 @@ def to_flax_layout(kind: str, a: np.ndarray) -> np.ndarray:
         a = a.transpose(2, 3, 1, 0)
     elif kind == "convT":
         a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
-    return np.ascontiguousarray(a)
+    # Always a copy: the numpy view of a CPU tensor shares its memory, and
+    # the state is updated in place by the next step.
+    return np.array(a, order="C")
 
 
 def _get(tree: dict, path: tuple[str, ...]) -> Any:
@@ -207,3 +232,33 @@ def jax_train_state(state) -> dict:
                   "mu": param_tree(state.disc, state.d_opt.mu),
                   "nu": param_tree(state.disc, state.d_opt.nu)},
     }
+
+
+_CYCLEGAN_MODELS = (("gen_g", "gg"), ("gen_f", "gf"), ("disc_x", "dx"), ("disc_y", "dy"))
+
+
+def load_jax_cyclegan_state(state, jax_state: dict) -> None:
+    """Copy a JAX CycleGANState (as a dict of numpy trees: step, gg_params,
+    gf_params, dx_params, dy_params and gg_opt ... dy_opt {count, mu, nu})
+    into a port CycleGANState, in place."""
+    with torch.no_grad():
+        state.step.fill_(int(jax_state["step"]))
+    for attr, key in _CYCLEGAN_MODELS:
+        model, opt = getattr(state, attr), getattr(state, f"{key}_opt")
+        load_flax_variables(model, {"params": jax_state[f"{key}_params"]})
+        with torch.no_grad():
+            opt.count.fill_(int(jax_state[f"{key}_opt"]["count"]))
+        load_param_tree(model, jax_state[f"{key}_opt"]["mu"], opt.mu)
+        load_param_tree(model, jax_state[f"{key}_opt"]["nu"], opt.nu)
+
+
+def jax_cyclegan_state(state) -> dict:
+    """Inverse of `load_jax_cyclegan_state` (numpy leaves)."""
+    out = {"step": np.asarray(int(state.step))}
+    for attr, key in _CYCLEGAN_MODELS:
+        model, opt = getattr(state, attr), getattr(state, f"{key}_opt")
+        out[f"{key}_params"] = flax_variables(model)["params"]
+        out[f"{key}_opt"] = {"count": np.asarray(int(opt.count)),
+                             "mu": param_tree(model, opt.mu),
+                             "nu": param_tree(model, opt.nu)}
+    return out

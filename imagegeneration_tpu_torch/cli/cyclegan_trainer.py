@@ -1,0 +1,101 @@
+"""CycleGAN training CLI — signature-compatible with cyclegan/Trainer.py:7-27.
+
+  python -m imagegeneration_tpu_torch.cli.cyclegan_trainer <bSize> <epochs>
+      [-x DATA1] [-y DATA2] [-d DIR] [-c FREQ] [-ct] [--bf16]
+      [--height H] [--width W] [--quirk-axis1] [--seed S] [--device {cuda,cpu}]
+
+The flags are those of imagegeneration_tpu.cli.cyclegan_trainer. Training
+runs on one CUDA device; `--device cpu` runs the same code on the CPU with
+the plain versions of the kernels (tests, debugging). As in the reference,
+training resumes from the latest checkpoint in the output directory
+whether or not `-ct` is given (the flag is parsed and has no effect).
+`-c` is accepted; the generator exports it paces are not written yet. The
+multi-device and profiling flags (`--mesh-data`, `--mesh-spatial` > 1,
+`--host-sharded-data`, `--profile`) are refused: they are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Train CycleGAN to translate between image domains"
+    )
+    parser.add_argument("bSize", type=int, help="Batch Size to use")
+    parser.add_argument("epochs", type=int, help="Number of epochs to train")
+    parser.add_argument(
+        "-x", "--data1", type=str, dest="dataset1", default="x_data",
+        help="The directory where the images from domain one can be found.",
+    )
+    parser.add_argument(
+        "-y", "--data2", type=str, dest="dataset2", default="y_data",
+        help="The directory where the images from domain two can be found.",
+    )
+    parser.add_argument(
+        "-d", "--directory", type=str, dest="path", default="training",
+        help="The output directory where the checkpoints are saved.",
+    )
+    parser.add_argument(
+        "-c", "--checkpoints", type=int, dest="chps", default=5,
+        help="Take checkpoint every x epochs. Default = 5",
+    )
+    parser.add_argument(
+        "-ct", "--continue", dest="continue_", action="store_true", default=False,
+        help="Accepted for compatibility: training always resumes from the "
+        "latest checkpoint, as in the reference",
+    )
+    parser.add_argument("--bf16", action="store_true", default=False)
+    parser.add_argument("--mesh-data", type=int, default=0,
+                        help="not supported: multi-GPU training is not ported")
+    parser.add_argument("--mesh-spatial", type=int, default=1,
+                        help="not supported: multi-GPU training is not ported")
+    parser.add_argument("--height", type=int, default=128)
+    parser.add_argument("--width", type=int, default=128)
+    parser.add_argument("--quirk-axis1", action="store_true", default=False,
+                        help="bug-compatible tfa InstanceNormalization(axis=1)")
+    parser.add_argument("--seed", type=int, default=62)
+    parser.add_argument("--profile", action="store_true", default=False,
+                        help="not supported: use imagegeneration_tpu_torch."
+                        "tools.profile_step")
+    parser.add_argument("--host-sharded-data", action="store_true", default=False,
+                        help="not supported: multi-host training is not ported")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default; fails without a GPU) or cpu "
+                        "(plain kernel versions, for tests and debugging)")
+    return parser
+
+
+def main(argv=None) -> None:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.mesh_data or args.mesh_spatial != 1 or args.host_sharded_data:
+        parser.error(
+            "--mesh-data/--mesh-spatial/--host-sharded-data: multi-device "
+            "training is not ported to PyTorch yet; this trainer runs on one GPU"
+        )
+    if args.profile:
+        parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
+
+    from imagegeneration_tpu_torch.core.platform import resolve_device
+    from imagegeneration_tpu_torch.train.cyclegan_engine import CycleGANEngine
+
+    engine = CycleGANEngine(
+        args.dataset1,
+        args.dataset2,
+        args.path,
+        args.bSize,
+        (args.width, args.height),
+        device=resolve_device(args.device),
+        quirk_axis1=args.quirk_axis1,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        seed=args.seed,
+    )
+    engine.train(args.epochs, args.chps)
+
+
+if __name__ == "__main__":
+    main()

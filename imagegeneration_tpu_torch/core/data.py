@@ -10,7 +10,12 @@ and the GPU machine has neither. Semantics kept:
 - each epoch reshuffles images (not batches) from a seeded stream and drops
   the remainder, so every batch has the static batch size;
 - batches leave the host as uint8 and are rescaled on the device by
-  `normalize` (x / 127.5 - 1).
+  `normalize` (x / 127.5 - 1);
+- `PairedDataset` zips two unpaired domains per batch (CycleGAN), each
+  with its own shuffle stream.
+
+`resident_budget` decides, for both engines, whether a dataset is kept on
+the device as uint8 or streamed from the host.
 
 The decoders (cv2, else PIL) are imported only when a folder is read.
 Shuffles come from the port's own numpy generator (core/rng.py); they are
@@ -20,6 +25,7 @@ stable for a seed but differ from the JAX package's batch order.
 from __future__ import annotations
 
 import queue
+import sys
 import threading
 from pathlib import Path
 from typing import Iterator
@@ -31,6 +37,20 @@ from imagegeneration_tpu_torch.core.rng import DEFAULT_DATA_SEED, KeyChain
 
 # Extensions accepted by keras.utils.image_dataset_from_directory.
 ALLOWED_EXTENSIONS = (".bmp", ".gif", ".jpeg", ".jpg", ".png")
+RESIDENT_SHARE = 0.5
+
+
+def resident_budget(device: torch.device) -> int:
+    """Bytes of uint8 images an engine keeps on `device`.
+
+    On a card: half of the memory free once the train state is placed; the
+    step's own activations take the other half (PERF.md gives the headline
+    steps' measured peaks). On the CPU the images already live in host
+    memory and `torch.from_numpy` shares them, so every dataset fits."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return int(free * RESIDENT_SHARE)
+    return sys.maxsize
 
 
 def list_image_files(
@@ -132,11 +152,15 @@ class _ShuffledImages:
         n = len(self)
         return n // batch_size if drop_remainder else -(-n // batch_size)
 
+    def permutation(self, epoch: int) -> np.ndarray:
+        """The epoch's image order, from the dataset's own "data" stream."""
+        return self._chain.numpy_rng("data", epoch).permutation(len(self))
+
     def epoch_batches(
         self, batch_size: int, epoch: int, drop_remainder: bool = True
     ) -> Iterator[np.ndarray]:
         """Yield uint8 (B, H, W, 3) batches, reshuffled per epoch."""
-        perm = self._chain.numpy_rng("data", epoch).permutation(len(self))
+        perm = self.permutation(epoch)
         for b in range(self.num_batches(batch_size, drop_remainder)):
             yield self._images[perm[b * batch_size:(b + 1) * batch_size]]
 
@@ -174,6 +198,27 @@ class SyntheticImageDataset(_ShuffledImages):
             0, 256, size=(num_images, h, w, 3), dtype=np.uint8
         )
         self._chain = KeyChain(seed)
+
+
+class PairedDataset:
+    """Two unpaired domains zipped per batch (cyclegan/data_loader.py:5-41).
+    An epoch is the fewer full batches of the two; each domain reshuffles
+    from its own stream."""
+
+    def __init__(self, ds_x: _ShuffledImages, ds_y: _ShuffledImages) -> None:
+        self.ds_x = ds_x
+        self.ds_y = ds_y
+
+    def num_batches(self, batch_size: int) -> int:
+        return min(self.ds_x.num_batches(batch_size), self.ds_y.num_batches(batch_size))
+
+    def epoch_batches(
+        self, batch_size: int, epoch: int
+    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        it_x = self.ds_x.epoch_batches(batch_size, epoch)
+        it_y = self.ds_y.epoch_batches(batch_size, epoch)
+        for _ in range(self.num_batches(batch_size)):
+            yield next(it_x), next(it_y)
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

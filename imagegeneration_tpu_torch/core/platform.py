@@ -50,6 +50,13 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
 
 
+def device_name(device: torch.device) -> str:
+    """The card's name for a CUDA device, else 'cpu'."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
 def card_description() -> str:
     """`name, power.limit` of the first card as nvidia-smi reports it."""
     smi = shutil.which("nvidia-smi")

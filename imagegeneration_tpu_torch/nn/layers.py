@@ -1,8 +1,9 @@
 """Layers with the numerics of the Keras/flax layers of the JAX package.
 
 Counterparts of imagegeneration_tpu/nn/layers.py (`Dense`, `Conv`,
-`ConvTranspose`, `BatchNorm`). Stock PyTorch differs from Keras in ways
-that change numbers, so each default is pinned here:
+`ConvTranspose`, `BatchNorm`, `reflection_pad_2d`, `InstanceNorm`,
+`ResBlock`). Stock PyTorch differs from Keras in ways that change numbers,
+so each default is pinned here:
 
 - kernel init is Keras `glorot_uniform`, bias zeros;
 - SAME padding is TF's: total = max((ceil(n/s)-1)*s + k - n, 0), with the
@@ -10,17 +11,23 @@ that change numbers, so each default is pinned here:
   asymmetric, which `Conv2d(padding=...)` cannot express, so it goes through
   an explicit `F.pad`;
 - a SAME transposed conv has out = in * stride, with the padding rule of
-  lax.conv_transpose (flax, `transpose_kernel=False`);
+  lax.conv_transpose (flax, `transpose_kernel=False`). Where that rule pads
+  the low side more than the high side (3x3 at stride 2: (2, 1)), the conv
+  is computed with (2, 2) and the extra high-side row and column cropped;
 - BatchNorm is Keras's: momentum 0.99, epsilon 1e-3, statistics in float32,
   and the running variance is updated with the BIASED batch variance (flax),
-  where `nn.BatchNorm2d` would use the unbiased one.
+  where `nn.BatchNorm2d` would use the unbiased one;
+- InstanceNorm is tfa's (epsilon 1e-3, Keras `random_uniform` U(-0.05,
+  0.05) scale and offset); its corrected per-channel form runs through the
+  InstanceNorm kernel (ops/instance_norm.py).
 
 Parameters are float32; `dtype` is the compute dtype (bfloat16 on the main
 path). Image tensors are NCHW logical and channels_last in memory, so that
 their memory order is the JAX package's NHWC.
 
 Not ported: the phase/hybrid/packed/swapdw ConvTranspose lowerings of the
-JAX package, which work around TPU XLA; cuDNN lowers the transposed conv.
+JAX package, which work around TPU XLA; cuDNN lowers the transposed conv
+(the swapdw lowering's forward is lax.conv_transpose, which this matches).
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagegeneration_tpu_torch.ops.instance_norm import instance_norm
+
 
 def glorot_uniform_(
     t: torch.Tensor, fan_in: int, fan_out: int, generator: torch.Generator | None
@@ -38,6 +47,22 @@ def glorot_uniform_(
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         return t.uniform_(-limit, limit, generator=generator)
+
+
+def keras_random_uniform_(
+    t: torch.Tensor, generator: torch.Generator | None
+) -> torch.Tensor:
+    """Keras "random_uniform" initializer: U(-0.05, 0.05)."""
+    with torch.no_grad():
+        return t.uniform_(-0.05, 0.05, generator=generator)
+
+
+def reflection_pad_2d(x: torch.Tensor, padding: tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """REFLECT-pad H and W of a (B, C, H, W) tensor; `padding` is (w, h), as
+    in the JAX package. The result is channels_last, like every activation."""
+    w_pad, h_pad = padding
+    y = F.pad(x, (w_pad, w_pad, h_pad, h_pad), mode="reflect")
+    return y.contiguous(memory_format=torch.channels_last)
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -131,16 +156,13 @@ class ConvTranspose(nn.Module):
         super().__init__()
         kh, kw = kernel_size
         pads = [conv_transpose_same_pads(k, s) for k, s in zip(kernel_size, strides)]
-        if any(hi < lo for lo, hi in pads):
-            raise ValueError(
-                f"SAME ConvTranspose with kernel {kernel_size} at stride "
-                f"{strides} needs a crop, which is not supported"
-            )
         # lax pads the dilated input by (lo, hi); conv_transpose2d's
-        # `padding` trims k-1-p from each side, `output_padding` adds the
-        # extra high-side row/column.
+        # `padding` trims k-1-p from each side, `output_padding` adds extra
+        # high-side rows/columns. Where hi < lo, the conv runs with (lo, lo)
+        # and the output (in * stride) is cropped on the high side.
         self.tpad = tuple(k - 1 - lo for k, (lo, _) in zip(kernel_size, pads))
-        self.out_pad = tuple(hi - lo for lo, hi in pads)
+        self.out_pad = tuple(max(hi - lo, 0) for lo, hi in pads)
+        self.crop = any(hi < lo for lo, hi in pads)
         self.strides = tuple(strides)
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(in_features, features, kh, kw))
@@ -151,9 +173,12 @@ class ConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(
+        y = F.conv_transpose2d(
             x.to(dt), self.weight.to(dt), b, self.strides, self.tpad, self.out_pad
         )
+        if self.crop:
+            y = y[:, :, : x.shape[2] * self.strides[0], : x.shape[3] * self.strides[1]]
+        return y
 
 
 class BatchNorm(nn.Module):
@@ -192,3 +217,66 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
+
+
+class InstanceNorm(nn.Module):
+    """tfa InstanceNormalization (its default epsilon, 1e-3) with scale and
+    offset.
+
+    Default: per-(sample, channel) statistics over (H, W), through the
+    InstanceNorm kernel; parameters `scale`, `bias` of shape (C,).
+    `quirk_axis1=True` reproduces the reference's `axis=1` on NHWC, which
+    treats H as the channel axis: each H-slice is normalized over (W, C),
+    with per-H parameters of shape (H, 1, 1) (the flax shape), in plain
+    torch. That form needs the input height at construction."""
+
+    def __init__(
+        self, features: int, quirk_axis1: bool = False, height: int | None = None,
+        dtype: torch.dtype | None = None, generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        if quirk_axis1 and height is None:
+            raise ValueError("InstanceNorm(quirk_axis1=True) needs the input height")
+        self.quirk_axis1 = quirk_axis1
+        self.epsilon = 1e-3
+        self.dtype = dtype
+        shape = (height, 1, 1) if quirk_axis1 else (features,)
+        self.scale = nn.Parameter(keras_random_uniform_(torch.empty(shape), generator))
+        self.bias = nn.Parameter(keras_random_uniform_(torch.empty(shape), generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.dtype or x.dtype
+        if not self.quirk_axis1:
+            return instance_norm(x, self.scale, self.bias, self.epsilon).to(out_dtype)
+        ct = torch.promote_types(x.dtype, torch.float32)
+        x32 = x.to(ct)
+        dims = (1, 3)  # (C, W) of NCHW: the (W, C) of the JAX NHWC axes
+        mean = x32.mean(dims, keepdim=True)
+        var = torch.square(x32 - mean).mean(dims, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
+        h = self.scale.shape[0]
+        y = y * self.scale.to(ct).view(1, 1, h, 1) + self.bias.to(ct).view(1, 1, h, 1)
+        return y.to(out_dtype)
+
+
+class ResBlock(nn.Module):
+    """CycleGAN residual block with the reference's op order:
+    conv3x3 -> IN -> ReLU -> conv3x3 -> add(residual) -> ReLU -> IN
+    (the post-add norm, and no norm on the second conv before the add)."""
+
+    def __init__(
+        self, features: int, quirk_axis1: bool = False, height: int | None = None,
+        dtype: torch.dtype = torch.float32, generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        self.conv1 = Conv(features, features, (3, 3), dtype=dtype, generator=generator)
+        self.in1 = InstanceNorm(features, quirk_axis1, height, dtype=dtype,
+                                generator=generator)
+        self.conv2 = Conv(features, features, (3, 3), dtype=dtype, generator=generator)
+        self.in2 = InstanceNorm(features, quirk_axis1, height, dtype=dtype,
+                                generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fx = torch.relu(self.in1(self.conv1(x)))
+        fx = self.conv2(fx)
+        return self.in2(torch.relu(x + fx))

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface (raw pointers, sizes and
 the CUDA stream; every entry point returns `cudaGetLastError()`). It is
 compiled on first use by `nvcc` straight into a shared library and loaded
-with `ctypes`, so the build needs neither ninja nor PyTorch's C++ headers:
+with `ctypes`, so the build needs neither ninja nor PyTorch's C++ headers
+(`build_all` starts one nvcc per source at once):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o csrc/build/<name>-<hash>.so csrc/<name>.cu
@@ -54,28 +55,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless its hashed library already exists."""
+def _start(name: str) -> tuple[Path, Path, list[str], subprocess.Popen, float] | None:
+    """Start nvcc for `csrc/<name>.cu` unless its hashed library exists."""
     out = library_path(name)
     if out.exists():
         BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "", "cached": True})
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, tmp, cmd, proc, time.perf_counter()
+
+
+def _finish(name: str, started) -> str | None:
+    """Wait for one nvcc; the error report if it failed."""
+    out, tmp, cmd, proc, t0 = started
+    log, _ = proc.communicate()
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+        return f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
     os.replace(tmp, out)
-    BUILD_LOG[name] = {
-        "seconds": seconds, "log": proc.stdout + proc.stderr, "cached": False,
-    }
-    return out
+    BUILD_LOG[name] = {"seconds": seconds, "log": log, "cached": False}
+    return None
+
+
+def build_all(names: list[str]) -> None:
+    """Compile several sources at once: one nvcc process each, all started
+    together, then waited for."""
+    started = {name: _start(name) for name in names}
+    errors = [e for name, s in started.items() if s is not None
+              for e in [_finish(name, s)] if e is not None]
+    if errors:
+        raise RuntimeError("\n\n".join(errors))
+
+
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless its hashed library already exists."""
+    build_all([name])
+    return library_path(name)
 
 
 def load(name: str) -> ctypes.CDLL:

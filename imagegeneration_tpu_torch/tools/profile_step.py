@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
-"""Where the headline SNDCGAN step's time goes, on one CUDA card.
+"""Where a headline train step's time goes, on one CUDA card.
 
     python -m imagegeneration_tpu_torch.tools.profile_step --out DIR
+        [--workload {sndcgan,cyclegan}]
 
-The step is the headline configuration: 256x144, batch 32, base_width 512,
-spectral-norm D, hinge loss, bf16 compute, d_updates=2, random weights from
-the default seed, synthetic uint8 batches made on the card. Phases:
+The step is a headline configuration, with random weights from the default
+seed and synthetic uint8 batches made on the card:
+- sndcgan (default): 256x144, batch 32, base_width 512, spectral-norm D,
+  hinge loss, bf16 compute, d_updates=2;
+- cyclegan: 128x128, batch 4, base_width 64, 9 res blocks, float32 (the
+  reference's configuration; TF32 off).
+
+Phases:
 
 1. rate: host clock around windows of WINDOW steps, each ending in a
    synchronize; the device memory one step takes at its peak.
@@ -14,10 +20,10 @@ the default seed, synthetic uint8 batches made on the card. Phases:
    busy share: the union of the trace's kernel, copy and memset intervals
    over the span of the profiled window. That is the busy share under the
    profiler, whose host overhead lengthens the window.
-3. ab: windows of the step with both hand kernels ("kernels"), with the
-   plain dropout chain in place of the dropout kernels ("plain_dropout"),
-   and with the plain Adam apply in place of the Adam kernel
-   ("plain_adam"), in turns k d a a d k, twice. nvidia-smi samples the SM
+3. ab: windows of the step with its hand kernels ("kernels"), and with the
+   plain version in place of one kernel family at a time (sndcgan:
+   "plain_dropout", "plain_adam"; cyclegan: "plain_instance_norm",
+   "plain_adam"), in turns k 1 2 2 1 k, twice. nvidia-smi samples the SM
    clock and the power draw every 100 ms beside the windows.
 4. data: the engine's resident and streaming epochs, in turns r s s r:
    steps/s of the second epoch of a fresh engine.
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import datetime
 import gc
 import gzip
@@ -40,65 +47,106 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from imagegeneration_tpu_torch.core import data as datalib
 from imagegeneration_tpu_torch.core import platform
-from imagegeneration_tpu_torch.core.data import SyntheticImageDataset
+from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import SNDCGANConfig
 from imagegeneration_tpu_torch.ops import adam, dropout
-from imagegeneration_tpu_torch.train import sndcgan_engine
+from imagegeneration_tpu_torch.ops import instance_norm as inorm
+from imagegeneration_tpu_torch.train import cyclegan_engine, cyclegan_step, sndcgan_engine
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 
-HEIGHT, WIDTH, BATCH, BASE = 144, 256, 32, 512
-CONFIG = f"{WIDTH}x{HEIGHT} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2"
 N_BATCHES = 8  # distinct device batches the step cycles through
 WINDOW = 10
 RATE_WINDOWS = 3
 PROFILE_STEPS = 5
-AB_ORDER = ("kernels", "plain_dropout", "plain_adam",
-            "plain_adam", "plain_dropout", "kernels") * 2
 DATA_EPOCH_BATCHES = 16
 DATA_ORDER = ("resident", "streaming", "streaming", "resident")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
-# Module attributes swapped for each A/B variant: the wrappers look their
-# kernel entry points up at call time, so the plain version runs instead.
-VARIANTS = {
-    "kernels": {},
-    "plain_dropout": {dropout: {"fwd_kernel": dropout.fwd_plain,
-                                "bwd_kernel": dropout.bwd_plain}},
-    "plain_adam": {adam: {"adam_leaf_kernel": adam.adam_leaf_plain}},
-}
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    config: str  # printed beside every number
+    train_config: object
+    # Module attributes swapped for each A/B variant: the wrappers look
+    # their kernel entry points up at call time, so the plain version runs.
+    variants: dict
+    make_engine: Callable  # (out_dir, device) -> engine with .resident, .train
+
+
+def _sndcgan() -> Workload:
+    h, w, b, base = 144, 256, 32, 512
+    ds = datalib.SyntheticImageDataset(DATA_EPOCH_BATCHES * b, (h, w))
+    return Workload(
+        config=f"{w}x{h} bs{b} base{base} SN hinge bf16 d_updates=2",
+        train_config=steplib.SNDCGANTrainConfig(
+            model=SNDCGANConfig(image_size=(h, w, 3), base_width=base,
+                                spectral_norm=True, dtype=torch.bfloat16),
+            batch_size=b, loss="hinge"),
+        variants={
+            "kernels": {},
+            "plain_dropout": {dropout: {"fwd_kernel": dropout.fwd_plain,
+                                        "bwd_kernel": dropout.bwd_plain}},
+            "plain_adam": {adam: {"adam_leaf_kernel": adam.adam_leaf_plain}},
+        },
+        make_engine=lambda out, dev: sndcgan_engine.SNDCGANEngine(
+            out, ds, b, image_size=(h, w, 3), device=dev, spectral_norm=True,
+            loss="hinge", dtype=torch.bfloat16, base_width=base),
+    )
+
+
+def _cyclegan() -> Workload:
+    size, b, base, res = 128, 4, 64, 9
+    ds = [datalib.SyntheticImageDataset(DATA_EPOCH_BATCHES * b, (size, size), seed=s)
+          for s in (1, 2)]
+    return Workload(
+        config=f"{size}x{size} bs{b} base{base} res{res} f32",
+        train_config=cyclegan_step.CycleGANTrainConfig(
+            model=CycleGANConfig(image_size=(size, size, 3), base_width=base,
+                                 n_res_blocks=res),
+            batch_size=b),
+        variants={
+            "kernels": {},
+            "plain_instance_norm": {inorm: {"in_fwd_kernel": inorm.in_fwd_plain,
+                                            "in_bwd_kernel": inorm.in_bwd_plain}},
+            "plain_adam": {adam: {"adam_leaf_kernel": adam.adam_leaf_plain}},
+        },
+        make_engine=lambda out, dev: cyclegan_engine.CycleGANEngine(
+            *ds, out, b, (size, size), device=dev, base_width=base, n_res_blocks=res),
+    )
+
+
+WORKLOADS = {"sndcgan": _sndcgan, "cyclegan": _cyclegan}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def headline_config() -> steplib.SNDCGANTrainConfig:
-    return steplib.SNDCGANTrainConfig(
-        model=SNDCGANConfig(image_size=(HEIGHT, WIDTH, 3), base_width=BASE,
-                            spectral_norm=True, dtype=torch.bfloat16),
-        batch_size=BATCH, loss="hinge")
-
-
 class StepLoop:
-    """The train step over a few synthetic uint8 batches held on the card."""
+    """The train step over a few synthetic uint8 batches held on the card
+    (two domains' batches for CycleGAN)."""
 
-    def __init__(self, cfg: steplib.SNDCGANTrainConfig, dev: torch.device):
-        self.state = steplib.init_state(cfg, dev)
-        self.step = steplib.make_train_step(cfg)
+    def __init__(self, cfg, dev: torch.device):
+        paired = isinstance(cfg, cyclegan_step.CycleGANTrainConfig)
+        lib = cyclegan_step if paired else steplib
+        self.state = lib.init_state(cfg, dev)
+        self.step = lib.make_train_step(cfg)
         gen = torch.Generator(device=dev).manual_seed(0)
         self.batches = torch.randint(
-            0, 256, (N_BATCHES, cfg.batch_size, *cfg.model.image_size),
+            0, 256, (N_BATCHES, 1 + paired, cfg.batch_size, *cfg.model.image_size),
             generator=gen, device=dev, dtype=torch.uint8)
         self.i = 0
 
     def run(self, n: int) -> None:
         for _ in range(n):
-            self.state, _ = self.step(self.state, self.batches[self.i % N_BATCHES])
+            self.state, _ = self.step(self.state, *self.batches[self.i % N_BATCHES])
             self.i += 1
         torch.cuda.synchronize()
 
@@ -123,7 +171,7 @@ def phase_rate(loop: StepLoop, dev: torch.device) -> dict:
         "allocated_before_step_bytes": before,
         "step_peak_allocated_bytes": peak,
         "free_bytes": torch.cuda.mem_get_info(dev)[0],
-        "resident_budget_bytes": sndcgan_engine.resident_budget(dev),
+        "resident_budget_bytes": datalib.resident_budget(dev),
     }
 
 
@@ -132,6 +180,8 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "lrd_" in n:
         return "dropout kernels (csrc/leaky_relu_dropout.cu)"
+    if "in_fwd_kernel" in n or "in_bwd_kernel" in n:
+        return "instance norm kernels (csrc/instance_norm.cu)"
     if "adam_kernel" in n:
         return "adam kernel (csrc/adam.cu)"
     if any(s in n for s in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad")):
@@ -156,7 +206,7 @@ def union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def _self_device_us(avg) -> float:
+def self_device_us(avg) -> float:
     # The attribute's name changed from `cuda` to `device` in torch 2.4.
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(avg, attr):
@@ -213,12 +263,12 @@ def phase_profile(loop: StepLoop, out: Path) -> dict:
             ("by aten op", prof.key_averages()),
             ("by aten op and input shapes", prof.key_averages(group_by_input_shape=True)),
         ):
-            rows = sorted((a for a in avgs if _self_device_us(a) > 0),
-                          key=lambda a: -_self_device_us(a))
+            rows = sorted((a for a in avgs if self_device_us(a) > 0),
+                          key=lambda a: -self_device_us(a))
             f.write(f"# self device ms/step, calls/step, {title}\n")
             for a in rows[:60]:
                 shapes = f"  {a.input_shapes}" if "shapes" in title else ""
-                f.write(f"{_self_device_us(a) / PROFILE_STEPS / 1e3:9.4f} "
+                f.write(f"{self_device_us(a) / PROFILE_STEPS / 1e3:9.4f} "
                         f"{a.count / PROFILE_STEPS:7.1f}  {a.key}{shapes}\n")
             f.write("\n")
 
@@ -246,10 +296,10 @@ def swapped(module, attr: str, value):
         setattr(module, attr, old)
 
 
-def variant(name: str) -> contextlib.ExitStack:
+def variant(variants: dict, name: str) -> contextlib.ExitStack:
     """A context in which the A/B variant `name` is in place."""
     stack = contextlib.ExitStack()
-    for module, attrs in VARIANTS[name].items():
+    for module, attrs in variants[name].items():
         for attr, fn in attrs.items():
             stack.enter_context(swapped(module, attr, fn))
     return stack
@@ -283,11 +333,13 @@ def smi_samples(path: Path):
             continue
 
 
-def phase_ab(loop: StepLoop, out: Path) -> dict:
+def phase_ab(loop: StepLoop, variants: dict, out: Path) -> dict:
+    first, second = [v for v in variants if v != "kernels"]
+    order = ("kernels", first, second, second, first, "kernels") * 2
     windows = []
     with smi_samples(out / "smi_ab.csv") as samples:
-        for name in AB_ORDER:
-            with variant(name):
+        for name in order:
+            with variant(variants, name):
                 loop.run(1)
                 t0 = time.time()
                 ms = loop.ms_per_step(WINDOW)
@@ -301,27 +353,23 @@ def phase_ab(loop: StepLoop, out: Path) -> dict:
         w["power_w"] = sum(s[2] for s in inside) / len(inside) if inside else None
         del w["t0"], w["t1"]
     return {
-        "order": list(AB_ORDER),
+        "order": list(order),
         "windows": windows,
         "ms_per_step": {v: [w["ms_per_step"] for w in windows if w["variant"] == v]
-                        for v in VARIANTS},
+                        for v in variants},
     }
 
 
 # ------------------------------------------------------------------ data
-def phase_data(dev: torch.device) -> dict:
-    ds = SyntheticImageDataset(DATA_EPOCH_BATCHES * BATCH, (HEIGHT, WIDTH))
+def phase_data(work: Workload, dev: torch.device) -> dict:
     rates: dict[str, list[float]] = {"resident": [], "streaming": []}
     with tempfile.TemporaryDirectory() as tmp:
         for i, mode in enumerate(DATA_ORDER):
             with contextlib.ExitStack() as stack:
                 if mode == "streaming":
-                    stack.enter_context(swapped(sndcgan_engine, "resident_budget",
+                    stack.enter_context(swapped(datalib, "resident_budget",
                                                  lambda device: 0))
-                eng = sndcgan_engine.SNDCGANEngine(
-                    f"{tmp}/{i}", ds, BATCH, image_size=(HEIGHT, WIDTH, 3),
-                    device=dev, spectral_norm=True, loss="hinge",
-                    dtype=torch.bfloat16, base_width=BASE)
+                eng = work.make_engine(f"{tmp}/{i}", dev)
                 if eng.resident != (mode == "resident"):
                     raise RuntimeError(f"engine picked the wrong data path for {mode}")
                 eng.train(2, 100)  # epoch 0 warms up; epoch 1 is read
@@ -337,15 +385,18 @@ def phase_data(dev: torch.device) -> dict:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", required=True, help="directory for the results")
+    ap.add_argument("--workload", choices=sorted(WORKLOADS), default="sndcgan")
     args = ap.parse_args(argv)
     dev = platform.require_cuda()
     card = platform.card_description()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    log(f"torch {torch.__version__}, cuda {torch.version.cuda}; {CONFIG}; card: {card}")
+    work = WORKLOADS[args.workload]()
+    log(f"torch {torch.__version__}, cuda {torch.version.cuda}; {work.config}; card: {card}")
 
-    summary: dict = {"card": card, "config": CONFIG, "torch": torch.__version__}
-    loop = StepLoop(headline_config(), dev)
+    summary: dict = {"card": card, "workload": args.workload, "config": work.config,
+                     "torch": torch.__version__}
+    loop = StepLoop(work.train_config, dev)
     rate = summary["rate"] = phase_rate(loop, dev)
     log(f"rate: {[f'{s:.3f}' for s in rate['steps_per_sec']]} steps/s over "
         f"{WINDOW}-step windows; one step's peak allocation "
@@ -356,13 +407,13 @@ def main(argv: list[str] | None = None) -> int:
         f"(share {prof['busy_share_under_profiler']:.3f}) ({card})")
     for cls, ms in prof["device_ms_per_step_by_class"].items():
         log(f"  {ms:8.3f} ms/step  {cls}")
-    ab = summary["ab"] = phase_ab(loop, out)
+    ab = summary["ab"] = phase_ab(loop, work.variants, out)
     for v, ms in ab["ms_per_step"].items():
         log(f"ab: {v} ms/step {[round(m, 2) for m in ms]} ({card})")
     del loop
     gc.collect()
     torch.cuda.empty_cache()
-    data = summary["data"] = phase_data(dev)
+    data = summary["data"] = phase_data(work, dev)
     log(f"data: steps/s {data['steps_per_sec']} ({card})")
 
     (out / "summary.json").write_text(json.dumps(summary, indent=1))

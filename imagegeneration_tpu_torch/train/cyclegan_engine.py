@@ -1,0 +1,170 @@
+"""CycleGAN training engine: paired loader, auto-resume, loss history.
+
+The counterpart of imagegeneration_tpu/train/cyclegan_engine.py (itself the
+reference class `CycleGAN`, cyclegan/CycleGAN.py:211-425), on one device:
+
+- the directory scaffold (`path`, `checkpoints/`, `models/generator_{f,g}/`)
+  is created and never wiped;
+- the latest checkpoint is restored UNCONDITIONALLY (the reference quirk of
+  CycleGAN.py:263-269: the trainer's -ct flag is parsed but never
+  forwarded), and the epoch numbering continues from it;
+- two label-free image folders are zipped per batch, full batches only
+  (core/data.PairedDataset);
+- every epoch: the mean of the 7 tracked losses is appended to
+  `losses.pickle`, a line to `perf.jsonl`, and a checkpoint of the whole
+  train state is saved (numbered epoch + 1, `max_to_keep=5`).
+
+Both domains are resident on the device (uint8) when together they fit
+`core.data.resident_budget`: each epoch is a loop of train steps over two
+permutation gathers, and the metrics stay on the device until the epoch's
+one sync. Otherwise uint8 batches stream from the host through a prefetch
+thread.
+
+Not here yet: the per-epoch preview sheet and the loss plot (matplotlib is
+absent on the GPU machine; they wait for the core/preview.py port) and the
+msgpack generator-weight exports every `checkpoint_frequency` epochs.
+"""
+
+from __future__ import annotations
+
+import os
+from os import path
+from time import gmtime, perf_counter, strftime
+
+import torch
+
+from imagegeneration_tpu_torch.core import checkpoint as ckptlib
+from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import metrics as metricslib
+from imagegeneration_tpu_torch.core import platform
+from imagegeneration_tpu_torch.core import rng as rnglib
+from imagegeneration_tpu_torch.models import cyclegan as modellib
+from imagegeneration_tpu_torch.train import cyclegan_step as steplib
+
+LOSS_KEYS = (
+    "gen_g_loss", "gen_f_loss", "identity_loss_g", "identity_loss_f",
+    "total_gen_g_loss", "total_gen_f_loss", "total_cycle_loss",
+)
+
+
+class CycleGANEngine:
+    def __init__(
+        self,
+        dataset1_path,  # a folder, or any object with images/permutation/epoch_batches
+        dataset2_path,
+        path_like: str,
+        batch_size: int,
+        image_size: tuple[int, int],  # (width, height), as the reference passes it
+        *,
+        device: torch.device,
+        quirk_axis1: bool = False,
+        base_width: int = 64,
+        n_res_blocks: int = 9,
+        dtype: torch.dtype = torch.float32,
+        seed: int = rnglib.DEFAULT_MODEL_SEED,
+    ) -> None:
+        for d in ("", path.join("models", "generator_f"), path.join("models", "generator_g")):
+            os.makedirs(path.join(path_like, d), exist_ok=True)
+        self.path = path_like
+        self.device = torch.device(device)
+        w, h = image_size
+        if isinstance(dataset1_path, (str, os.PathLike)):
+            dataset1_path = datalib.ImageFolderDataset(dataset1_path, (h, w), labeled=False)
+        if isinstance(dataset2_path, (str, os.PathLike)):
+            dataset2_path = datalib.ImageFolderDataset(dataset2_path, (h, w), labeled=False)
+        self.loader = datalib.PairedDataset(dataset1_path, dataset2_path)
+        self.batch_size = batch_size
+        self.num_batches = self.loader.num_batches(batch_size)
+        if self.num_batches < 1:
+            raise ValueError(f"the two domains have no common full batch of {batch_size}")
+        self.cfg = steplib.CycleGANTrainConfig(
+            model=modellib.CycleGANConfig(
+                image_size=(h, w, 3), base_width=base_width,
+                n_res_blocks=n_res_blocks, quirk_axis1=quirk_axis1, dtype=dtype,
+            ),
+            batch_size=batch_size,
+            seed=seed,
+        )
+        self.state = steplib.init_state(self.cfg, self.device)
+        self._step = steplib.make_train_step(self.cfg)
+        nbytes = self.loader.ds_x.images.nbytes + self.loader.ds_y.images.nbytes
+        self.resident = nbytes <= datalib.resident_budget(self.device)
+        self._epoch_runner = steplib.make_epoch_runner(self.cfg) if self.resident else None
+        self._resident: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.translate_g, self.translate_f = steplib.make_translators()
+        self.last_epoch_metrics: dict[str, float] | None = None
+
+        self.losses = metricslib.LossHistory(path.join(path_like, "losses.pickle"), LOSS_KEYS)
+        self.ckpt_manager = ckptlib.CheckpointManager(
+            path.join(path_like, "checkpoints"), max_to_keep=5)
+        # Unconditional auto-resume (CycleGAN.py:263-269).
+        latest = self.ckpt_manager.latest_epoch()
+        if latest is not None:
+            self.state.load_state_dict(self.ckpt_manager.restore())
+            self.epoch = latest
+            print("Latest checkpoint restored!!")
+        else:
+            self.epoch = 0
+            print("No checkpoints were restored!!")
+        print("Initialized CycleGAN SUCCESS!")
+
+    # --------------------------------------------------------------- train
+    def _run_epoch_resident(self, epoch: int):
+        if self._resident is None:
+            self._resident = tuple(
+                torch.from_numpy(ds.images).to(self.device)
+                for ds in (self.loader.ds_x, self.loader.ds_y))
+        n = self.num_batches * self.batch_size
+        perms = [
+            torch.from_numpy(ds.permutation(epoch)[:n].reshape(self.num_batches, -1))
+            .to(self.device) for ds in (self.loader.ds_x, self.loader.ds_y)]
+        self.state, metrics = self._epoch_runner(self.state, *self._resident, *perms)
+        return metrics
+
+    def _run_epoch_streaming(self, epoch: int):
+        per_step = []
+        pinned = self.device.type == "cuda"
+        for batch_x, batch_y in datalib.prefetch(
+                self.loader.epoch_batches(self.batch_size, epoch), depth=2):
+            bx, by = torch.from_numpy(batch_x), torch.from_numpy(batch_y)
+            if pinned:
+                bx, by = bx.pin_memory(), by.pin_memory()
+            self.state, m = self._step(self.state, bx.to(self.device, non_blocking=True),
+                                       by.to(self.device, non_blocking=True))
+            per_step.append(m)
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    def train(self, epochs: int, checkpoint_frequency: int = 5) -> None:
+        """Train `epochs` more epochs. `checkpoint_frequency` paces the
+        generator exports of the JAX engine, which are not ported yet; the
+        train state is checkpointed every epoch."""
+        del checkpoint_frequency
+        start_time = perf_counter()
+        watch = metricslib.Stopwatch()
+        for _ in range(epochs):
+            watch.epoch_start()
+            epoch = self.epoch
+            print("####### Epoch", epoch, "#######")
+            if self.resident:
+                metrics = self._run_epoch_resident(epoch)
+            else:
+                metrics = self._run_epoch_streaming(epoch)
+            # The epoch's one host sync: the device finishes its steps here.
+            agg = {k: float(v.float().mean()) for k, v in metrics.items()}
+            n_steps = self.num_batches
+            perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
+            metricslib.write_metrics_jsonl(
+                path.join(self.path, "perf.jsonl"),
+                {"epoch": epoch, "device": platform.device_name(self.device), **perf})
+            self.losses.extend({k: [agg[k]] for k in LOSS_KEYS})
+            self.last_epoch_metrics = agg
+            print(
+                f">Gen losses (g/f): {agg['gen_g_loss']:.4f}/{agg['gen_f_loss']:.4f},"
+                f" identity: {agg['identity_loss_g']:.4f}/{agg['identity_loss_f']:.4f},"
+                f" cycle: {agg['total_cycle_loss']:.4f},"
+                f" total: {agg['total_gen_g_loss']:.4f}/{agg['total_gen_f_loss']:.4f},"
+                f" {perf['steps_per_sec']:.2f} steps/s,"
+                f" passed time: {strftime('%H:%M:%S', gmtime(perf_counter() - start_time))}")
+            self.epoch = epoch + 1
+            self.ckpt_manager.save(self.epoch, self.state.state_dict())
+            self.losses.save()

@@ -11,10 +11,11 @@ reference class `SNDCGAN`, sndcgan/SNDCGAN.py:148-335), on one device:
   train state and appends + pickles the loss history; every epoch appends a
   line to `perf.jsonl`.
 
-A dataset that fits `resident_budget` is resident on the device (uint8):
-each epoch is a Python loop of train steps over a permutation gather, and
-the metrics stay on the device until the epoch's one sync. A larger
-dataset streams uint8 batches from the host through a prefetch thread.
+A dataset that fits `core.data.resident_budget` is resident on the device
+(uint8): each epoch is a Python loop of train steps over a permutation
+gather, and the metrics stay on the device until the epoch's one sync. A
+larger dataset streams uint8 batches from the host through a prefetch
+thread.
 
 Not here yet: multi-device training, live-preview PDFs and the loss plot
 (both need matplotlib, which the GPU machine lacks; they wait for the
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 import os
 import shutil
-import sys
 from os import path
 from time import gmtime, perf_counter, strftime
 
@@ -35,25 +35,12 @@ import torch
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
 from imagegeneration_tpu_torch.core import metrics as metricslib
+from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import sndcgan as modellib
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 
 LOSS_KEYS = ("epoch", "avg_g_loss", "avg_d_loss", "d_real", "d_fake")
-RESIDENT_SHARE = 0.5
-
-
-def resident_budget(device: torch.device) -> int:
-    """Bytes of uint8 images the engine keeps on `device`.
-
-    On a card: half of the memory free once the train state is placed; the
-    step's own activations take the other half (PERF.md gives the headline
-    step's measured peak). On the CPU the images already live in host
-    memory and `torch.from_numpy` shares them, so every dataset fits."""
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return int(free * RESIDENT_SHARE)
-    return sys.maxsize
 
 
 class SNDCGANEngine:
@@ -111,7 +98,7 @@ class SNDCGANEngine:
         self.chain = rnglib.KeyChain(seed)
         self.state = steplib.init_state(self.cfg, self.device)
         self._step = steplib.make_train_step(self.cfg)
-        self.resident = self.dataset.images.nbytes <= resident_budget(self.device)
+        self.resident = self.dataset.images.nbytes <= datalib.resident_budget(self.device)
         self._epoch_runner = (
             steplib.make_epoch_runner(self.cfg) if self.resident else None
         )
@@ -185,7 +172,7 @@ class SNDCGANEngine:
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
             metricslib.write_metrics_jsonl(
                 path.join(self.dir_path, "perf.jsonl"),
-                {"epoch": epoch, "device": device_name(self.device), **perf},
+                {"epoch": epoch, "device": platform.device_name(self.device), **perf},
             )
             local["epoch"].append(epoch)
             local["avg_g_loss"].append(agg["g_loss"])
@@ -208,9 +195,3 @@ class SNDCGANEngine:
                 local = {k: [] for k in LOSS_KEYS}
                 self.ckpt_manager.save(epoch, self.state.state_dict())
                 self.losses.save()
-
-
-def device_name(device: torch.device) -> str:
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return "cpu"

@@ -79,7 +79,7 @@ def test_cli_train_and_resume(tmp_path, png_folder):
 
 def test_streaming_engine_and_sampler(tmp_path, monkeypatch):
     # A budget of 0 bytes sends every dataset through the streaming path.
-    monkeypatch.setattr(sndcgan_engine, "resident_budget", lambda device: 0)
+    monkeypatch.setattr(datalib, "resident_budget", lambda device: 0)
     ds = datalib.SyntheticImageDataset(4, (16, 16))
     eng = sndcgan_engine.SNDCGANEngine(
         str(tmp_path / "s"), ds, 2, image_size=(16, 16, 3), base_width=16,

@@ -11,13 +11,26 @@ versions (same float32 products, one rounding to the storage dtype; the
 mask is integer arithmetic), and so is Adam (explicitly rounded float32
 operations in both). The shapes include odd, non-power-of-two extents so
 that the grid-stride tail is exercised.
+
+The InstanceNorm kernels sum their statistics in another order than the
+plain version, so they are held to the bounds of the JAX package's own
+kernel tests (tests/test_pallas_ops.py): rtol/atol 2e-5 for y, dx, dgamma
+and dbeta, 1e-5 for mean and rstd, in float32. dgamma and dbeta are sums of
+N = B*H*W terms per channel, whose float32 rounding grows as sqrt(N): their
+atol is 2e-5 at the N = 128 (2 x 8 x 8) of those tests, scaled by
+sqrt(N / 128). A bfloat16 output may in addition round to the neighbouring
+bf16 value (one ulp, 2^-7 |v|). The backward is fed the plain forward's
+mean and rstd, so both rebuild the same ReLU mask.
 """
 
 import pytest
 import torch
 
+from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import SNDCGANConfig
 from imagegeneration_tpu_torch.ops import adam, dropout
+from imagegeneration_tpu_torch.ops import instance_norm as inorm
+from imagegeneration_tpu_torch.train import cyclegan_step
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 
 pytestmark = pytest.mark.gpu
@@ -102,6 +115,93 @@ def test_small_step_on_card_matches_cpu(cuda):
             state, m = step(state, batch.to(dev), z.to(dev), kw.to(dev))
         out.append(({k: float(v) for k, v in m.items()},
                     [p.detach().cpu() for p in state.gen.parameters()]))
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = out
+    for k in m_cpu:
+        assert m_gpu[k] == pytest.approx(m_cpu[k], rel=1e-3, abs=1e-4), k
+    for a, b in zip(p_gpu, p_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def assert_in_close(got, want, tol, terms=128):
+    """Within rtol `tol` and atol `tol` * sqrt(terms / 128) (a sum of
+    `terms` float32 values), plus one bf16 ulp for a bf16 output."""
+    ulp = 2.0**-7 if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = tol * max(1.0, (terms / 128) ** 0.5) + (tol + ulp) * want.abs()
+    assert bool((err <= bound).all()), f"max excess {(err - bound).max().item()}"
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (4, 64, 17, 33), (4, 256, 32, 32),
+                                   (3, 512, 6, 6), (2, 40, 9, 11)])
+def test_instance_norm_kernels_match_plain(cuda, shape, dtype, relu):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    c = shape[1]
+    x = (2.0 + 3.0 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    dy = dy.contiguous(memory_format=torch.channels_last)
+    gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    beta = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    before = dict(inorm.LAUNCHES)
+    y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, relu)
+    yp, meanp, rstdp = inorm.in_fwd_plain(x, gamma, beta, 1e-3, relu)
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    assert_in_close(y, yp, 2e-5)
+    if relu:
+        assert torch.equal(y == 0, yp == 0), "ReLU zero pattern differs"
+    assert_in_close(mean, meanp, 1e-5)
+    assert_in_close(rstd, rstdp, 1e-5)
+    dx, dg, db = inorm.in_bwd_kernel(x, dy, gamma, beta, meanp, rstdp, relu)
+    dxp, dgp, dbp = inorm.in_bwd_plain(x, dy, gamma, beta, meanp, rstdp, relu)
+    assert dx.dtype == dtype and dg.dtype == db.dtype == torch.float32
+    assert_in_close(dx, dxp, 2e-5)
+    n = shape[0] * shape[2] * shape[3]
+    assert_in_close(dg, dgp, 2e-5, n)
+    assert_in_close(db, dbp, 2e-5, n)
+    assert inorm.LAUNCHES["instance_norm_fwd"] == before["instance_norm_fwd"] + 1
+    assert inorm.LAUNCHES["instance_norm_bwd"] == before["instance_norm_bwd"] + 1
+
+
+def test_instance_norm_autograd_takes_any_layout(cuda):
+    """The wrapper brings an NCHW input and gradient to channels_last; the
+    kernel entry points refuse them."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 8, 6, 5, generator=gen, device=cuda).requires_grad_(True)
+    gamma = torch.ones(8, device=cuda, requires_grad=True)
+    beta = torch.zeros(8, device=cuda, requires_grad=True)
+    y = inorm.instance_norm(x, gamma, beta, relu=True)
+    g = torch.randn(2, 8, 6, 5, generator=gen, device=cuda)
+    y.backward(g)
+    yp, mean, rstd = inorm.in_fwd_plain(x.detach(), gamma.detach(), beta.detach(), 1e-3, True)
+    dxp, dgp, dbp = inorm.in_bwd_plain(x.detach(), g, gamma.detach(), beta.detach(),
+                                       mean, rstd, True)
+    assert_in_close(y, yp, 2e-5)
+    assert_in_close(x.grad, dxp, 2e-5)
+    assert_in_close(gamma.grad, dgp, 2e-5)
+    assert_in_close(beta.grad, dbp, 2e-5)
+    with pytest.raises(ValueError, match="channels_last"):
+        inorm.in_fwd_kernel(x.detach(), gamma.detach(), beta.detach(), 1e-3, False)
+
+
+def test_small_cyclegan_step_on_card_matches_cpu(cuda):
+    """Two float32 steps of the tiny CycleGAN (TF32 off) from the same
+    weights and batches: card (kernels, cuDNN) within 1e-3 of the CPU."""
+    cfg = cyclegan_step.CycleGANTrainConfig(
+        model=CycleGANConfig(image_size=(96, 96, 3), base_width=8, n_res_blocks=2))
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    batches = torch.randint(0, 256, (2, 2, 1, 96, 96, 3), generator=gen, dtype=torch.uint8)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        state = cyclegan_step.init_state(cfg, dev)
+        step = cyclegan_step.make_train_step(cfg)
+        for bx, by in batches:
+            state, m = step(state, bx.to(dev), by.to(dev))
+        out.append(({k: float(v) for k, v in m.items()},
+                    [p.detach().cpu() for p in state.gen_g.parameters()]))
     (m_cpu, p_cpu), (m_gpu, p_gpu) = out
     for k in m_cpu:
         assert m_gpu[k] == pytest.approx(m_cpu[k], rel=1e-3, abs=1e-4), k

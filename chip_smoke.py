@@ -13,8 +13,12 @@ Phases (any failure raises, and the exit code is non-zero):
    of the headline steps, with times beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over 67 TFLOP/s float32,
    whichever is larger) and, where one PyTorch call computes the same
-   function, that call's time. A time is the device time of the kernels a
-   call launches, summed from the profiler over back-to-back calls:
+   function, that call's time. A time is the device time of a call from
+   CUDA events (tools/devtime.py), over back-to-back calls queued while
+   the card waits; for the InstanceNorm kernels, whose inputs (4-34 MB)
+   would otherwise stay in the 50 MB L2, it is taken around each call with
+   the L2 flushed before it, and the warm time is kept beside it as
+   `warm_ms`:
    - SNDCGAN (256x144, batch 32, base_width 512, bf16): the fused LeakyReLU
      + hash dropout forward and backward at each of the four distinct
      discriminator site shapes (timed at the largest);
@@ -24,7 +28,9 @@ Phases (any failure raises, and the exit code is non-zero):
      InstanceNorm forward and backward, with and without ReLU, at each of
      the seven distinct norm shapes, float32 and bfloat16; timed at the
      most frequent shape (4, 256, 32, 32) and the largest (4, 64, 128, 128)
-     against the plain version and F.instance_norm.
+     against the plain version, F.instance_norm and the library's backward;
+     each record carries the launch plan (CTAs, cluster size, shared
+     memory) at every norm shape.
 4. A small float32 step of each model on the card against the same step on
    the CPU (the plain kernel versions), from the same weights and inputs.
 5. Each training slice through its entry point, one after the other, the
@@ -52,7 +58,6 @@ import time
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
 
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core.data import SyntheticImageDataset
@@ -61,7 +66,8 @@ from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import DISC_TRUNK, SNDCGANConfig
 from imagegeneration_tpu_torch.ops import adam, dropout, native
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
-from imagegeneration_tpu_torch.tools.profile_step import self_device_us
+from imagegeneration_tpu_torch.tools import in_plans as in_plans_tool
+from imagegeneration_tpu_torch.tools.devtime import L2Flush, device_ms
 from imagegeneration_tpu_torch.train import cyclegan_step
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 from imagegeneration_tpu_torch.train.cyclegan_engine import LOSS_KEYS as CG_LOSS_KEYS
@@ -93,28 +99,17 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke failed: {what}")
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call of `fn`: the summed durations of
-    the kernels it launches, from the profiler's CUDA activity."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(self_device_us(a) for a in prof.key_averages())
-    require(us > 0, "the profiler recorded no device time")
-    return us / iters / 1e3
-
-
-def timing(kernel, plain, library=None, iters: int = 20) -> dict:
+def timing(kernel, plain, library=None, iters: int = 20,
+           flush: L2Flush | None = None) -> dict:
     """Device ms of the kernel's wrapper, its plain version and, where there
-    is one, the library call."""
+    is one, the library call; with `flush`, timed with the L2 flushed
+    between calls, and warm beside it (`warm_ms`, `plain_warm_ms`, ...)."""
     out = {"library_ms": None}
     for prefix, fn in (("", kernel), ("plain_", plain), ("library_", library)):
         if fn is not None:
-            out[f"{prefix}ms"] = device_ms(fn, iters)
+            out[f"{prefix}ms"] = device_ms(fn, iters, flush=flush)
+            if flush is not None:
+                out[f"{prefix}warm_ms"] = device_ms(fn, iters)
     return out
 
 
@@ -350,24 +345,27 @@ def in_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
     return err.max().item()
 
 
-def time_instance_norm(shape) -> dict:
-    """Kernel, plain and library device times (float32) at one shape."""
+def in_plans(shape, dtype=torch.float32) -> dict:
+    """The forward's and the backward's launch plans at one shape, each with
+    how many of its clusters the card holds at once."""
+    b, c, h, w = shape
+    out = {}
+    for part, tensors in (("fwd", 1), ("bwd", 2)):
+        plan = inorm.launch_plan(b, c, h, w, dtype, tensors)
+        out[part] = {**vars(plan), "active_clusters": inorm.active_clusters(
+            plan, c, h * w, dtype, backward=tensors == 2)}
+    return out
+
+
+def time_instance_norm(shape, flush: L2Flush) -> dict:
+    """Kernel, plain and library device times (float32) at one shape, with
+    the L2 flushed between calls and warm."""
     dev = torch.device("cuda", 0)
     x, dy, gamma, beta = in_inputs(dev, shape, torch.float32)
     b, c, h, w = shape
     n = x.numel()
     _, mean, rstd = inorm.in_fwd_plain(x, gamma, beta, EPS, False)
-    # The library's backward: F.instance_norm runs batch norm over the
-    # (1, B*C, H, W) view of the NCHW-contiguous input; its backward is one
-    # aten call on that view, with gamma repeated per sample.
-    x_r, dy_r = (t.contiguous().view(1, b * c, h, w) for t in (x, dy))
-    g_r = gamma.repeat(b)
-
-    def library_bwd():
-        return torch.ops.aten.native_batch_norm_backward(
-            dy_r, x_r, g_r, None, None, mean.view(-1), rstd.view(-1), True, EPS,
-            [True, True, True])
-
+    library_bwd = in_plans_tool.library_bwd(x, dy, gamma, mean, rstd)
     dx_lib = library_bwd()[0].view(b, c, h, w)
     dx_plain = inorm.in_bwd_plain(x, dy, gamma, beta, mean, rstd, False)[0]
     require(torch.allclose(dx_lib, dx_plain, rtol=1e-4, atol=1e-4),
@@ -381,16 +379,18 @@ def time_instance_norm(shape) -> dict:
         "fwd": {
             **timing(lambda: inorm.in_fwd_kernel(x, gamma, beta, EPS, False),
                      lambda: inorm.in_fwd_plain(x, gamma, beta, EPS, False),
-                     lambda: F.instance_norm(x, weight=gamma, bias=beta, eps=EPS)),
-            # read x, write y, mean, rstd; ~10 operations per element (3 passes)
+                     in_plans_tool.library_fwd(x, gamma, beta), flush=flush),
+            # read x, gamma, beta, write y, mean, rstd; ~10 operations per
+            # element (3 passes)
             **bound(4 * (2 * n + 2 * b * c + 2 * c), 10 * n),
         },
         "bwd": {
             **timing(lambda: inorm.in_bwd_kernel(x, dy, gamma, beta, mean, rstd, False),
                      lambda: inorm.in_bwd_plain(x, dy, gamma, beta, mean, rstd, False),
-                     library_bwd),
-            # read x, dy, mean, rstd; write dx and the (B, C) partials; ~14 ops
-            **bound(4 * (3 * n + 4 * b * c + 2 * c), 14 * n),
+                     library_bwd, flush=flush),
+            # read x, dy, mean, rstd, gamma, beta; write dx, dgamma, dbeta;
+            # ~14 operations per element
+            **bound(4 * (3 * n + 2 * b * c + 4 * c), 14 * n),
         },
         "fwd_bwd_ms": device_ms(fwd_bwd(lambda x, g, b: inorm.instance_norm(x, g, b, EPS))),
         "library_fwd_bwd_ms": device_ms(
@@ -432,8 +432,11 @@ def check_instance_norm(card: str) -> list[dict]:
             "ReLU zero pattern identical")
     torch.cuda.synchronize()
 
-    timed = {"most_frequent": time_instance_norm(IN_FREQUENT),
-             "largest": time_instance_norm(IN_LARGEST)}
+    flush = L2Flush(dev)
+    timed = {"most_frequent": time_instance_norm(IN_FREQUENT, flush),
+             "largest": time_instance_norm(IN_LARGEST, flush)}
+    del flush  # 512 MiB the training slices can use
+    plans = {str(tuple(s)): in_plans(s) for s in IN_SHAPES}
     out = []
     for name, part, line in ((names[0], "fwd", 66), (names[1], "bwd", 137)):
         rec = {
@@ -450,16 +453,21 @@ def check_instance_norm(card: str) -> list[dict]:
             "library_call": "F.instance_norm" if part == "fwd"
                             else "aten.native_batch_norm_backward on the (1, B*C, H, W) view",
             "at_largest": {"shape_nchw": list(IN_LARGEST), **timed["largest"][part]},
+            "plans_f32": {s: p[part] for s, p in plans.items()},
         }
         if part == "bwd":
             rec["fwd_bwd_ms"] = {k: timed[k]["fwd_bwd_ms"] for k in timed}
             rec["library_fwd_bwd_ms"] = {k: timed[k]["library_fwd_bwd_ms"] for k in timed}
         out.append(rec)
         for where, t in timed.items():
-            log(f"{name} at {where} {IN_FREQUENT if where == 'most_frequent' else IN_LARGEST}"
-                f" f32 device time: kernel {t[part]['ms']:.4f} ms, plain "
-                f"{t[part]['plain_ms']:.4f} ms, library {t[part]['library_ms']:.4f} ms, "
-                f"bound {t[part]['bound_ms']:.4f} ms ({card})")
+            shape = IN_FREQUENT if where == "most_frequent" else IN_LARGEST
+            r, plan = t[part], plans[str(shape)][part]
+            log(f"{name} at {where} {shape}"
+                f" f32 device time, L2 flushed (warm): kernel {r['ms']:.4f} "
+                f"({r['warm_ms']:.4f}) ms, plain {r['plain_ms']:.4f} ({r['plain_warm_ms']:.4f})"
+                f" ms, library {r['library_ms']:.4f} ({r['library_warm_ms']:.4f}) ms, bound "
+                f"{r['bound_ms']:.4f} ms; plan {plan['ctas']} CTAs, cluster "
+                f"{plan['cluster']}, {plan['smem_bytes']} B shared ({card})")
     for where, t in timed.items():
         log(f"instance norm fwd+bwd through autograd at {where}, device time: kernels "
             f"{t['fwd_bwd_ms']:.4f} ms, F.instance_norm {t['library_fwd_bwd_ms']:.4f} ms "

@@ -12,89 +12,118 @@
 //   backward: xhat = (x - mean) * rstd, dy' = dy * (xhat*gamma + beta > 0)
 //             sd = sum(dy'), sdx = sum(dy' * xhat)   (per-sample dbeta, dgamma)
 //             dx = rstd * (dy'*gamma - gamma*sd/HW - xhat * gamma*sdx/HW)
+//             dbeta = sum over the batch of sd, dgamma likewise of sdx
 //
 // The variance is two-pass (mean first, then the centred sum of squares),
 // as jnp.var and the plain version compute it: the TPU kernel's
 // E[x^2] - mean^2 cancels on the post-ReLU, non-negative input of the
-// res-block `in2` norm. The forward therefore reads x three times (sum,
-// centred squares, normalize) and the backward reads x and dy twice; the
-// re-reads of one CTA's slice are served from L2 at the shapes of the
-// CycleGAN step (at most 16.8 MB for the whole tensor).
-//
-// Grid: one CTA per (channel block, sample). A channel block is
-// cb = min(C, 32) channels; thread t handles channel c0 + t % cb on rows
-// t / cb, t / cb + R, ... with R = kThreads / cb rows per pass, so a warp's
-// loads are consecutive addresses: one 32-channel row segment for C >= 32,
-// and whole rows for C < 32 (the C = 3 norm before the generator's tanh).
-// Per-thread partial sums are combined per channel in shared memory.
+// res-block `in2` norm.
 //
 // Bound on the H100: device-memory bandwidth. The least traffic is one read
 // of x and one write of y (forward), one read of x and dy and one write of
-// dx (backward). This simple design leaves two things for later work: the
-// L2 re-reads, and occupancy (a (B, C/32) grid is 32 CTAs at the res-block
-// norms against 132 SMs).
+// dx (backward). The design, per launch (`launch_plan` in
+// ops/instance_norm.py chooses its shape; the kernels check it):
+//
+// - Occupancy. A (sample, channel block) group is owned by a thread-block
+//   cluster of k CTAs (k <= 16; above 8 with the non-portable cluster size),
+//   each taking a contiguous range of the H*W rows, so that the norms of the
+//   CycleGAN step run >= 128 CTAs (a (B, C/32) grid was 8 CTAs at
+//   (4, 64, 128, 128)). The CTAs meet in distributed shared memory: the
+//   forward twice (the per-channel sums give the mean, then the centred
+//   sums of squares give rstd), the backward once (sum dy' and
+//   sum dy'*xhat). Every CTA adds the cluster's partials in rank order, so
+//   all of them hold the same bits. A cluster of one skips the barriers.
+// - One read of device memory. Where the CTA's slice of x (and of dy in the
+//   backward) fits the plan's shared-memory budget, the first pass copies
+//   it there with cp.async, every copy in flight at once, and the later
+//   passes read it back from there. An input not held is re-read from L2
+//   (50 MB, against at most 33.5 MB of x and dy), and the output is then
+//   stored evict-first so that it does not push the input out.
+// - 16-byte loads. Where C allows (C % 4 == 0 for float32, C % 8 == 0 for
+//   bfloat16) a thread moves 4 float32 or 8 bfloat16 consecutive channels
+//   at once, neighbouring threads on neighbouring 16-byte chunks of a row
+//   segment of `cb` channels; other C (the C = 3 norm before the tanh) take
+//   a scalar path with one channel per thread, whose warps read whole rows.
+// - The batch sum of dgamma and dbeta, in the backward's one launch. Rank 0
+//   of each cluster writes its sample's partials to a scratch buffer and
+//   takes a ticket (atomicInc, which wraps the counter back to 0); the last
+//   of a channel block's B tickets sums the B partials in sample order. No
+//   float atomics: two calls give the same bits.
+//
+// What bounds the small launches instead is latency, not bytes (PERF.md):
+// the launch, the cluster barrier of each exchange, and the ticket's round
+// trips through L2 form a chain that data of a few MB does not hide.
 //
 // The ReLU mask and the normalized values are evaluated with explicitly
 // rounded intrinsics (no FMA contraction), in the order of the plain
 // version, so that given the same mean and rstd the backward's mask is the
 // plain version's bit for bit.
 //
-// C interface: raw pointers, sizes and the CUDA stream; every entry point
-// returns cudaGetLastError() after its launch.
+// C interface: raw pointers, sizes, the launch plan and the CUDA stream;
+// the plan is checked (cudaErrorInvalidValue if it is not one this source
+// can run) and every entry point returns the launch's error code.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChannelBlock = 32;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxDynamicSmem = 232448 - 8192;  // the static buffers below fit in 8 KB
+// cta_sums's buffer: two statistics per channel, per warp or per thread.
+constexpr int kRed = 2 * (kWarps * kMaxChannelBlock > kThreads ? kWarps * kMaxChannelBlock
+                                                               : kThreads);
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Where this thread works inside its CTA's (sample, channel block) tile.
-struct Tile {
-  int ch;         // absolute channel
-  int row0;       // first row
-  int rows;       // rows per pass of the CTA
-  bool active;    // holds a channel < C and a row slot
-  int64_t base;   // element offset of (sample, row 0, ch)
-  int64_t pitch;  // elements between rows (= C)
+// Launch plan, computed by ops/instance_norm.py::launch_plan.
+struct Plan {
+  int hw;      // rows per sample
+  int c;       // channels
+  int cb;      // channels per block
+  int k;       // CTAs per cluster, one cluster per (sample, channel block)
+  int rows;    // rows per CTA
+  int held;    // inputs whose slice the CTA holds in shared memory (x, then dy)
 };
 
-__device__ __forceinline__ Tile make_tile(int hw, int c, int cb) {
-  Tile t;
-  const int lane_c = threadIdx.x % cb;
-  t.rows = kThreads / cb;
-  t.row0 = threadIdx.x / cb;
-  t.ch = blockIdx.x * cb + lane_c;
-  t.active = t.row0 < t.rows && t.ch < c;
-  t.pitch = c;
-  t.base = static_cast<int64_t>(blockIdx.y) * hw * c + t.ch;
-  return t;
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f32(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16& d, float v) {
+  d = __float2bfloat16_rn(v);
 }
 
-// Sum of `v` over the CTA's threads that hold the same channel, returned to
-// each of them. `red` holds kThreads floats, `out` kMaxChannelBlock.
-__device__ __forceinline__ float channel_sum(float v, int cb, int rows,
-                                             float* red, float* out) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  if (threadIdx.x < cb) {
-    float s = 0.f;
-    for (int k = 0; k < rows; ++k) s += red[threadIdx.x + k * cb];
-    out[threadIdx.x] = s;
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, V>& v) {
+  *reinterpret_cast<Pack<T, V>*>(p) = v;
+}
+
+// An output store; `stream` marks a 16-byte store evict-first, so that it
+// does not push out of L2 the inputs a later pass re-reads.
+template <typename T, int V>
+__device__ __forceinline__ void store_out(T* p, const Pack<T, V>& v, bool stream) {
+  if constexpr (sizeof(T) * V == 16) {
+    if (stream) {
+      __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&v));
+      return;
+    }
   }
-  __syncthreads();
-  return out[threadIdx.x % cb];
+  store_pack(p, v);
 }
 
 __device__ __forceinline__ float normalized(float x, float mean, float rstd) {
@@ -105,176 +134,556 @@ __device__ __forceinline__ float affine(float xhat, float gamma, float beta) {
   return __fadd_rn(__fmul_rn(xhat, gamma), beta);
 }
 
+// 16 bytes from device memory into shared memory, asynchronously; a
+// thread's copies are visible to it after cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
+  const unsigned int dst = static_cast<unsigned int>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The split cluster barrier that keeps a CTA's shared memory alive while
+// the others may still read it; nothing to wait for in a cluster of one.
+__device__ __forceinline__ void cluster_arrive(int k) {
+  if (k > 1) asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait(int k) {
+  if (k > 1) asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Where this thread works inside its CTA. A row segment of the block's cb
+// channels is L = cb / V chunks; thread t takes chunk t % L of rows
+// row0 + t / L, + slots, ... below row1.
+template <int V>
+struct Geom {
+  int lane;       // chunk of V channels within the block
+  int slot;       // first row offset
+  int slots;      // rows per pass of the CTA
+  int ch;         // first absolute channel of the chunk
+  bool active;    // holds channels < C and a row slot
+  int row0, row1; // the CTA's rows
+  int64_t base;   // element offset of (sample, row 0, ch)
+};
+
+template <int V>
+__device__ __forceinline__ Geom<V> geom(const Plan& p, int rank) {
+  Geom<V> g;
+  const int lanes = p.cb / V;
+  g.lane = threadIdx.x % lanes;
+  g.slot = threadIdx.x / lanes;
+  g.slots = kThreads / lanes;
+  g.ch = blockIdx.y * p.cb + g.lane * V;
+  g.active = g.slot < g.slots && g.ch < p.c;
+  g.row0 = rank * p.rows;
+  g.row1 = min(p.hw, g.row0 + p.rows);
+  g.base = static_cast<int64_t>(blockIdx.z) * p.hw * p.c + g.ch;
+  return g;
+}
+
+// Where a pass reads the CTA's slice: shared memory when held, else device
+// memory (L2).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    in_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, T* __restrict__ y,
-                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                  int hw, int c, int cb, float eps, int relu) {
-  __shared__ float red[kThreads];
-  __shared__ float out[kMaxChannelBlock];
-  const Tile t = make_tile(hw, c, cb);
-  const float n = static_cast<float>(hw);
-
-  float s = 0.f;
-  if (t.active) {
-#pragma unroll 4
-    for (int p = t.row0; p < hw; p += t.rows) s += load_f32(x + t.base + p * t.pitch);
+struct Source {
+  const T* at;    // element of row `first`
+  int64_t pitch;  // elements between rows
+  int first;
+  __device__ __forceinline__ const T* row(int r) const {
+    return at + static_cast<int64_t>(r - first) * pitch;
   }
-  const float mean = __fdiv_rn(channel_sum(s, cb, t.rows, red, out), n);
+};
 
-  float q = 0.f;
-  if (t.active) {
-#pragma unroll 4
-    for (int p = t.row0; p < hw; p += t.rows) {
-      const float d = __fsub_rn(load_f32(x + t.base + p * t.pitch), mean);
-      q = __fadd_rn(q, __fmul_rn(d, d));
-    }
-  }
-  const float var = __fdiv_rn(channel_sum(q, cb, t.rows, red, out), n);
-  const float rstd = rsqrtf(__fadd_rn(var, eps));
+template <typename T, int V>
+__device__ __forceinline__ Source<T> source(const Plan& p, const Geom<V>& g, bool held,
+                                            const T* cache, const T* global) {
+  if (held) return {cache + g.lane * V, p.cb, g.row0};
+  return {global + g.base, p.c, 0};
+}
 
-  if (!t.active) return;
-  const float g = gamma[t.ch];
-  const float b = beta[t.ch];
-#pragma unroll 4
-  for (int p = t.row0; p < hw; p += t.rows) {
-    const int64_t i = t.base + p * t.pitch;
-    float v = affine(normalized(load_f32(x + i), mean, rstd), g, b);
-    if (relu) v = fmaxf(v, 0.f);
-    store(y + i, v);
-  }
-  if (t.row0 == 0) {
-    const int64_t s_idx = static_cast<int64_t>(blockIdx.y) * c + t.ch;
-    mean_out[s_idx] = mean;
-    rstd_out[s_idx] = rstd;
+// f(r, a_r) over this thread's rows in increasing order, kUnroll loads of
+// `a` in flight at a time (two-source form below: f(r, a_r, b_r)).
+constexpr int kUnroll = 4;
+
+template <typename T, int V, typename F>
+__device__ __forceinline__ void each_row(const Geom<V>& g, const Source<T>& a, F&& f) {
+  for (int r0 = g.row0 + g.slot; r0 < g.row1; r0 += kUnroll * g.slots) {
+    Pack<T, V> va[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (r0 + u * g.slots < g.row1) va[u] = load_pack<T, V>(a.row(r0 + u * g.slots));
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (r0 + u * g.slots < g.row1) f(r0 + u * g.slots, va[u]);
   }
 }
 
-template <typename T>
+template <typename T, int V, typename F>
+__device__ __forceinline__ void each_row(const Geom<V>& g, const Source<T>& a,
+                                         const Source<T>& b, F&& f) {
+  for (int r0 = g.row0 + g.slot; r0 < g.row1; r0 += kUnroll * g.slots) {
+    Pack<T, V> va[kUnroll], vb[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (r0 + u * g.slots < g.row1) {
+        va[u] = load_pack<T, V>(a.row(r0 + u * g.slots));
+        vb[u] = load_pack<T, V>(b.row(r0 + u * g.slots));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (r0 + u * g.slots < g.row1) f(r0 + u * g.slots, va[u], vb[u]);
+  }
+}
+
+// This thread's part of the CTA's slice of `global` into `cache` (the
+// layout of Source when held). 16-byte chunks go by cp.async, left in
+// flight (cp_async_wait_all waits for every copy issued); the scalar path
+// loads and stores. Each thread later reads only what it copied itself, so
+// no CTA barrier is needed.
+template <typename T, int V>
+__device__ __forceinline__ void fill_cache(const Plan& p, const Geom<V>& g, T* cache,
+                                           const T* global) {
+  if (!g.active) return;
+  if constexpr (sizeof(T) * V == 16) {
+    for (int r = g.row0 + g.slot; r < g.row1; r += g.slots)
+      cp_async16(cache + (r - g.row0) * p.cb + g.lane * V,
+                 global + g.base + static_cast<int64_t>(r) * p.c);
+  } else {
+    const Source<T> src{global + g.base, p.c, 0};
+    each_row(g, src, [&](int r, const Pack<T, V>& v) {
+      store_pack(cache + (r - g.row0) * p.cb + g.lane * V, v);
+    });
+  }
+}
+
+// Sums of S statistics of V channels, v[s * V + j], over the CTA's threads
+// that hold the same channels; statistic s of the block's channel
+// lane * V + j lands in out[s * cb + lane * V + j], in a fixed order.
+template <int V, int S>
+__device__ __forceinline__ void cta_sums(float (&v)[S * V], int cb, float* red, float* out) {
+  const int lanes = cb / V;
+  int nslots;
+  if (32 % lanes == 0) {  // a warp holds whole row segments: shuffle first
+    for (int off = 16; off >= lanes; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < S * V; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+    }
+    const int w = threadIdx.x / 32, lw = threadIdx.x % 32;
+    if (lw < lanes) {
+#pragma unroll
+      for (int i = 0; i < S * V; ++i) red[(w * lanes + lw) * S * V + i] = v[i];
+    }
+    nslots = kWarps;
+  } else {  // only the scalar path has lanes that do not divide 32 (check_plan)
+    if constexpr (V == 1) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) red[threadIdx.x * S + i] = v[i];
+    }
+    nslots = kThreads / lanes;
+  }
+  __syncthreads();
+  if (threadIdx.x < S * cb) {
+    const int st = threadIdx.x / cb, ch = threadIdx.x % cb;
+    const int lane = ch / V, i = st * V + ch % V;
+    float s = 0.f;
+    for (int k = 0; k < nslots; ++k) s += red[(k * lanes + lane) * S * V + i];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// tot[i] = sum over the cluster's CTAs, in rank order, of part[i], i < n.
+// A lone CTA (k = 1) skips the cluster barrier: cta_sums's last barrier
+// already made its part visible to its own threads.
+__device__ __forceinline__ void cluster_totals(const cg::cluster_group& cl, float* part,
+                                               float* tot, int n, int k) {
+  if (k > 1) cl.sync();
+  if (threadIdx.x < n) {
+    float v[kMaxCluster];  // the k remote loads issued together
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < k) v[r] = cl.map_shared_rank(part, r)[threadIdx.x];
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < k) s += v[r];
+    tot[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    in_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out, Plan p,
+                  float eps, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kRed];
+  __shared__ float part[2 * kMaxChannelBlock];
+  __shared__ float tot[2 * kMaxChannelBlock];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const Geom<V> g = geom<V>(p, rank);
+  T* cache = reinterpret_cast<T*>(smem);
+  const float n = static_cast<float>(p.hw);
+  float gm[V] = {}, bt[V] = {};
+  if (g.ch < p.c) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      gm[j] = gamma[g.ch + j];
+      bt[j] = beta[g.ch + j];
+    }
+  }
+
+  // Pass 1: the sums (after the slice is copied into shared memory).
+  if (p.held) fill_cache<T, V>(p, g, cache, x);
+  cp_async_wait_all();
+  const Source<T> src = source<T, V>(p, g, p.held > 0, cache, x);
+  float s[V] = {};
+  if (g.active) {
+    each_row(g, src, [&](int, const Pack<T, V>& v) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] += to_f32(v.v[j]);
+    });
+  }
+  cta_sums<V, 1>(s, p.cb, red, part);
+  cluster_totals(cl, part, tot, p.cb, p.k);
+  float mean[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) mean[j] = __fdiv_rn(tot[g.lane * V + j], n);
+
+  // Pass 2: the centred sums of squares.
+  float q[V] = {};
+  if (g.active) {
+    each_row(g, src, [&](int, const Pack<T, V>& v) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = __fsub_rn(to_f32(v.v[j]), mean[j]);
+        q[j] = __fadd_rn(q[j], __fmul_rn(d, d));
+      }
+    });
+  }
+  cta_sums<V, 1>(q, p.cb, red, part + p.cb);
+  cluster_totals(cl, part + p.cb, tot + p.cb, p.cb, p.k);
+  float rstd[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    rstd[j] = rsqrtf(__fadd_rn(__fdiv_rn(tot[p.cb + g.lane * V + j], n), eps));
+  cluster_arrive(p.k);  // this CTA reads no other's shared memory from here on
+
+  // Pass 3: normalize.
+  if (g.active) {
+    each_row(g, src, [&](int r, const Pack<T, V>& v) {
+      Pack<T, V> o;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float a = affine(normalized(to_f32(v.v[j]), mean[j], rstd[j]), gm[j], bt[j]);
+        if (relu) a = fmaxf(a, 0.f);
+        from_f32(o.v[j], a);
+      }
+      store_out(y + g.base + static_cast<int64_t>(r) * p.c, o, p.held == 0);
+    });
+    if (rank == 0 && g.slot == 0) {
+      const int64_t s_idx = static_cast<int64_t>(blockIdx.z) * p.c + g.ch;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        mean_out[s_idx + j] = mean[j];
+        rstd_out[s_idx + j] = rstd[j];
+      }
+    }
+  }
+  cluster_wait(p.k);  // no CTA leaves while another may read its shared memory
+}
+
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
                   const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
-                  T* __restrict__ dx, float* __restrict__ dgamma_part,
-                  float* __restrict__ dbeta_part, int hw, int c, int cb, int relu) {
-  __shared__ float red[kThreads];
-  __shared__ float out[kMaxChannelBlock];
-  const Tile t = make_tile(hw, c, cb);
-  const int64_t s_idx = static_cast<int64_t>(blockIdx.y) * c + t.ch;
-  float mean = 0.f, rstd = 0.f, g = 0.f, b = 0.f;
-  if (t.ch < c) {
-    mean = mean_in[s_idx];
-    rstd = rstd_in[s_idx];
-    g = gamma[t.ch];
-    b = beta[t.ch];
-  }
-
-  // Pass 1: the per-sample dbeta and dgamma partials.
-  float sd = 0.f, sdx = 0.f;
-  if (t.active) {
-#pragma unroll 4
-    for (int p = t.row0; p < hw; p += t.rows) {
-      const int64_t i = t.base + p * t.pitch;
-      const float xhat = normalized(load_f32(x + i), mean, rstd);
-      float d = load_f32(dy + i);
-      if (relu && !(affine(xhat, g, b) > 0.f)) d = 0.f;
-      sd += d;
-      sdx += d * xhat;
+                  T* __restrict__ dx, float* __restrict__ dgamma, float* __restrict__ dbeta,
+                  float* __restrict__ partials, unsigned int* __restrict__ tickets, Plan p,
+                  int batch, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kRed];
+  __shared__ float part[2 * kMaxChannelBlock];
+  __shared__ float tot[2 * kMaxChannelBlock];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const Geom<V> g = geom<V>(p, rank);
+  T* cache_x = reinterpret_cast<T*>(smem);
+  T* cache_dy = cache_x + static_cast<int64_t>(p.rows) * p.cb;
+  const int64_t s_idx = static_cast<int64_t>(blockIdx.z) * p.c + g.ch;
+  float mean[V] = {}, rstd[V] = {}, gm[V] = {}, bt[V] = {};
+  if (g.ch < p.c) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mean[j] = mean_in[s_idx + j];
+      rstd[j] = rstd_in[s_idx + j];
+      gm[j] = gamma[g.ch + j];
+      bt[j] = beta[g.ch + j];
     }
   }
-  const float sum_d = channel_sum(sd, cb, t.rows, red, out);
-  const float sum_dx = channel_sum(sdx, cb, t.rows, red, out);
-  if (!t.active) return;
-  if (t.row0 == 0) {
-    dbeta_part[s_idx] = sum_d;
-    dgamma_part[s_idx] = sum_dx;
+
+  // Pass 1: this sample's dbeta and dgamma partials (after the slices are
+  // copied into shared memory).
+  if (p.held > 0) fill_cache<T, V>(p, g, cache_x, x);
+  if (p.held > 1) fill_cache<T, V>(p, g, cache_dy, dy);
+  cp_async_wait_all();
+  const Source<T> xs = source<T, V>(p, g, p.held > 0, cache_x, x);
+  const Source<T> ds = source<T, V>(p, g, p.held > 1, cache_dy, dy);
+  float sums[2 * V] = {};  // sum dy' of each channel, then sum dy' * xhat
+  if (g.active) {
+    each_row(g, xs, ds, [&](int, const Pack<T, V>& xv, const Pack<T, V>& dv) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xhat = normalized(to_f32(xv.v[j]), mean[j], rstd[j]);
+        float d = to_f32(dv.v[j]);
+        if (relu && !(affine(xhat, gm[j], bt[j]) > 0.f)) d = 0.f;
+        sums[j] += d;
+        sums[V + j] += d * xhat;
+      }
+    });
+  }
+  cta_sums<V, 2>(sums, p.cb, red, part);
+  cluster_totals(cl, part, tot, 2 * p.cb, p.k);
+  cluster_arrive(p.k);  // this CTA reads no other's shared memory from here on
+
+  // dbeta and dgamma: the sums over the batch, by warp 0 of the last rank-0
+  // CTA of the channel block to take a ticket. The ticket is taken before
+  // this warp's share of pass 2 and read after it, so the atomic's round
+  // trip overlaps the pass. partials is (2, batch, C).
+  const bool batch_sum = rank == 0 && threadIdx.x < 32;
+  const int64_t plane = static_cast<int64_t>(batch) * p.c;
+  unsigned int ticket = 0;
+  if (batch_sum) {
+    for (int i = threadIdx.x; i < p.cb; i += 32) {
+      const int ch = blockIdx.y * p.cb + i;
+      if (ch < p.c) {
+        const int64_t at = static_cast<int64_t>(blockIdx.z) * p.c + ch;
+        partials[at] = tot[i];
+        partials[plane + at] = tot[p.cb + i];
+      }
+    }
+    __threadfence();
+    __syncwarp();
+    if (threadIdx.x == 0)
+      ticket = atomicInc(&tickets[blockIdx.y], static_cast<unsigned int>(batch - 1));
   }
 
   // Pass 2: dx, with mean(g) = gamma * sum_d / HW, mean(g*xhat) likewise.
-  const float n = static_cast<float>(hw);
-  const float mean_g = __fdiv_rn(__fmul_rn(sum_d, g), n);
-  const float mean_gx = __fdiv_rn(__fmul_rn(sum_dx, g), n);
-#pragma unroll 4
-  for (int p = t.row0; p < hw; p += t.rows) {
-    const int64_t i = t.base + p * t.pitch;
-    const float xhat = normalized(load_f32(x + i), mean, rstd);
-    float d = load_f32(dy + i);
-    if (relu && !(affine(xhat, g, b) > 0.f)) d = 0.f;
-    const float inner = __fsub_rn(__fsub_rn(__fmul_rn(d, g), mean_g),
-                                  __fmul_rn(xhat, mean_gx));
-    store(dx + i, __fmul_rn(rstd, inner));
+  if (g.active) {
+    const float n = static_cast<float>(p.hw);
+    float mean_g[V], mean_gx[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mean_g[j] = __fdiv_rn(__fmul_rn(tot[g.lane * V + j], gm[j]), n);
+      mean_gx[j] = __fdiv_rn(__fmul_rn(tot[p.cb + g.lane * V + j], gm[j]), n);
+    }
+    each_row(g, xs, ds, [&](int r, const Pack<T, V>& xv, const Pack<T, V>& dv) {
+      Pack<T, V> o;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xhat = normalized(to_f32(xv.v[j]), mean[j], rstd[j]);
+        float d = to_f32(dv.v[j]);
+        if (relu && !(affine(xhat, gm[j], bt[j]) > 0.f)) d = 0.f;
+        const float inner = __fsub_rn(__fsub_rn(__fmul_rn(d, gm[j]), mean_g[j]),
+                                      __fmul_rn(xhat, mean_gx[j]));
+        from_f32(o.v[j], __fmul_rn(rstd[j], inner));
+      }
+      store_out(dx + g.base + static_cast<int64_t>(r) * p.c, o, p.held < 2);
+    });
   }
+
+  if (batch_sum &&
+      __shfl_sync(0xffffffffu, ticket, 0) == static_cast<unsigned int>(batch - 1)) {
+    __threadfence();
+    for (int i = threadIdx.x; i < p.cb; i += 32) {
+      const int ch = blockIdx.y * p.cb + i;
+      if (ch >= p.c) continue;
+      float sb = 0.f, sg = 0.f;
+      for (int b = 0; b < batch; ++b) {
+        sb += __ldcg(partials + static_cast<int64_t>(b) * p.c + ch);
+        sg += __ldcg(partials + plane + static_cast<int64_t>(b) * p.c + ch);
+      }
+      dbeta[ch] = sb;
+      dgamma[ch] = sg;
+    }
+  }
+  cluster_wait(p.k);  // no CTA leaves while another may read its shared memory
 }
 
-dim3 grid_of(int b, int c, int cb) {
-  return dim3(static_cast<unsigned int>((c + cb - 1) / cb),
-              static_cast<unsigned int>(b));
+// cudaErrorInvalidValue unless this source can run the plan; sets p.held.
+cudaError_t check_plan(Plan& p, int b, int vec, int tensors, int esize, int smem) {
+  const bool ok =
+      b >= 1 && p.hw >= 1 && p.c >= 1 && p.cb >= vec && p.cb <= kMaxChannelBlock &&
+      p.cb % vec == 0 && p.cb / vec <= kThreads &&
+      // vector path: blocks tile C, and a warp holds whole row segments
+      (vec == 1 || (p.c % p.cb == 0 && 32 % (p.cb / vec) == 0)) && p.k >= 1 &&
+      p.k <= kMaxCluster && p.rows >= 1 &&
+      static_cast<int64_t>(p.rows) * p.k >= p.hw &&         // the rows are covered
+      static_cast<int64_t>(p.rows) * (p.k - 1) < p.hw &&    // every CTA has a row
+      smem >= 0 && smem <= kMaxDynamicSmem && smem % (p.rows * p.cb * esize) == 0 &&
+      smem / (p.rows * p.cb * esize) <= tensors;  // whole slices of x (and dy)
+  if (!ok) return cudaErrorInvalidValue;
+  p.held = smem / (p.rows * p.cb * esize);
+  return cudaSuccess;
 }
 
-template <typename T>
-int launch_fwd(const void* x, const void* gamma, const void* beta, void* y,
-               void* mean, void* rstd, int b, int hw, int c, float eps,
-               int relu, void* stream) {
-  const int cb = c < kMaxChannelBlock ? c : kMaxChannelBlock;
-  in_fwd_kernel<T><<<grid_of(b, c, cb), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), hw, c, cb, eps,
-      relu);
+template <typename K>
+cudaError_t prepare(K* kernel, const Plan& p, int smem) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && p.k > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  Launch(const Plan& p, int b, int smem, void* stream) : cfg(), attr() {
+    cfg.gridDim = dim3(static_cast<unsigned int>(p.k),
+                       static_cast<unsigned int>((p.c + p.cb - 1) / p.cb),
+                       static_cast<unsigned int>(b));
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = static_cast<unsigned int>(p.k);
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = p.k > 1 ? 1 : 0;  // a lone CTA is a cluster of one anyway
+  }
+};
+
+Plan make_plan(int hw, int c, int cb, int cluster, int rows) {
+  return Plan{hw, c, cb, cluster, rows, 0};
+}
+
+template <typename T, int V>
+int launch_fwd(const void* x, const void* gamma, const void* beta, void* y, void* mean,
+               void* rstd, int b, Plan p, int smem, float eps, int relu, void* stream) {
+  cudaError_t e = check_plan(p, b, V, 1, sizeof(T), smem);
+  if (e == cudaSuccess) e = prepare(in_fwd_kernel<T, V>, p, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Launch l(p, b, smem, stream);
+  e = cudaLaunchKernelEx(&l.cfg, in_fwd_kernel<T, V>, static_cast<const T*>(x),
+                         static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                         static_cast<T*>(y), static_cast<float*>(mean),
+                         static_cast<float*>(rstd), p, eps, relu);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* dy, const void* gamma,
-               const void* beta, const void* mean, const void* rstd, void* dx,
-               void* dgamma_part, void* dbeta_part, int b, int hw, int c,
-               int relu, void* stream) {
-  const int cb = c < kMaxChannelBlock ? c : kMaxChannelBlock;
-  in_bwd_kernel<T><<<grid_of(b, c, cb), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<T*>(dx), static_cast<float*>(dgamma_part),
-      static_cast<float*>(dbeta_part), hw, c, cb, relu);
+template <typename T, int V>
+int launch_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
+               const void* mean, const void* rstd, void* dx, void* dgamma, void* dbeta,
+               void* partials, void* tickets, int b, Plan p, int smem, int relu,
+               void* stream) {
+  cudaError_t e = check_plan(p, b, V, 2, sizeof(T), smem);
+  if (e == cudaSuccess) e = prepare(in_bwd_kernel<T, V>, p, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Launch l(p, b, smem, stream);
+  e = cudaLaunchKernelEx(&l.cfg, in_bwd_kernel<T, V>, static_cast<const T*>(x),
+                         static_cast<const T*>(dy), static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta), static_cast<const float*>(mean),
+                         static_cast<const float*>(rstd), static_cast<T*>(dx),
+                         static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+                         static_cast<float*>(partials),
+                         static_cast<unsigned int*>(tickets), p, b, relu);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int active_clusters(K* kernel, const Plan& p, int smem) {
+  cudaError_t e = prepare(kernel, p, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  Launch l(p, 1, smem, nullptr);
+  l.cfg.numAttrs = 1;  // a plan of k = 1 counts as clusters of one CTA
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &l.cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" {
 
-int in_fwd_f32(const void* x, const void* gamma, const void* beta, void* y,
-               void* mean, void* rstd, int b, int hw, int c, float eps,
-               int relu, void* stream) {
-  return launch_fwd<float>(x, gamma, beta, y, mean, rstd, b, hw, c, eps, relu,
-                           stream);
+// vec: 4 (16-byte loads) or 1 for float32; 8 or 1 for bfloat16.
+int in_fwd_f32(const void* x, const void* gamma, const void* beta, void* y, void* mean,
+               void* rstd, int b, int hw, int c, int cb, int vec, int cluster, int rows,
+               int smem, float eps, int relu, void* stream) {
+  const Plan p = make_plan(hw, c, cb, cluster, rows);
+  if (vec == 4)
+    return launch_fwd<float, 4>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu, stream);
+  if (vec == 1)
+    return launch_fwd<float, 1>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int in_fwd_bf16(const void* x, const void* gamma, const void* beta, void* y,
-                void* mean, void* rstd, int b, int hw, int c, float eps,
-                int relu, void* stream) {
-  return launch_fwd<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, b, hw, c,
-                                   eps, relu, stream);
+int in_fwd_bf16(const void* x, const void* gamma, const void* beta, void* y, void* mean,
+                void* rstd, int b, int hw, int c, int cb, int vec, int cluster, int rows,
+                int smem, float eps, int relu, void* stream) {
+  const Plan p = make_plan(hw, c, cb, cluster, rows);
+  if (vec == 8)
+    return launch_fwd<__nv_bfloat16, 8>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu,
+                                        stream);
+  if (vec == 1)
+    return launch_fwd<__nv_bfloat16, 1>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu,
+                                        stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int in_bwd_f32(const void* x, const void* dy, const void* gamma,
-               const void* beta, const void* mean, const void* rstd, void* dx,
-               void* dgamma_part, void* dbeta_part, int b, int hw, int c,
-               int relu, void* stream) {
-  return launch_bwd<float>(x, dy, gamma, beta, mean, rstd, dx, dgamma_part,
-                           dbeta_part, b, hw, c, relu, stream);
+int in_bwd_f32(const void* x, const void* dy, const void* gamma, const void* beta,
+               const void* mean, const void* rstd, void* dx, void* dgamma, void* dbeta,
+               void* partials, void* tickets, int b, int hw, int c, int cb, int vec,
+               int cluster, int rows, int smem, int relu, void* stream) {
+  const Plan p = make_plan(hw, c, cb, cluster, rows);
+  if (vec == 4)
+    return launch_bwd<float, 4>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta, partials,
+                                tickets, b, p, smem, relu, stream);
+  if (vec == 1)
+    return launch_bwd<float, 1>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta, partials,
+                                tickets, b, p, smem, relu, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int in_bwd_bf16(const void* x, const void* dy, const void* gamma,
-                const void* beta, const void* mean, const void* rstd, void* dx,
-                void* dgamma_part, void* dbeta_part, int b, int hw, int c,
-                int relu, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, dy, gamma, beta, mean, rstd, dx,
-                                   dgamma_part, dbeta_part, b, hw, c, relu,
-                                   stream);
+int in_bwd_bf16(const void* x, const void* dy, const void* gamma, const void* beta,
+                const void* mean, const void* rstd, void* dx, void* dgamma, void* dbeta,
+                void* partials, void* tickets, int b, int hw, int c, int cb, int vec,
+                int cluster, int rows, int smem, int relu, void* stream) {
+  const Plan p = make_plan(hw, c, cb, cluster, rows);
+  if (vec == 8)
+    return launch_bwd<__nv_bfloat16, 8>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta,
+                                        partials, tickets, b, p, smem, relu, stream);
+  if (vec == 1)
+    return launch_bwd<__nv_bfloat16, 1>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta,
+                                        partials, tickets, b, p, smem, relu, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of a plan the card holds at once (the occupancy API),
+// or minus the CUDA error code. bwd: 0 forward, 1 backward.
+int in_active_clusters(int bwd, int bf16, int hw, int c, int cb, int vec, int cluster,
+                       int rows, int smem) {
+  const Plan p = make_plan(hw, c, cb, cluster, rows);
+  if (bf16) {
+    if (vec == 8)
+      return bwd ? active_clusters(in_bwd_kernel<__nv_bfloat16, 8>, p, smem)
+                 : active_clusters(in_fwd_kernel<__nv_bfloat16, 8>, p, smem);
+    return bwd ? active_clusters(in_bwd_kernel<__nv_bfloat16, 1>, p, smem)
+               : active_clusters(in_fwd_kernel<__nv_bfloat16, 1>, p, smem);
+  }
+  if (vec == 4)
+    return bwd ? active_clusters(in_bwd_kernel<float, 4>, p, smem)
+               : active_clusters(in_fwd_kernel<float, 4>, p, smem);
+  return bwd ? active_clusters(in_bwd_kernel<float, 1>, p, smem)
+             : active_clusters(in_fwd_kernel<float, 1>, p, smem);
 }
 
 const char* in_error_string(int code) {

@@ -22,9 +22,11 @@ no-op when the layout already matches: the math does not depend on it).
 
 On the H100 both passes are bound by device-memory bandwidth (forward: read
 x, write y; backward: read x and dy, write dx). The kernels
-(`csrc/instance_norm.cu`) run one CTA per (sample, 32-channel block); the
-per-sample dgamma/dbeta partials they emit are summed over the batch here by
-one `torch.sum`, as the JAX package sums them in XLA.
+(`csrc/instance_norm.cu`) give each (sample, channel block) a cluster of
+CTAs that split its H*W rows, hold their slice in shared memory where it
+fits, and move 16 bytes per load where C allows; the backward also sums
+dgamma and dbeta over the batch. `launch_plan` chooses the shape of a
+launch; the kernels only check it.
 
 A CPU tensor takes the plain versions below, which mirror `_in_fwd_xla` and
 `_in_bwd_xla` expression by expression; a CUDA tensor launches the kernels
@@ -34,6 +36,7 @@ or raises. `LAUNCHES` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -90,9 +93,100 @@ def in_bwd_plain(
     return dx.to(x.dtype), dgamma, dbeta
 
 
+# -------------------------------------------------------------- launch plan
+MAX_CLUSTER = 16  # CTAs per cluster; above 8 the H100's non-portable size
+CHANNEL_BLOCK = 32  # the widest channel block (kMaxChannelBlock in the source)
+MIN_CTAS = 128  # the H100 has 132 SMs
+MIN_ROWS = 32  # the plan splits H*W no finer
+SMEM_TARGET = 64 << 10  # held slices per CTA, so that three fit an SM
+SMEM_LIMIT = 232448 - 8192  # a CTA's 227 KB, less the kernels' static buffers
+_ELEMENT_SIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one kernel launch covers a (B, C, H, W) tensor.
+
+    A (sample, channel block) group of `channel_block` channels is one
+    cluster of `cluster` CTAs, each taking `rows` consecutive rows of H*W;
+    a thread moves `vec` consecutive channels per load (16 bytes; 1 on the
+    scalar path). The CTA holds its slice of the first `held` inputs (x,
+    then dy) in `smem_bytes` of dynamic shared memory; the later passes
+    re-read the others (from L2).
+    """
+
+    vec: int
+    channel_block: int
+    blocks: int
+    cluster: int
+    rows: int
+    held: int
+    smem_bytes: int
+    ctas: int
+
+    def args(self) -> list[int]:
+        """The plan's entry-point arguments: cb, vec, cluster, rows, smem
+        (the source derives `held` from the shared-memory bytes)."""
+        return [self.channel_block, self.vec, self.cluster, self.rows, self.smem_bytes]
+
+
+def launch_plan(
+    b: int, c: int, h: int, w: int, dtype: torch.dtype, tensors: int = 1, *,
+    channel_block: int | None = None, cluster: int | None = None,
+    held: int | None = None,
+) -> LaunchPlan:
+    """The launch plan of the forward (`tensors` = 1: x) or the backward (2:
+    x and dy) at one shape.
+
+    - vec: 16 bytes of channels when C is a multiple of them, else 1.
+    - channel block: on the 16-byte path the widest power-of-two number of
+      chunks (<= CHANNEL_BLOCK channels) that divides C, so blocks tile C
+      and a warp holds whole row segments; else min(C, CHANNEL_BLOCK).
+    - cluster: doubled from 1 until the launch has MIN_CTAS CTAs, while
+      each CTA keeps at least MIN_ROWS rows, up to MAX_CLUSTER.
+    - at the largest cluster, the 16-byte path's block is halved (to no
+      fewer than 16 channels, twice the CTAs) once, if that makes every
+      input's slice fit SMEM_TARGET;
+    - held: as many inputs' slices as fit SMEM_TARGET.
+
+    The keyword arguments override the choice (the tuning tool's sweep).
+    """
+    esize = _ELEMENT_SIZE[dtype]
+    hw = h * w
+    vec = 16 // esize if c % (16 // esize) == 0 else 1
+    auto_block = channel_block is None
+    if auto_block:
+        if vec == 1:
+            channel_block = min(c, CHANNEL_BLOCK)
+        else:
+            lanes = CHANNEL_BLOCK // vec
+            while (c // vec) % lanes:
+                lanes //= 2
+            channel_block = lanes * vec
+
+    blocks = -(-c // channel_block)
+    k = cluster
+    if k is None:
+        k = 1
+        while k < MAX_CLUSTER and b * blocks * k < MIN_CTAS and hw >= 2 * k * MIN_ROWS:
+            k *= 2
+    rows = -(-hw // k)
+    if (auto_block and vec > 1 and k == MAX_CLUSTER and channel_block > 16
+            and SMEM_TARGET < tensors * rows * channel_block * esize <= 2 * SMEM_TARGET):
+        channel_block //= 2
+        blocks *= 2
+    slice_bytes = rows * channel_block * esize
+    if held is None:
+        held = min(tensors, SMEM_TARGET // slice_bytes)
+    held = min(held, tensors)
+    return LaunchPlan(vec=vec, channel_block=channel_block, blocks=blocks, cluster=k,
+                      rows=rows, held=held, smem_bytes=held * slice_bytes,
+                      ctas=b * blocks * k)
+
+
 # ------------------------------------------------------------------- kernel
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_SIZES = [ctypes.c_int] * 3  # B, H*W, C
+_INTS = [ctypes.c_int] * 8  # B, H*W, C, then the plan (LaunchPlan.args)
 
 
 @functools.cache
@@ -102,12 +196,39 @@ def _lib() -> ctypes.CDLL:
     for suffix in _DTYPES.values():
         fwd = getattr(lib, f"in_fwd_{suffix}")
         fwd.restype = ctypes.c_int
-        fwd.argtypes = [ctypes.c_void_p] * 6 + _SIZES + [
+        fwd.argtypes = [ctypes.c_void_p] * 6 + _INTS + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         bwd = getattr(lib, f"in_bwd_{suffix}")
         bwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 9 + _SIZES + [ctypes.c_int, ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 11 + _INTS + [ctypes.c_int, ctypes.c_void_p]
+    lib.in_active_clusters.restype = ctypes.c_int
+    lib.in_active_clusters.argtypes = [ctypes.c_int] * 9
     return lib
+
+
+def active_clusters(plan: LaunchPlan, c: int, hw: int, dtype: torch.dtype,
+                    backward: bool) -> int:
+    """How many clusters of `plan` the card holds at once (CUDA's occupancy
+    API); the plan's clusters beyond that wait for a second wave."""
+    n = _lib().in_active_clusters(int(backward), int(dtype == torch.bfloat16), hw, c,
+                                  *plan.args())
+    if n < 0:
+        native.check(_lib(), "in_error_string", -n, "instance_norm occupancy query")
+    return n
+
+
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """The backward's per-channel-block ticket counters on `stream`. They
+    start at 0 and every launch leaves them at 0 (atomicInc wraps at B), so
+    one zeroed buffer per stream serves every call."""
+    key = (device.index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return t
 
 
 def _check_activation(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -125,6 +246,12 @@ def _check_activation(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError("instance_norm kernel: the int sizes cover < 2**31 elements")
 
 
+def _check_aligned(plan: LaunchPlan, *ts: torch.Tensor) -> None:
+    if plan.vec > 1 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("instance_norm kernel: the 16-byte path needs 16-byte aligned "
+                         "tensors (a view at an odd storage offset is not)")
+
+
 def _check_vector(name: str, t: torch.Tensor, x: torch.Tensor, shape: tuple) -> None:
     if (t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous()
             or tuple(t.shape) != shape):
@@ -134,19 +261,22 @@ def _check_vector(name: str, t: torch.Tensor, x: torch.Tensor, shape: tuple) -> 
 
 
 def in_fwd_kernel(
-    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float, relu: bool
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float, relu: bool,
+    plan: LaunchPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_activation("x", x, x)
     b, c, h, w = x.shape
     _check_vector("gamma", gamma, x, (c,))
     _check_vector("beta", beta, x, (c,))
+    plan = plan or launch_plan(b, c, h, w, x.dtype, 1)
+    _check_aligned(plan, x)
     lib = _lib()
     y = torch.empty_like(x, memory_format=torch.channels_last)
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     rc = getattr(lib, f"in_fwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), b, h * w, c, eps, int(relu),
+        mean.data_ptr(), rstd.data_ptr(), b, h * w, c, *plan.args(), eps, int(relu),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     native.check(lib, "in_error_string", rc, "instance_norm forward")
@@ -156,7 +286,7 @@ def in_fwd_kernel(
 
 def in_bwd_kernel(
     x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-    mean: torch.Tensor, rstd: torch.Tensor, relu: bool,
+    mean: torch.Tensor, rstd: torch.Tensor, relu: bool, plan: LaunchPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_activation("x", x, x)
     _check_activation("dy", dy, x)
@@ -165,19 +295,24 @@ def in_bwd_kernel(
     _check_vector("beta", beta, x, (c,))
     _check_vector("mean", mean, x, (b, c))
     _check_vector("rstd", rstd, x, (b, c))
+    plan = plan or launch_plan(b, c, h, w, x.dtype, 2)
+    _check_aligned(plan, x, dy)
     lib = _lib()
+    stream = torch.cuda.current_stream(x.device)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
-    dgamma_part = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    dbeta_part = torch.empty_like(dgamma_part)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    partials = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    tickets = _tickets(x.device, stream, plan.blocks)
     rc = getattr(lib, f"in_bwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma_part.data_ptr(),
-        dbeta_part.data_ptr(), b, h * w, c, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), partials.data_ptr(), tickets.data_ptr(), b, h * w, c,
+        *plan.args(), int(relu), stream.cuda_stream,
     )
     native.check(lib, "in_error_string", rc, "instance_norm backward")
     LAUNCHES["instance_norm_bwd"] += 1
-    return dx, dgamma_part.sum(0), dbeta_part.sum(0)
+    return dx, dgamma, dbeta
 
 
 # ------------------------------------------------------------------ wrapper

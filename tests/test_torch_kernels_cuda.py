@@ -23,6 +23,8 @@ bf16 value (one ulp, 2^-7 |v|). The backward is fed the plain forward's
 mean and rstd, so both rebuild the same ReLU mask.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -132,11 +134,7 @@ def assert_in_close(got, want, tol, terms=128):
     assert bool((err <= bound).all()), f"max excess {(err - bound).max().item()}"
 
 
-@pytest.mark.parametrize("relu", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (4, 64, 17, 33), (4, 256, 32, 32),
-                                   (3, 512, 6, 6), (2, 40, 9, 11)])
-def test_instance_norm_kernels_match_plain(cuda, shape, dtype, relu):
+def in_inputs(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     c = shape[1]
     x = (2.0 + 3.0 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
@@ -145,24 +143,83 @@ def test_instance_norm_kernels_match_plain(cuda, shape, dtype, relu):
     dy = dy.contiguous(memory_format=torch.channels_last)
     gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=cuda)
     beta = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    return x, dy, gamma, beta
+
+
+def check_instance_norm(x, dy, gamma, beta, relu, fwd_plan=None, bwd_plan=None):
+    """Both kernels against their plain versions, one launch each."""
     before = dict(inorm.LAUNCHES)
-    y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, relu)
+    y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, relu, fwd_plan)
     yp, meanp, rstdp = inorm.in_fwd_plain(x, gamma, beta, 1e-3, relu)
-    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    assert y.dtype == x.dtype and y.is_contiguous(memory_format=torch.channels_last)
     assert_in_close(y, yp, 2e-5)
     if relu:
         assert torch.equal(y == 0, yp == 0), "ReLU zero pattern differs"
     assert_in_close(mean, meanp, 1e-5)
     assert_in_close(rstd, rstdp, 1e-5)
-    dx, dg, db = inorm.in_bwd_kernel(x, dy, gamma, beta, meanp, rstdp, relu)
+    dx, dg, db = inorm.in_bwd_kernel(x, dy, gamma, beta, meanp, rstdp, relu, bwd_plan)
     dxp, dgp, dbp = inorm.in_bwd_plain(x, dy, gamma, beta, meanp, rstdp, relu)
-    assert dx.dtype == dtype and dg.dtype == db.dtype == torch.float32
+    assert dx.dtype == x.dtype and dg.dtype == db.dtype == torch.float32
+    assert dg.shape == db.shape == gamma.shape
     assert_in_close(dx, dxp, 2e-5)
-    n = shape[0] * shape[2] * shape[3]
+    n = x.shape[0] * x.shape[2] * x.shape[3]
     assert_in_close(dg, dgp, 2e-5, n)
     assert_in_close(db, dbp, 2e-5, n)
     assert inorm.LAUNCHES["instance_norm_fwd"] == before["instance_norm_fwd"] + 1
     assert inorm.LAUNCHES["instance_norm_bwd"] == before["instance_norm_bwd"] + 1
+
+
+# (4, 64, 128, 128): 16-CTA clusters, the backward re-reading from L2;
+# (4, 3, 128, 128) and (2, 6, 17, 33): the scalar path (C not a multiple of
+# 4); (1, 64, 129, 131): a row split that leaves the last CTA short.
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (4, 64, 17, 33), (4, 256, 32, 32),
+                                   (3, 512, 6, 6), (2, 40, 9, 11), (4, 64, 128, 128),
+                                   (4, 3, 128, 128), (1, 64, 129, 131), (2, 6, 17, 33)])
+def test_instance_norm_kernels_match_plain(cuda, shape, dtype, relu):
+    check_instance_norm(*in_inputs(cuda, shape, dtype), relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("overrides", [
+    dict(held=0), dict(held=1), dict(channel_block=16, cluster=16), dict(cluster=1),
+    dict(channel_block=16, cluster=8, held=0)])
+def test_instance_norm_plan_variants_match_plain(cuda, dtype, overrides):
+    """Plans the default does not pick at this shape: the L2 re-read path in
+    both kernels, the backward holding x but not dy, narrower channel
+    blocks, a cluster of one."""
+    shape = (3, 64, 40, 45)
+    b, c, h, w = shape
+    fwd = inorm.launch_plan(b, c, h, w, dtype, 1, **overrides)
+    bwd = inorm.launch_plan(b, c, h, w, dtype, 2, **overrides)
+    check_instance_norm(*in_inputs(cuda, shape, dtype), True, fwd, bwd)
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 128, 128), (4, 256, 32, 32), (4, 3, 128, 128)])
+def test_instance_norm_kernels_are_deterministic(cuda, shape):
+    """Two calls on the same inputs give the same bits: fixed summation
+    orders, and dgamma/dbeta summed over the batch without float atomics."""
+    x, dy, gamma, beta = in_inputs(cuda, shape, torch.float32)
+    _, mean, rstd = inorm.in_fwd_plain(x, gamma, beta, 1e-3, True)
+    first = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, True) + inorm.in_bwd_kernel(
+        x, dy, gamma, beta, mean, rstd, True)
+    second = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, True) + inorm.in_bwd_kernel(
+        x, dy, gamma, beta, mean, rstd, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_instance_norm_kernel_refuses_a_bad_plan(cuda):
+    """The kernels check the plan they are given: a cluster that leaves a
+    CTA without rows is a CUDA invalid-value error, and nothing is counted."""
+    x, dy, gamma, beta = in_inputs(cuda, (2, 64, 5, 5), torch.float32)
+    plan = inorm.launch_plan(2, 64, 5, 5, torch.float32, 1)
+    bad = dataclasses.replace(plan, cluster=16, rows=2)
+    before = dict(inorm.LAUNCHES)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        inorm.in_fwd_kernel(x, gamma, beta, 1e-3, False, bad)
+    assert inorm.LAUNCHES == before
 
 
 def test_instance_norm_autograd_takes_any_layout(cuda):

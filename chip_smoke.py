@@ -22,8 +22,10 @@ Phases (any failure raises, and the exit code is non-zero):
    - SNDCGAN (256x144, batch 32, base_width 512, bf16): the fused LeakyReLU
      + hash dropout forward and backward at each of the four distinct
      discriminator site shapes (timed at the largest);
-   - Keras Adam on every generator and discriminator leaf of each slice,
-     with that slice's b1 (SNDCGAN 0.9, CycleGAN 0.5), timed per slice;
+   - Keras Adam: one multi-tensor launch over every generator and
+     discriminator leaf of each slice, with that slice's b1 (SNDCGAN 0.9,
+     CycleGAN 0.5), bit-identical to the plain version leaf by leaf; timed
+     per slice, with the host time per apply of the slice's own applies;
    - CycleGAN (128x128, batch 4, base_width 64, 9 res blocks): the
      InstanceNorm forward and backward, with and without ReLU, at each of
      the seven distinct norm shapes, float32 and bfloat16; timed at the
@@ -36,7 +38,8 @@ Phases (any failure raises, and the exit code is non-zero):
 5. Each training slice through its entry point, one after the other, the
    launch counters zeroed just before and read just after; every kernel
    of the path must have run exactly as often as the step's structure
-   says, and no other:
+   says, and no other (Adam: one launch per apply), and no Adam gradient
+   copied to its parameter's layout more often than GRAD_COPIES_PER_STEP:
    - SNDCGANEngine: spectral-norm D, hinge loss, bf16, one epoch with a
      checkpoint, then a new engine that resumes from it for a second epoch;
    - CycleGANEngine at the headline configuration (float32): one epoch, then
@@ -88,6 +91,9 @@ EPS = 1e-3  # tfa InstanceNormalization's epsilon, the models' value
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 KERNELS = ("leaky_relu_dropout", "adam", "instance_norm")
+# Adam gradients copied to their parameter's layout per step (PERF.md §6):
+# none, conv weights, their moments and cuDNN's gradients are channels_last.
+GRAD_COPIES_PER_STEP = {"sndcgan": 0, "cyclegan": 0}
 
 
 def log(msg: str) -> None:
@@ -122,7 +128,7 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def zero_launches() -> None:
-    for counts in (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES):
+    for counts in (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES, adam.GRAD_COPIES):
         for k in counts:
             counts[k] = 0
 
@@ -219,54 +225,88 @@ def check_dropout(dev: torch.device, card: str) -> list[dict]:
     return out
 
 
-def adam_leaves(path: str, dev: torch.device) -> tuple[list[torch.Tensor], float]:
-    """Every G and D leaf of one headline slice's state, and its b1."""
+def adam_leaves(path: str, dev: torch.device) -> tuple[list[list[torch.Tensor]], float]:
+    """The leaves of each model of one headline slice's state (one Adam
+    apply each: SNDCGAN G, D; CycleGAN G, F, D_X, D_Y), and its b1."""
     if path == "sndcgan":
         state = steplib.init_state(steplib.SNDCGANTrainConfig(model=SNDCGANConfig(
             image_size=(HEIGHT, WIDTH, 3), base_width=BASE, spectral_norm=True,
             dtype=torch.bfloat16)), dev)
-        return [p.detach() for m in (state.gen, state.disc) for p in m.parameters()], 0.9
+        return [[p.detach() for p in m.parameters()] for m in (state.gen, state.disc)], 0.9
     cfg = cyclegan_step.CycleGANTrainConfig(model=CycleGANConfig(
         image_size=(CG_SIZE, CG_SIZE, 3), base_width=CG_BASE, n_res_blocks=CG_RES))
     state = cyclegan_step.init_state(cfg, dev)
     models = (state.gen_g, state.gen_f, state.disc_x, state.disc_y)
-    return [p.detach() for m in models for p in m.parameters()], cfg.beta1
+    return [[p.detach() for p in m.parameters()] for m in models], cfg.beta1
+
+
+def adam_host_us(models: list[list[torch.Tensor]], b1: float, dev: torch.device,
+                 rounds: int = 20) -> dict:
+    """Host microseconds per apply of `adam.adam_apply` (perf_counter
+    around the calls, no sync: what the step's host thread spends), over
+    each model's leaves with its own table, as the step applies them."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    per_model = []
+    for leaves in models:
+        params = [p.clone() for p in leaves]
+        m = [torch.zeros_like(p) for p in params]
+        v = [torch.zeros_like(p) for p in params]
+        grads = [torch.empty_like(p).normal_(generator=gen) for p in params]
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        table = adam.LeafTable(params, m, v)
+        per_model.append((params, grads, m, v, count, table))
+    us = []
+    for params, grads, m, v, count, table in per_model:
+        for _ in range(3):
+            adam.adam_apply(params, grads, m, v, count, 2e-4, b1, 0.999, table)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            adam.adam_apply(params, grads, m, v, count, 2e-4, b1, 0.999, table)
+        us.append((time.perf_counter() - t0) * 1e6 / rounds)
+        torch.cuda.synchronize()
+    return {"host_us_per_apply_by_model": us, "host_us_per_apply": sum(us) / len(us)}
 
 
 def check_adam_path(path: str, dev: torch.device, card: str) -> dict:
-    """Kernel vs plain on every leaf of one slice, with its b1; then one
-    apply over all of them timed."""
-    leaves, b1 = adam_leaves(path, dev)
+    """One multi-tensor launch over every leaf of one slice, with its b1,
+    against the plain version leaf by leaf (0 ulp); then that apply timed,
+    and the host time per apply of the slice's own applies."""
+    models, b1 = adam_leaves(path, dev)
+    leaves = [p for ps in models for p in ps]
     gen = torch.Generator(device=dev).manual_seed(1)
-    grads = [torch.randn(p.shape, generator=gen, device=dev) for p in leaves]
-    ms_ = [torch.randn(p.shape, generator=gen, device=dev) for p in leaves]
-    vs_ = [torch.rand(p.shape, generator=gen, device=dev) for p in leaves]
+    # In each leaf's own layout (channels_last conv weights), as the step
+    # hands them to the kernel.
+    grads = [torch.empty_like(p).normal_(generator=gen) for p in leaves]
+    ms_ = [torch.empty_like(p).normal_(generator=gen) for p in leaves]
+    vs_ = [torch.empty_like(p).uniform_(generator=gen) for p in leaves]
     alpha = adam.adam_alpha(torch.tensor(3, device=dev), 2e-4, b1, 0.999)
+    pk, mk, vk = ([t.clone() for t in ts] for ts in (leaves, ms_, vs_))
+    pp, mp, vp = ([t.clone() for t in ts] for ts in (leaves, ms_, vs_))
+    table = adam.LeafTable(pk, mk, vk)
+    adam.adam_kernel(table, grads, alpha, b1, 0.999)
+    adam.adam_plain(pp, grads, mp, vp, alpha, b1, 0.999)
     worst = 0
     max_err = 0.0
-    for p, g, m, v in zip(leaves, grads, ms_, vs_):
-        pk, mk, vk = p.clone(), m.clone(), v.clone()
-        pp, mp, vp = p.clone(), m.clone(), v.clone()
-        adam.adam_leaf_kernel(pk, g, mk, vk, alpha, b1, 0.999)
-        adam.adam_leaf_plain(pp, g, mp, vp, alpha, b1, 0.999)
-        for a, b in ((pk, pp), (mk, mp), (vk, vp)):
-            worst = max(worst, max_ulp_f32(a, b))
-            max_err = max(max_err, (a - b).abs().max().item())
-    require(worst <= 2, f"adam kernel {worst} ulp from plain on {path} leaves (bound 2)")
+    for a, b in zip(pk + mk + vk, pp + mp + vp):
+        worst = max(worst, max_ulp_f32(a, b))
+        max_err = max(max_err, (a - b).abs().max().item())
+    require(worst == 0, f"adam kernel {worst} ulp from plain on {path} leaves (bound 0)")
 
-    def run(apply_leaf):
-        for p, g, m, v in zip(leaves, grads, ms_, vs_):
-            apply_leaf(p, g, m, v, alpha, b1, 0.999)
-
-    times = timing(lambda: run(adam.adam_leaf_kernel),
-                   lambda: run(adam.adam_leaf_plain), iters=10)
+    times = timing(lambda: adam.adam_kernel(table, grads, alpha, b1, 0.999),
+                   lambda: adam.adam_plain(pk, grads, mk, vk, alpha, b1, 0.999), iters=10)
+    host = adam_host_us(models, b1, dev)
     n = sum(p.numel() for p in leaves)
-    log(f"adam on {path} ({len(leaves)} leaves, {n:,} elements, b1={b1}): kernel "
-        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms device time, max "
-        f"{worst} ulp ({card})")
+    log(f"adam on {path} ({len(leaves)} leaves, {n:,} elements, b1={b1}): one launch "
+        f"({len(table.launches)} group, {adam.grid_ctas()} CTAs, chunk {adam.CHUNK}) "
+        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms device time, max {worst} "
+        f"ulp; host {host['host_us_per_apply']:.1f} us per apply of the step's "
+        f"{len(models)} models ({card})")
     # read p, g, m, v and write p, m, v; ~12 float32 operations each
     return {"b1": b1, "leaves": len(leaves), "elements": n, "max_abs_err": max_err,
-            "max_ulp": worst, **times, **bound(28 * n, 12 * n)}
+            "max_ulp": worst, "launches_per_apply_all_leaves": len(table.launches),
+            "grid_ctas": adam.grid_ctas(), "chunk": adam.CHUNK, **times, **host,
+            **bound(28 * n, 12 * n)}
 
 
 def check_adam(dev: torch.device, card: str) -> dict:
@@ -275,14 +315,15 @@ def check_adam(dev: torch.device, card: str) -> dict:
     reports; `by_path` holds each slice's own."""
     by_path = {p: check_adam_path(p, dev, card) for p in ("sndcgan", "cyclegan")}
     main = by_path["cyclegan"]
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "leaves", "elements")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "leaves", "elements",
+            "host_us_per_apply")
     return {
         "name": "adam", "route": "cuda", "source": "imagegeneration_tpu_torch/csrc/adam.cu",
         "replaces": "imagegeneration_tpu/ops/pallas/adam.py:69",
         "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
-        "max_ulp": max(r["max_ulp"] for r in by_path.values()), "tolerance": "2 ulp",
+        "max_ulp": max(r["max_ulp"] for r in by_path.values()), "tolerance": "0 ulp",
         **{k: main[k] for k in keys}, "by_path": by_path,
-        "ms_is_per": "one apply over every CycleGAN G and D leaf (b1 0.5)",
+        "ms_is_per": "one launch over every CycleGAN G and D leaf (b1 0.5)",
         "library_note": "torch.optim.Adam adds eps to sqrt(v_hat) after bias-"
                         "correcting m and v; Keras adds it to sqrt(v) and folds the "
                         "correction into the step size, a different update",
@@ -512,8 +553,6 @@ def run_sndcgan_slice(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out = f"{tmp}/sndcgan"
         engine = SNDCGANEngine(out, dataset, BATCH, **kwargs)
-        n_g = len(list(engine.state.gen.parameters()))
-        n_d = len(list(engine.state.disc.parameters()))
         zero_launches()
         engine.train(1, 1)  # epoch 0, checkpointed
         first = engine.last_epoch_metrics
@@ -522,6 +561,7 @@ def run_sndcgan_slice(card: str) -> dict:
         require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
         resumed.train(2, 1)  # epoch 1
         launches = read_launches()
+        copies = adam.GRAD_COPIES["adam"]
         second = resumed.last_epoch_metrics
         with open(f"{out}/perf.jsonl") as f:
             perf = [json.loads(line) for line in f]
@@ -532,16 +572,18 @@ def run_sndcgan_slice(card: str) -> dict:
     want = {
         "leaky_relu_dropout_fwd": steplib.N_SITES * steps,
         "leaky_relu_dropout_bwd": steplib.N_SITES * steps,
-        "adam": (n_g + 2 * n_d) * steps,
+        "adam": 3 * steps,  # G, then D twice (d_updates=2): one launch each
         "instance_norm_fwd": 0, "instance_norm_bwd": 0,
     }
     require(launches == want, f"launch counts {launches}, expected {want}")
+    want_copies = GRAD_COPIES_PER_STEP["sndcgan"] * steps
+    require(copies == want_copies, f"adam gradient copies {copies}, expected {want_copies}")
     log(f"sndcgan slice: {steps} steps over 2 epochs (one resumed), losses {second}")
-    log(f"sndcgan slice: launches {launches}")
+    log(f"sndcgan slice: launches {launches}, adam gradient layout copies {copies}")
     log(f"sndcgan slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
         f"{perf[-1]['images_per_sec']:.1f} images/s at {WIDTH}x{HEIGHT} bs{BATCH} "
         f"base {BASE} SN hinge bf16 ({card})")
-    return {"launches": launches, "perf": perf,
+    return {"launches": launches, "grad_copies": copies, "perf": perf,
             "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2"}
 
 
@@ -557,8 +599,6 @@ def run_cyclegan_slice(card: str) -> dict:
         out = f"{tmp}/cyclegan"
         engine = CycleGANEngine(*datasets, out, CG_BATCH, size, **kwargs)
         require(engine.epoch == 0 and engine.resident, "fresh resident engine")
-        n_g = len(list(engine.state.gen_g.parameters()))
-        n_d = len(list(engine.state.disc_x.parameters()))
         zero_launches()
         engine.train(1)  # epoch 0, checkpoint 1
         first = engine.last_epoch_metrics
@@ -567,6 +607,7 @@ def run_cyclegan_slice(card: str) -> dict:
         require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
         resumed.train(1)  # epoch 1, checkpoint 2
         launches = read_launches()
+        copies = adam.GRAD_COPIES["adam"]
         second = resumed.last_epoch_metrics
         with open(f"{out}/perf.jsonl") as f:
             perf = [json.loads(line) for line in f]
@@ -586,22 +627,25 @@ def run_cyclegan_slice(card: str) -> dict:
             and image.abs().max().item() <= 1.0, "translated image")
     # Per step: 6 generator passes of 6 + 2 * n_res norms, 4 discriminator
     # passes of 3; backward: pulls 1 and 2 each run one D pass and four G
-    # passes, pull 3 the four D passes (PERF.md gives the derivation).
+    # passes, pull 3 the four D passes (PERF.md gives the derivation); one
+    # Adam launch for each of G, F, D_X and D_Y.
     in_g, in_d = 6 + 2 * CG_RES, 3
     per_step = {"instance_norm_fwd": 6 * in_g + 4 * in_d,
                 "instance_norm_bwd": 2 * (in_d + 4 * in_g) + 4 * in_d,
-                "adam": 2 * n_g + 2 * n_d}
-    require(per_step == {"instance_norm_fwd": 156, "instance_norm_bwd": 210, "adam": 224},
+                "adam": 4}
+    require(per_step == {"instance_norm_fwd": 156, "instance_norm_bwd": 210, "adam": 4},
             f"per-step structure {per_step}")
     want = {"leaky_relu_dropout_fwd": 0, "leaky_relu_dropout_bwd": 0,
             **{k: v * steps for k, v in per_step.items()}}
     require(launches == want, f"launch counts {launches}, expected {want}")
+    want_copies = GRAD_COPIES_PER_STEP["cyclegan"] * steps
+    require(copies == want_copies, f"adam gradient copies {copies}, expected {want_copies}")
     log(f"cyclegan slice: {steps} steps over 2 epochs (one auto-resumed), losses {second}")
-    log(f"cyclegan slice: launches {launches}")
+    log(f"cyclegan slice: launches {launches}, adam gradient layout copies {copies}")
     log(f"cyclegan slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
         f"{perf[-1]['images_per_sec']:.2f} images/s at {CG_SIZE}x{CG_SIZE} bs{CG_BATCH} "
         f"base {CG_BASE} {CG_RES} res blocks f32 ({card})")
-    return {"launches": launches, "perf": perf,
+    return {"launches": launches, "grad_copies": copies, "perf": perf,
             "config": f"{CG_SIZE}x{CG_SIZE} bs{CG_BATCH} base{CG_BASE} res{CG_RES} f32"}
 
 
@@ -638,7 +682,8 @@ def main() -> int:
             r["launches"] = k["launches_by_path"][p]
     print(json.dumps({"kernels": kernels, "slices": {
         p: {"steps_per_sec": r["perf"][-1]["steps_per_sec"],
-            "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"]}
+            "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"],
+            "adam_grad_copies": r["grad_copies"]}
         for p, r in slices.items()}, "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)

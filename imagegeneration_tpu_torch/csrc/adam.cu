@@ -1,7 +1,7 @@
-// Keras-form Adam apply on one float32 leaf, in place.
+// Keras-form Adam apply over a list of float32 leaves, one launch, in place.
 //
 // Replaces the TPU kernel `_kernel` / `fused_adam_leaf` of
-// imagegeneration_tpu/ops/pallas/adam.py:
+// imagegeneration_tpu/ops/pallas/adam.py:69, which applies one leaf:
 //
 //   m' = b1 * m + (1 - b1) * g
 //   v' = b2 * v + (1 - b2) * g * g
@@ -11,65 +11,271 @@
 // device tensor (the counterpart of the TPU kernel's SMEM scalar), so the
 // launch needs no host sync.
 //
+// Bound on the H100: device-memory bandwidth. Each element reads p, g, m, v
+// and writes p, m, v: 28 bytes. An optimizer apply is many leaves, most of
+// them biases and norm scales of 3-512 elements, for which a launch of its
+// own costs far more than their bytes. So one launch applies a whole table
+// of leaves:
+//
+// - The table (`AdamTable`) goes by value as the kernel's parameters
+//   (CUDA 12.1+ takes up to 32,764 bytes): per leaf the p, g, m, v
+//   pointers, the element count, the float4 body and the index of the
+//   leaf's first chunk. A list longer than one table is several launches.
+// - Each leaf is cut into chunks of `chunk` elements (a multiple of 4,
+//   counted from the start of its body). A persistent grid, as many CTAs as
+//   the card holds at once, walks the chunks grid-stride; a CTA finds a
+//   chunk's leaf by binary search in the prefix of chunk counts, which
+//   never reads past `first_chunk[leaves]`.
+// - A chunk's part of the leaf's body moves as float4 (16-byte loads and
+//   stores); the scalar head before the body and the tail after it as
+//   float. A leaf whose four tensors are not 16-byte aligned alike has an
+//   empty body and goes scalar throughout.
+// - p, m and v are updated in place (each element read and written by one
+//   thread), so the optimizer keeps one copy of its state.
+//
+// The launch plan (bodies, chunks, groups) is computed in Python
+// (ops/adam.py `launch_groups`, tested on the CPU); `adam_multi_f32` only
+// checks it and returns cudaErrorInvalidValue, launching nothing, if it is
+// not one this kernel covers exactly.
+//
 // Every operation is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn): nvcc may not contract them into FMAs, so the
 // kernel evaluates the same IEEE float32 expressions, in the same order, as
-// the plain PyTorch version in ops/adam.py.
+// the plain PyTorch version in ops/adam.py, bit for bit.
 //
-// Bound on the H100: device-memory bandwidth. Each element reads p, g, m, v
-// and writes p, m, v: 28 bytes. The update is written in place (p, m and v
-// are both read and written at the same index by the same thread), which
-// keeps the optimizer state at one copy.
-//
-// C interface: raw pointers, the element count and the CUDA stream; returns
-// cudaGetLastError() after the launch.
+// C interface: the table and the CUDA stream; returns cudaGetLastError()
+// after the launch.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#if !defined(CUDART_VERSION) || CUDART_VERSION < 12010
+#error "the leaf table goes by value as kernel parameters: CUDA 12.1+ takes 32,764 bytes"
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;
+constexpr int kMaxLeaves = 512;  // TABLE_LEAVES in ops/adam.py
+constexpr int kMaxParamBytes = 32764;
+constexpr int kMaxDevices = 64;
 
-__global__ void adam_kernel(float* __restrict__ p, const float* __restrict__ g,
-                            float* __restrict__ m, float* __restrict__ v,
-                            const float* __restrict__ alpha, int64_t n,
-                            float b1, float b2, float one_minus_b1,
-                            float one_minus_b2, float eps) {
-  const float neg_alpha = -alpha[0];
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float gi = g[i];
-    const float mi =
-        __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(one_minus_b1, gi));
-    const float vi = __fadd_rn(__fmul_rn(b2, v[i]),
-                               __fmul_rn(one_minus_b2, __fmul_rn(gi, gi)));
-    m[i] = mi;
-    v[i] = vi;
-    const float upd = __fdiv_rn(__fmul_rn(neg_alpha, mi),
-                                __fadd_rn(__fsqrt_rn(vi), eps));
-    p[i] = __fadd_rn(p[i], upd);
+// Mirrored field for field by `AdamTable` in ops/adam.py (ctypes); the
+// padding is explicit and the layout is asserted here and checked against
+// the ctypes one when the library is loaded (`adam_table_layout`).
+struct AdamTable {
+  const float* alpha;
+  float b1;
+  float b2;
+  float one_minus_b1;
+  float one_minus_b2;
+  float eps;
+  int32_t leaves;
+  int32_t chunk;
+  int32_t pad0;
+  float* p[kMaxLeaves];
+  const float* g[kMaxLeaves];
+  float* m[kMaxLeaves];
+  float* v[kMaxLeaves];
+  int64_t n[kMaxLeaves];
+  int64_t body_end[kMaxLeaves];
+  int32_t body_begin[kMaxLeaves];
+  int32_t first_chunk[kMaxLeaves + 1];
+  int32_t pad1;
+};
+
+static_assert(offsetof(AdamTable, alpha) == 0, "AdamTable layout");
+static_assert(offsetof(AdamTable, b1) == 8, "AdamTable layout");
+static_assert(offsetof(AdamTable, eps) == 24, "AdamTable layout");
+static_assert(offsetof(AdamTable, leaves) == 28, "AdamTable layout");
+static_assert(offsetof(AdamTable, chunk) == 32, "AdamTable layout");
+static_assert(offsetof(AdamTable, p) == 40, "AdamTable layout");
+static_assert(offsetof(AdamTable, g) == 4136, "AdamTable layout");
+static_assert(offsetof(AdamTable, m) == 8232, "AdamTable layout");
+static_assert(offsetof(AdamTable, v) == 12328, "AdamTable layout");
+static_assert(offsetof(AdamTable, n) == 16424, "AdamTable layout");
+static_assert(offsetof(AdamTable, body_end) == 20520, "AdamTable layout");
+static_assert(offsetof(AdamTable, body_begin) == 24616, "AdamTable layout");
+static_assert(offsetof(AdamTable, first_chunk) == 26664, "AdamTable layout");
+static_assert(offsetof(AdamTable, pad1) == 28716, "AdamTable layout");
+static_assert(sizeof(AdamTable) == 28720, "AdamTable layout");
+static_assert(sizeof(AdamTable) <= kMaxParamBytes, "AdamTable exceeds the parameter limit");
+
+struct Coefs {
+  float neg_alpha, b1, b2, one_minus_b1, one_minus_b2, eps;
+};
+
+__device__ __forceinline__ void adam_element(float& p, float g, float& m, float& v,
+                                             const Coefs& c) {
+  m = __fadd_rn(__fmul_rn(c.b1, m), __fmul_rn(c.one_minus_b1, g));
+  v = __fadd_rn(__fmul_rn(c.b2, v), __fmul_rn(c.one_minus_b2, __fmul_rn(g, g)));
+  const float upd = __fdiv_rn(__fmul_rn(c.neg_alpha, m), __fadd_rn(__fsqrt_rn(v), c.eps));
+  p = __fadd_rn(p, upd);
+}
+
+__device__ __forceinline__ void adam_scalar(float* p, const float* g, float* m, float* v,
+                                            int64_t i, const Coefs& c) {
+  float pi = p[i], mi = m[i], vi = v[i];
+  adam_element(pi, g[i], mi, vi, c);
+  p[i] = pi;
+  m[i] = mi;
+  v[i] = vi;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    adam_multi_kernel(const __grid_constant__ AdamTable t) {
+  const Coefs c{-__ldg(t.alpha), t.b1, t.b2, t.one_minus_b1, t.one_minus_b2, t.eps};
+  const int total = t.first_chunk[t.leaves];
+  for (int chunk = blockIdx.x; chunk < total; chunk += gridDim.x) {
+    // The leaf of this chunk: the last i < leaves with first_chunk[i] <= chunk.
+    int lo = 0, hi = t.leaves - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (t.first_chunk[mid] <= chunk) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    const int leaf = lo;
+    const int k = chunk - t.first_chunk[leaf];
+    const bool last = chunk + 1 == t.first_chunk[leaf + 1];
+    const int64_t n = t.n[leaf];
+    const int64_t body_begin = t.body_begin[leaf];
+    const int64_t body_end = t.body_end[leaf];
+    // Chunk k covers [start, stop): [start, vec_start) and [vec_stop, stop)
+    // scalar, [vec_start, vec_stop) as float4 (ops/adam.py `chunk_bounds`).
+    const int64_t start = k == 0 ? 0 : body_begin + static_cast<int64_t>(k) * t.chunk;
+    const int64_t stop = last ? n : body_begin + static_cast<int64_t>(k + 1) * t.chunk;
+    const int64_t vec_start = start > body_begin ? start : body_begin;
+    const int64_t body_stop = stop < body_end ? stop : body_end;
+    const int64_t vec_stop = body_stop > vec_start ? body_stop : vec_start;
+    float* p = t.p[leaf];
+    const float* g = t.g[leaf];
+    float* m = t.m[leaf];
+    float* v = t.v[leaf];
+
+    float4* p4 = reinterpret_cast<float4*>(p + vec_start);
+    const float4* g4 = reinterpret_cast<const float4*>(g + vec_start);
+    float4* m4 = reinterpret_cast<float4*>(m + vec_start);
+    float4* v4 = reinterpret_cast<float4*>(v + vec_start);
+    const int64_t quads = (vec_stop - vec_start) >> 2;
+    for (int64_t j = threadIdx.x; j < quads; j += kThreads) {
+      float4 pj = p4[j], mj = m4[j], vj = v4[j];
+      const float4 gj = __ldg(g4 + j);
+      adam_element(pj.x, gj.x, mj.x, vj.x, c);
+      adam_element(pj.y, gj.y, mj.y, vj.y, c);
+      adam_element(pj.z, gj.z, mj.z, vj.z, c);
+      adam_element(pj.w, gj.w, mj.w, vj.w, c);
+      p4[j] = pj;
+      m4[j] = mj;
+      v4[j] = vj;
+    }
+    for (int64_t i = start + threadIdx.x; i < vec_start; i += kThreads) {
+      adam_scalar(p, g, m, v, i, c);
+    }
+    for (int64_t i = vec_stop + threadIdx.x; i < stop; i += kThreads) {
+      adam_scalar(p, g, m, v, i, c);
+    }
   }
+}
+
+bool aligned16(const void* ptr, int64_t offset) {
+  return (reinterpret_cast<uintptr_t>(ptr) + 4 * static_cast<uintptr_t>(offset)) % 16 == 0;
+}
+
+// Whether the table is a plan the kernel covers exactly: every leaf
+// non-empty with four pointers, a float4 body of whole, 16-byte aligned
+// quads (or none, then starting at 0), and as many chunks in the prefix as
+// its elements from the body's start need.
+bool plan_ok(const AdamTable& t) {
+  if (t.leaves < 1 || t.leaves > kMaxLeaves || t.chunk < 4 || t.chunk % 4 != 0 ||
+      t.alpha == nullptr || t.first_chunk[0] != 0) {
+    return false;
+  }
+  for (int i = 0; i < t.leaves; ++i) {
+    const int64_t n = t.n[i], begin = t.body_begin[i], end = t.body_end[i];
+    if (n < 1 || !t.p[i] || !t.g[i] || !t.m[i] || !t.v[i]) return false;
+    if (begin < 0 || begin > end || end > n || (end - begin) % 4 != 0) return false;
+    if (end > begin) {
+      if (!aligned16(t.p[i], begin) || !aligned16(t.g[i], begin) ||
+          !aligned16(t.m[i], begin) || !aligned16(t.v[i], begin)) {
+        return false;
+      }
+    } else if (begin != 0) {
+      return false;
+    }
+    int64_t chunks = (n - begin + t.chunk - 1) / t.chunk;
+    if (chunks < 1) chunks = 1;
+    if (static_cast<int64_t>(t.first_chunk[i + 1]) - t.first_chunk[i] != chunks) return false;
+  }
+  return true;
+}
+
+// CTAs of the persistent grid on the current device: as many as its SMs
+// hold at once (the occupancy API), computed once per device.
+cudaError_t grid_ctas(int* ctas) {
+  static int cached[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, adam_multi_kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+    cached[dev] = per_sm * sms;
+  }
+  *ctas = cached[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-int adam_f32(void* p, const void* g, void* m, void* v, const void* alpha,
-             int64_t n, float b1, float b2, float one_minus_b1,
-             float one_minus_b2, float eps, void* stream) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  adam_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), static_cast<float*>(v),
-      static_cast<const float*>(alpha), n, b1, b2, one_minus_b1, one_minus_b2,
-      eps);
+// Byte offsets of AdamTable's fields in declaration order, then its size:
+// the ctypes mirror in ops/adam.py is checked against these on load.
+int adam_table_layout(int64_t* out, int capacity) {
+  const int64_t values[] = {
+      offsetof(AdamTable, alpha),        offsetof(AdamTable, b1),
+      offsetof(AdamTable, b2),           offsetof(AdamTable, one_minus_b1),
+      offsetof(AdamTable, one_minus_b2), offsetof(AdamTable, eps),
+      offsetof(AdamTable, leaves),       offsetof(AdamTable, chunk),
+      offsetof(AdamTable, pad0),         offsetof(AdamTable, p),
+      offsetof(AdamTable, g),            offsetof(AdamTable, m),
+      offsetof(AdamTable, v),            offsetof(AdamTable, n),
+      offsetof(AdamTable, body_end),     offsetof(AdamTable, body_begin),
+      offsetof(AdamTable, first_chunk),  offsetof(AdamTable, pad1),
+      sizeof(AdamTable)};
+  const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
+  for (int i = 0; i < count && i < capacity; ++i) out[i] = values[i];
+  return count;
+}
+
+// The persistent grid's CTA count on the current device, or minus a CUDA
+// error code.
+int adam_grid_ctas() {
+  int ctas = 0;
+  const cudaError_t err = grid_ctas(&ctas);
+  return err == cudaSuccess ? ctas : -static_cast<int>(err);
+}
+
+// `table_ptr` points to an AdamTable (typed void here: the struct has
+// internal linkage, and this entry point must not).
+int adam_multi_f32(const void* table_ptr, void* stream) {
+  const AdamTable* table = static_cast<const AdamTable*>(table_ptr);
+  if (table == nullptr || !plan_ok(*table)) return static_cast<int>(cudaErrorInvalidValue);
+  int ctas = 0;
+  const cudaError_t err = grid_ctas(&ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int total = table->first_chunk[table->leaves];
+  const int grid = total < ctas ? total : ctas;
+  adam_multi_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*table);
   return static_cast<int>(cudaGetLastError());
 }
 

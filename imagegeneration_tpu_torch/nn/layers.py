@@ -23,7 +23,8 @@ so each default is pinned here:
 
 Parameters are float32; `dtype` is the compute dtype (bfloat16 on the main
 path). Image tensors are NCHW logical and channels_last in memory, so that
-their memory order is the JAX package's NHWC.
+their memory order is the JAX package's NHWC; 4-D conv weights are
+channels_last too (`conv_weight`).
 
 Not ported: the phase/hybrid/packed/swapdw ConvTranspose lowerings of the
 JAX package, which work around TPU XLA; cuDNN lowers the transposed conv
@@ -47,6 +48,22 @@ def glorot_uniform_(
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         return t.uniform_(-limit, limit, generator=generator)
+
+
+def conv_weight(
+    shape: tuple[int, int, int, int], generator: torch.Generator | None
+) -> nn.Parameter:
+    """A conv (out, in, kh, kw) or ConvTranspose (in, out, kh, kw) weight,
+    glorot-uniform (its limit depends on fan_in + fan_out only), channels_last.
+
+    The values are drawn in the contiguous order (the same weights for a
+    seed as a contiguous tensor) and then laid out channels_last, the
+    memory order of the activations: cuDNN takes the weight as it is and
+    returns its gradient in the same layout, which the Adam kernel walks
+    with the moments (ops/adam.py)."""
+    a, b, kh, kw = shape
+    w = glorot_uniform_(torch.empty(shape), kh * kw * b, kh * kw * a, generator)
+    return nn.Parameter(w.contiguous(memory_format=torch.channels_last))
 
 
 def keras_random_uniform_(
@@ -129,9 +146,7 @@ class Conv(nn.Module):
         self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(features, in_features, kh, kw))
-        glorot_uniform_(self.weight, kh * kw * in_features, kh * kw * features,
-                        generator)
+        self.weight = conv_weight((features, in_features, kh, kw), generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -165,9 +180,7 @@ class ConvTranspose(nn.Module):
         self.crop = any(hi < lo for lo, hi in pads)
         self.strides = tuple(strides)
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(in_features, features, kh, kw))
-        glorot_uniform_(self.weight, kh * kw * in_features, kh * kw * features,
-                        generator)
+        self.weight = conv_weight((in_features, features, kh, kw), generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

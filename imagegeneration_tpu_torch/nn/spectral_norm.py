@@ -12,7 +12,8 @@ are constants for autodiff (stop-gradient in the JAX package), which is why
 used. `u` is written only when the caller passes `update_sn=True`; sigma
 comes from the power step either way.
 
-W here is the PyTorch weight flattened to (out, rest), the JAX package's
+W here is the PyTorch weight flattened to (out, rest) in OIHW order (for
+the channels_last conv weight, `flatten` copies), the JAX package's
 (kh*kw*in, out) matrix transposed with its rows permuted. sigma and new_u
 do not depend on the order of those rows.
 """
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imagegeneration_tpu_torch.nn.layers import conv2d_same, glorot_uniform_
+from imagegeneration_tpu_torch.nn.layers import conv2d_same, conv_weight, glorot_uniform_
 
 _EPS = 1e-12
 
@@ -75,9 +76,7 @@ class SpectralNormConv(_SpectralNorm):
         self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(features, in_features, kh, kw))
-        glorot_uniform_(self.weight, kh * kw * in_features, kh * kw * features,
-                        generator)
+        self.weight = conv_weight((features, in_features, kh, kw), generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self._init_u(features, generator)
 

@@ -80,6 +80,12 @@ class Workload:
     make_engine: Callable  # (out_dir, device) -> engine with .resident, .train
 
 
+def adam_table_plain(table: adam.LeafTable, grads, alpha, b1: float, b2: float,
+                     eps: float = adam.KERAS_EPS) -> None:
+    """The plain version in place of the Adam kernel, on the table's leaves."""
+    adam.adam_plain(table.params, grads, table.m, table.v, alpha, b1, b2, eps)
+
+
 def _sndcgan() -> Workload:
     h, w, b, base = 144, 256, 32, 512
     ds = datalib.SyntheticImageDataset(DATA_EPOCH_BATCHES * b, (h, w))
@@ -93,7 +99,7 @@ def _sndcgan() -> Workload:
             "kernels": {},
             "plain_dropout": {dropout: {"fwd_kernel": dropout.fwd_plain,
                                         "bwd_kernel": dropout.bwd_plain}},
-            "plain_adam": {adam: {"adam_leaf_kernel": adam.adam_leaf_plain}},
+            "plain_adam": {adam: {"adam_kernel": adam_table_plain}},
         },
         make_engine=lambda out, dev: sndcgan_engine.SNDCGANEngine(
             out, ds, b, image_size=(h, w, 3), device=dev, spectral_norm=True,
@@ -115,7 +121,7 @@ def _cyclegan() -> Workload:
             "kernels": {},
             "plain_instance_norm": {inorm: {"in_fwd_kernel": inorm.in_fwd_plain,
                                             "in_bwd_kernel": inorm.in_bwd_plain}},
-            "plain_adam": {adam: {"adam_leaf_kernel": adam.adam_leaf_plain}},
+            "plain_adam": {adam: {"adam_kernel": adam_table_plain}},
         },
         make_engine=lambda out, dev: cyclegan_engine.CycleGANEngine(
             *ds, out, b, (size, size), device=dev, base_width=base, n_res_blocks=res),
@@ -182,7 +188,7 @@ def kernel_class(name: str) -> str:
         return "dropout kernels (csrc/leaky_relu_dropout.cu)"
     if "in_fwd_kernel" in n or "in_bwd_kernel" in n:
         return "instance norm kernels (csrc/instance_norm.cu)"
-    if "adam_kernel" in n:
+    if "adam_multi_kernel" in n:
         return "adam kernel (csrc/adam.cu)"
     if any(s in n for s in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad")):
         return "convolution (cuDNN)"

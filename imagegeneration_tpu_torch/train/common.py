@@ -4,8 +4,9 @@ The counterpart of imagegeneration_tpu/train/common.py. The Adam here is
 tf.keras's, not `torch.optim.Adam`: eps sits outside the sqrt and the bias
 correction rides in alpha = lr*sqrt(1-b2^t)/(1-b1^t), computed in float32
 on the device from the step counter (ops/adam.py, whose CUDA kernel applies
-every leaf). Losses reduce in at least float32. RMSprop waits for the WGAN
-slice.
+every leaf of an apply in one launch). The moments share each parameter's
+layout (channels_last for conv weights). Losses reduce in at least
+float32. RMSprop waits for the WGAN slice.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ class AdamState:
     count: torch.Tensor
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
+    # The Adam kernel's leaf table, built at the first apply on the card
+    # (ops/adam.LeafTable); not part of the saved state.
+    table: adam_op.LeafTable | None = dataclasses.field(default=None, repr=False,
+                                                        compare=False)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
@@ -42,8 +47,8 @@ def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
     device = params[0].device
     return AdamState(
         count=torch.zeros((), dtype=torch.int64, device=device),
-        mu=[torch.zeros_like(p, memory_format=torch.contiguous_format) for p in params],
-        nu=[torch.zeros_like(p, memory_format=torch.contiguous_format) for p in params],
+        mu=[torch.zeros_like(p, memory_format=torch.preserve_format) for p in params],
+        nu=[torch.zeros_like(p, memory_format=torch.preserve_format) for p in params],
     )
 
 
@@ -51,8 +56,12 @@ def adam_apply(
     params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     state: AdamState, lr: float, b1: float = 0.9, b2: float = 0.999,
 ) -> None:
-    """One Keras-form Adam step, in place on params and state."""
-    adam_op.adam_apply(params, grads, state.mu, state.nu, state.count, lr, b1, b2)
+    """One Keras-form Adam step, in place on params and state: on the card
+    one kernel launch over every leaf."""
+    if state.table is None and params[0].device.type == "cuda":
+        state.table = adam_op.LeafTable(params, state.mu, state.nu)
+    adam_op.adam_apply(params, grads, state.mu, state.nu, state.count, lr, b1, b2,
+                       table=state.table)
 
 
 def _loss_dtype(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ The JAX side is `train/common.adam_apply(..., fused="interpret")`: its
 lane-aligned >= 1M-element leaf goes through the Pallas Adam kernel in
 interpret mode, the others through the XLA formula. The port's CPU path is
 `ops/adam.adam_leaf_plain`, which evaluates the same float32 expressions
-as its CUDA kernel. Bound: 2 ulp per element on p, m and v after every
+as its CUDA kernel (one launch per apply on the card; its launch plan is
+tested in tests/test_torch_adam_plan.py). Bound: 2 ulp per element on p, m and v after every
 step, counted in ulps of the largest operand of the last add (|p| and the
 update for p; b1*m and (1-b1)*g for m; b2*v and (1-b2)*g*g for v). XLA
 may contract a*b+c into one FMA (ops/pallas/adam.py:29-39), which moves a
@@ -100,3 +101,79 @@ def test_apply_rejects_mismatched_lists():
     with pytest.raises(ValueError):
         tadam.adam_apply(p, [], [torch.zeros(3)], [torch.zeros(3)],
                          torch.zeros((), dtype=torch.int64), 1e-3)
+
+
+def test_adam_init_moments_share_param_layout():
+    """m and v take each leaf's layout: channels_last conv weights keep
+    channels_last moments, so the kernel walks p, g, m, v in one order."""
+    params = [torch.zeros(8, 4, 3, 3).contiguous(memory_format=torch.channels_last),
+              torch.zeros(4, 8, 4, 4).contiguous(memory_format=torch.channels_last),
+              torch.zeros(16, 1, 1, 3).contiguous(memory_format=torch.channels_last),
+              torch.zeros(5, 7), torch.zeros(9)]
+    state = tcommon.adam_init(params)
+    for p, m, v in zip(params, state.mu, state.nu):
+        assert m.stride() == v.stride() == p.stride()
+        assert m.shape == v.shape == p.shape
+    assert state.table is None  # built at the first apply on the card
+
+
+@pytest.mark.parametrize("lr,b1,b2", [(2e-4, 0.9, 0.999), (1e-3, 0.5, 0.999)])
+def test_plain_apply_within_two_ulp_of_jax_channels_last(lr, b1, b2):
+    """Conv leaves laid out channels_last (as the port's layers make them),
+    one gradient in the other layout: the same values as the JAX apply,
+    each leaf compared by its logical index, and no layout copy on the CPU."""
+    rng = np.random.default_rng(1)
+    shapes = {"conv": (8, 4, 3, 3), "convT": (4, 8, 4, 4), "bias": (8,)}
+    cl = {"conv", "convT"}
+    keys = sorted(shapes)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    js = jcommon.adam(lr, b1=b1, b2=b2).init(jp)
+
+    def torch_leaf(k, a, channels_last):
+        t = torch.from_numpy(np.array(a))
+        return t.contiguous(memory_format=torch.channels_last) if channels_last else t
+
+    tp = [torch_leaf(k, params[k], k in cl) for k in keys]
+    ts = tcommon.adam_init(tp)
+    copies = dict(tadam.GRAD_COPIES)
+    for step in range(3):
+        grads = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+        prev = {k: (np.asarray(jp[k]), np.asarray(js.mu[k]), np.asarray(js.nu[k]))
+                for k in keys}
+        for i, k in enumerate(keys):
+            for dst, src in zip((tp[i], ts.mu[i], ts.nu[i]), prev[k]):
+                dst.copy_(torch.from_numpy(np.array(src)))
+        jp, js = jcommon.adam_apply(
+            jp, {k: jnp.asarray(v) for k, v in grads.items()}, js,
+            learning_rate=lr, b1=b1, b2=b2, fused="interpret",
+        )
+        # "conv"'s gradient arrives contiguous, "convT"'s channels_last.
+        tg = [torch_leaf(k, grads[k], k == "convT") for k in keys]
+        tcommon.adam_apply(tp, tg, ts, lr, b1, b2)
+        for i, k in enumerate(keys):
+            assert tp[i].stride() == ts.mu[i].stride() == ts.nu[i].stride()
+            p0, m0, v0 = prev[k]
+            g = grads[k]
+            want_p = np.asarray(jp[k])
+            operands = {
+                "p": (p0, want_p - p0),
+                "m": (np.float32(b1) * m0, np.float32(1.0 - b1) * g),
+                "v": (np.float32(b2) * v0, np.float32(1.0 - b2) * g * g),
+            }
+            for name, got, want in (("p", tp[i], jp[k]), ("m", ts.mu[i], js.mu[k]),
+                                    ("v", ts.nu[i], js.nu[k])):
+                ok = _within_ulps(got.numpy(), np.asarray(want), *operands[name])
+                assert ok.all(), f"step {step} {name}[{k}]: {(~ok).sum()} beyond 2 ulp"
+    assert tadam.GRAD_COPIES == copies  # the plain version takes any layout
+    assert ts.table is None
+
+
+def test_leaf_table_is_for_the_card():
+    """The kernel's leaf table refuses CPU tensors (the CPU takes the plain
+    version) and an empty list (no launch without leaves)."""
+    p = [torch.zeros(3)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tadam.LeafTable(p, [torch.zeros(3)], [torch.zeros(3)])
+    with pytest.raises(ValueError, match="non-empty"):
+        tadam.LeafTable([], [], [])

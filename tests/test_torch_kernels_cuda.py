@@ -9,8 +9,9 @@ test run). On a machine with an H100 and nvcc, run them with
 lacks.) Bounds: the dropout kernels are bit-identical to their plain
 versions (same float32 products, one rounding to the storage dtype; the
 mask is integer arithmetic), and so is Adam (explicitly rounded float32
-operations in both). The shapes include odd, non-power-of-two extents so
-that the grid-stride tail is exercised.
+operations in both), on ragged, misaligned and channels_last leaf lists
+and on lists longer than one launch's table. The shapes include odd,
+non-power-of-two extents so that the grid-stride tail is exercised.
 
 The InstanceNorm kernels sum their statistics in another order than the
 plain version, so they are held to the bounds of the JAX package's own
@@ -24,6 +25,7 @@ mean and rstd, so both rebuild the same ReLU mask.
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -85,17 +87,148 @@ def test_dropout_kernel_refuses_nchw_and_bad_keys(cuda):
         dropout.leaky_relu_dropout(x, kw.cpu(), 0.5)  # keys on the CPU
 
 
+def adam_inputs(cuda, shapes, offsets=None, seed=0, channels_last=()):
+    """p, g, m, v lists: leaf i of shape shapes[i], each tensor a view
+    offsets[i] floats into its own storage (1-D leaves) or laid out
+    channels_last (the indices in `channels_last`)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    offsets = offsets or [0] * len(shapes)
+    out = {k: [] for k in "pgmv"}
+    for i, (shape, off) in enumerate(zip(shapes, offsets)):
+        for k in "pgmv":
+            n = math.prod(shape)
+            base = torch.randn(n + 8, generator=gen, device=cuda)
+            t = (base.abs() if k == "v" else base)[off:off + n].view(shape)
+            if i in channels_last:
+                t = t.contiguous(memory_format=torch.channels_last)
+            out[k].append(t)
+    return out["p"], out["g"], out["m"], out["v"]
+
+
+def adam_against_plain(cuda, p, g, m, v, b1=0.9):
+    """One multi-tensor apply against the plain version leaf by leaf, bit
+    for bit; returns the kernel launches it took."""
+    alpha = adam.adam_alpha(torch.tensor(2, device=cuda), 1e-3, b1, 0.999)
+    pk, mk, vk = ([t.clone() for t in ts] for ts in (p, m, v))
+    before = adam.LAUNCHES["adam"]
+    adam.adam_kernel(adam.LeafTable(pk, mk, vk), g, alpha, b1, 0.999)
+    launches = adam.LAUNCHES["adam"] - before
+    adam.adam_plain(p, g, m, v, alpha, b1, 0.999)
+    for a, b in zip(pk + mk + vk, p + m + v):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return launches
+
+
 @pytest.mark.parametrize("n", [1, 1000, 4097, 1 << 20])
 def test_adam_kernel_equals_plain(cuda, n):
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    p, g, m = (torch.randn(n, generator=gen, device=cuda) for _ in range(3))
-    v = torch.rand(n, generator=gen, device=cuda)
-    alpha = adam.adam_alpha(torch.tensor(2, device=cuda), 1e-3, 0.9, 0.999)
-    pk, mk, vk = p.clone(), m.clone(), v.clone()
-    adam.adam_leaf_kernel(pk, g, mk, vk, alpha, 0.9, 0.999)
-    adam.adam_leaf_plain(p, g, m, v, alpha, 0.9, 0.999)
-    for a, b in ((pk, p), (mk, m), (vk, v)):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    p, g, m, v = adam_inputs(cuda, [(n,)], seed=n)
+    assert adam_against_plain(cuda, p, g, m, v) == 1
+
+
+@pytest.mark.parametrize("case", ["ragged", "misaligned", "aligned_unlike", "channels_last",
+                                  "longer_than_a_table"])
+def test_adam_multi_tensor_equals_plain(cuda, case):
+    """Ragged element counts (1-3, not a multiple of 4, several chunks),
+    views at odd offsets, leaves whose four tensors are aligned unlike,
+    channels_last conv weights, and more leaves than one table holds."""
+    ns = [1, 2, 3, 4, 5, 7, 4095, 4096, 4097, 9001, 3 * adam.CHUNK + 5, 300_001]
+    shapes = [(n,) for n in ns]
+    if case == "ragged":
+        args = adam_inputs(cuda, shapes)
+    elif case == "misaligned":
+        args = adam_inputs(cuda, shapes, [i % 4 for i in range(len(ns))])
+    elif case == "aligned_unlike":
+        p, g, m, v = adam_inputs(cuda, shapes)
+        g = [torch.cat([t.new_zeros(1), t])[1:] for t in g]  # one float off
+        args = p, g, m, v
+    elif case == "channels_last":
+        shapes = [(64, 3, 3, 3), (128, 64, 4, 4), (3, 64, 3, 3), (256, 256, 3, 3), (64,)]
+        args = adam_inputs(cuda, shapes, channels_last=(0, 1, 2, 3))
+    else:
+        shapes = [((i * 37) % 301 + 1,) for i in range(adam.TABLE_LEAVES + 90)]
+        args = adam_inputs(cuda, shapes, [i % 4 for i in range(len(shapes))])
+    launches = adam_against_plain(cuda, *args, b1=0.5)
+    assert launches == -(-len(shapes) // adam.TABLE_LEAVES)
+
+
+def test_adam_kernel_is_deterministic(cuda):
+    """Two calls on the same inputs give the same bits."""
+    p, g, m, v = adam_inputs(cuda, [(4097,), (128, 64, 4, 4), (3,)], channels_last=(1,))
+    alpha = adam.adam_alpha(torch.tensor(5, device=cuda), 2e-4, 0.9, 0.999)
+    out = []
+    for _ in range(2):
+        pk, mk, vk = ([t.clone() for t in ts] for ts in (p, m, v))
+        adam.adam_kernel(adam.LeafTable(pk, mk, vk), g, alpha, 0.9, 0.999)
+        out.append(pk + mk + vk)
+    for a, b in zip(*out):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_adam_kernel_refuses_mismatched_grads(cuda):
+    """The kernel wrapper raises on a g of other strides, dtype or device
+    (and on a p, m, v of other layouts), and launches nothing."""
+    p, g, m, v = adam_inputs(cuda, [(8, 4, 3, 3), (5,)], channels_last=(0,))
+    table = adam.LeafTable(p, m, v)
+    alpha = adam.adam_alpha(torch.tensor(1, device=cuda), 1e-3, 0.9, 0.999)
+    before = adam.LAUNCHES["adam"]
+    with pytest.raises(ValueError, match="strides"):
+        adam.adam_kernel(table, [g[0].contiguous(), g[1]], alpha, 0.9, 0.999)
+    with pytest.raises(ValueError, match="float32"):
+        adam.adam_kernel(table, [g[0], g[1].double()], alpha, 0.9, 0.999)
+    with pytest.raises(ValueError, match="float32"):
+        adam.adam_kernel(table, [g[0], g[1].cpu()], alpha, 0.9, 0.999)
+    with pytest.raises(ValueError, match="strides"):
+        adam.LeafTable(p, [m[0].contiguous(), m[1]], v)
+    assert adam.LAUNCHES["adam"] == before
+
+
+def test_adam_apply_copies_a_grad_in_another_layout(cuda):
+    """adam_apply brings a g whose memory order differs from p's to p's
+    layout (one copy, counted), then one launch; a g that differs only in
+    the stride of a size-1 dimension is taken as it is."""
+    p, g, m, v = adam_inputs(cuda, [(8, 4, 3, 3), (16, 32, 1, 1)], channels_last=(0, 1))
+    # (16, 32, 1, 1): strides that differ only where the size is 1
+    grads = [g[0].contiguous(), g[1].as_strided(g[1].shape, (32, 1, 32, 32))]
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+    pp, mp, vp = ([t.clone() for t in ts] for ts in (p, m, v))
+    copies, launches = adam.GRAD_COPIES["adam"], adam.LAUNCHES["adam"]
+    adam.adam_apply(p, grads, m, v, count, 1e-3)
+    assert adam.GRAD_COPIES["adam"] == copies + 1
+    assert adam.LAUNCHES["adam"] == launches + 1
+    adam.adam_plain(pp, grads, mp, vp, adam.adam_alpha(count, 1e-3, 0.9, 0.999), 0.9, 0.999)
+    for a, b in zip(p + m + v, pp + mp + vp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_adam_kernel_refuses_a_bad_plan(cuda):
+    """The entry point checks the table: a body that does not start on a
+    16-byte boundary is a CUDA invalid-value error, and nothing runs."""
+    p, g, m, v = adam_inputs(cuda, [(4097,)])
+    table = adam.LeafTable(p, m, v)
+    (group, t), = table.launches
+    t.body_begin[0], t.body_end[0] = 1, 4093
+    alpha = adam.adam_alpha(torch.tensor(1, device=cuda), 1e-3, 0.9, 0.999)
+    before = [x.clone() for x in p]
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        adam.adam_kernel(table, g, alpha, 0.9, 0.999)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(p, before))
+
+
+def test_adam_step_states_take_one_launch_per_apply(cuda):
+    """A small SNDCGAN step on the card: G once and D twice, one Adam launch
+    each, and no gradient copied to its parameter's layout."""
+    cfg = steplib.SNDCGANTrainConfig(
+        model=SNDCGANConfig(image_size=(16, 24, 3), base_width=16, spectral_norm=True),
+        batch_size=4, loss="hinge")
+    state = steplib.init_state(cfg, cuda)
+    batch = torch.randint(0, 256, (4, 16, 24, 3), device=cuda, dtype=torch.uint8)
+    step = steplib.make_train_step(cfg)
+    launches, copies = adam.LAUNCHES["adam"], adam.GRAD_COPIES["adam"]
+    step(state, batch)
+    torch.cuda.synchronize()
+    assert adam.LAUNCHES["adam"] == launches + 3
+    assert adam.GRAD_COPIES["adam"] == copies
 
 
 def test_small_step_on_card_matches_cpu(cuda):

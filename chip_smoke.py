@@ -35,6 +35,15 @@ Phases (any failure raises, and the exit code is non-zero):
      memory) at every norm shape.
 4. A small float32 step of each model on the card against the same step on
    the CPU (the plain kernel versions), from the same weights and inputs.
+   WGAN (32x48, base 16, batch 4, n_critic 2): four steps, two of them with
+   a gan update, once with the weight clip and once with the gradient
+   penalty (gp_lambda 10: cuDNN's double backward); each card step starts
+   from the CPU's state before it, since a free run of this trajectory
+   amplifies rounding differences past its 1e-3 bound within four steps
+   (PERF.md §6). The same four WGAN steps in bfloat16 (`--bf16`), with the
+   clip and with the penalty, on the card alone: finite float32 losses,
+   the cadence, float32 state and the clip (their numbers are held against
+   the JAX bfloat16 step on the CPU, tests/test_torch_wgan_step.py).
 5. Each training slice through its entry point, one after the other, the
    launch counters zeroed just before and read just after; every kernel
    of the path must have run exactly as often as the step's structure
@@ -43,7 +52,12 @@ Phases (any failure raises, and the exit code is non-zero):
    - SNDCGANEngine: spectral-norm D, hinge loss, bf16, one epoch with a
      checkpoint, then a new engine that resumes from it for a second epoch;
    - CycleGANEngine at the headline configuration (float32): one epoch, then
-     a new engine on the same directory auto-resumes for a second.
+     a new engine on the same directory auto-resumes for a second;
+   - WGANEngine at the reference's configuration (144x256, batch 32, base
+     512, float32, n_critic 5, weight clip; bench.py:445-468): one epoch of
+     8 steps, then a new engine resumes for a second; gan updates at steps
+     5, 10 and 15, critic_count 1 at the end, critic conv weights within
+     +-0.01, and no hand kernel launched (the WGAN path has none).
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -67,15 +81,18 @@ from imagegeneration_tpu_torch.core.data import SyntheticImageDataset
 from imagegeneration_tpu_torch.core.rng import KeyChain
 from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import DISC_TRUNK, SNDCGANConfig
+from imagegeneration_tpu_torch.models.wgan import CLIP_VALUE, WGANConfig, critic_kernels
 from imagegeneration_tpu_torch.ops import adam, dropout, native
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
 from imagegeneration_tpu_torch.tools import in_plans as in_plans_tool
 from imagegeneration_tpu_torch.tools.devtime import L2Flush, device_ms
 from imagegeneration_tpu_torch.train import cyclegan_step
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
+from imagegeneration_tpu_torch.train import wgan_step
 from imagegeneration_tpu_torch.train.cyclegan_engine import LOSS_KEYS as CG_LOSS_KEYS
 from imagegeneration_tpu_torch.train.cyclegan_engine import CycleGANEngine
 from imagegeneration_tpu_torch.train.sndcgan_engine import SNDCGANEngine
+from imagegeneration_tpu_torch.train.wgan_engine import WGANEngine
 
 HEIGHT, WIDTH, BATCH, BASE = 144, 256, 32, 512
 EPOCH_BATCHES = 8
@@ -94,6 +111,12 @@ KERNELS = ("leaky_relu_dropout", "adam", "instance_norm")
 # Adam gradients copied to their parameter's layout per step (PERF.md §6):
 # none, conv weights, their moments and cuDNN's gradients are channels_last.
 GRAD_COPIES_PER_STEP = {"sndcgan": 0, "cyclegan": 0}
+# The reference WGAN configuration (bench.py:445-468): the SNDCGAN image
+# size, batch and base width, float32, n_critic 5, weight clipping.
+WGAN_N_CRITIC = 5
+# Every launch counter of the hand kernels: zeroed and read as one set, so
+# that no path can launch a kernel that goes uncounted.
+LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES)
 
 
 def log(msg: str) -> None:
@@ -128,14 +151,14 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def zero_launches() -> None:
-    for counts in (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES, adam.GRAD_COPIES):
+    for counts in (*LAUNCH_COUNTERS, adam.GRAD_COPIES):
         for k in counts:
             counts[k] = 0
 
 
 def read_launches() -> dict[str, int]:
     torch.cuda.synchronize()
-    return {**dropout.LAUNCHES, **adam.LAUNCHES, **inorm.LAUNCHES}
+    return {k: v for counts in LAUNCH_COUNTERS for k, v in counts.items()}
 
 
 def max_ulp_f32(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -545,6 +568,89 @@ def check_small_cyclegan_step_against_cpu(dev: torch.device) -> None:
         f"translation max abs err {err:.3g}")
 
 
+def check_small_wgan_steps_against_cpu(dev: torch.device) -> None:
+    """Four float32 WGAN steps (32x48, base 16, batch 4, n_critic 2) on the
+    CPU; each step again on the card from the CPU's state before it, with
+    the same batch and latents (and interpolation weights with the
+    gradient penalty). Metrics within 1e-3, and the samples of the last
+    step's generator."""
+    gen = torch.Generator().manual_seed(6)
+    batches = torch.randint(0, 256, (4, 4, 32, 48, 3), generator=gen, dtype=torch.uint8)
+    z_fake = torch.randn((4, 4, 128), generator=gen)
+    z_gan = torch.randn((4, 4, 128), generator=gen)
+    gp_eps = torch.rand((4, 4, 1, 1, 1), generator=gen)
+    cpu = torch.device("cpu")
+    for gp_lambda in (0.0, 10.0):
+        cfg = wgan_step.WGANTrainConfig(
+            model=WGANConfig(image_size=(32, 48, 3), base_width=16), batch_size=4,
+            n_critic=2, gp_lambda=gp_lambda)
+        step = wgan_step.make_train_step(cfg)
+        sample = wgan_step.make_sampler(cfg)
+        cpu_state = wgan_step.init_state(cfg, cpu)
+        card_state = wgan_step.init_state(cfg, dev)
+        did, worst, at = [], 0.0, "all equal"
+        for i in range(4):
+            # load_state_dict copies every tensor before the CPU step moves it
+            card_state.load_state_dict(
+                {**cpu_state.state_dict(), "z_gen": card_state.z_gen.get_state()})
+            results = []
+            for state, d in ((cpu_state, cpu), (card_state, dev)):
+                eps = gp_eps[i].to(d) if gp_lambda else None
+                _, m = step(state, batches[i].to(d), z_fake[i].to(d), z_gan[i].to(d), eps)
+                results.append({k: float(v) for k, v in m.items()})
+            m_cpu, m_gpu = results
+            for k, b in m_cpu.items():
+                a = m_gpu[k]
+                require(math.isfinite(a) and abs(a - b) <= 1e-3 * max(1.0, abs(b)),
+                        f"small wgan step {i} (gp {gp_lambda}) {k}: cuda {a} vs cpu {b}")
+                if abs(a - b) / max(1.0, abs(b)) > worst:
+                    worst, at = abs(a - b) / max(1.0, abs(b)), f"{k} at step {i}"
+            require(card_state.critic_count == cpu_state.critic_count, "critic_count")
+            did.append(m_gpu["did_gan_update"])
+        require(did == [0.0, 1.0, 0.0, 1.0], f"small wgan gan updates {did}")
+        if not gp_lambda:
+            k = max(w.abs().max().item() for w in critic_kernels(card_state.critic))
+            require(k <= CLIP_VALUE, f"critic conv weights reach {k}")
+        err = (sample(card_state, z_fake[0].to(dev)).cpu()
+               - sample(cpu_state, z_fake[0])).abs().max().item()
+        require(err <= 1e-3, f"small wgan step samples differ by {err}")
+        log(f"small float32 WGAN steps (gp_lambda {gp_lambda}), card vs CPU from the same "
+            f"state each step: metrics within {worst:.3g} ({at}; bound 1e-3), gan updates {did}, "
+            f"samples max abs err {err:.3g}")
+
+
+def check_small_wgan_bf16_steps(dev: torch.device) -> None:
+    """Four bfloat16 WGAN steps (32x48, base 16, batch 4, n_critic 2) on the
+    card, with the clip and with the gradient penalty: finite float32
+    losses, gan updates at the second and fourth step, float32 parameters,
+    statistics and optimizer state, conv weights within the clip."""
+    gen = torch.Generator().manual_seed(7)
+    batches = torch.randint(0, 256, (4, 4, 32, 48, 3), generator=gen, dtype=torch.uint8)
+    for gp_lambda in (0.0, 10.0):
+        cfg = wgan_step.WGANTrainConfig(
+            model=WGANConfig(image_size=(32, 48, 3), base_width=16, dtype=torch.bfloat16),
+            batch_size=4, n_critic=2, gp_lambda=gp_lambda)
+        step = wgan_step.make_train_step(cfg)
+        state = wgan_step.init_state(cfg, dev)
+        did, losses = [], []
+        for i in range(4):
+            state, m = step(state, batches[i].to(dev))
+            require(all(v.dtype == torch.float32 for v in m.values()), "bf16 wgan metric dtype")
+            m = {k: float(v) for k, v in m.items()}
+            require(all(math.isfinite(v) for v in m.values()), f"bf16 wgan step {i}: {m}")
+            did.append(m["did_gan_update"])
+            losses.append(m["c_loss_real"])
+        require(did == [0.0, 1.0, 0.0, 1.0], f"bf16 wgan gan updates {did}")
+        tensors = [*state.gen.parameters(), *state.critic.parameters(), *state.gen.buffers(),
+                   *state.critic.buffers(), *state.c_opt.nu, *state.gan_opt.nu]
+        require({t.dtype for t in tensors} == {torch.float32}, "bf16 wgan state dtype")
+        if not gp_lambda:
+            k = max(w.abs().max().item() for w in critic_kernels(state.critic))
+            require(k <= CLIP_VALUE, f"bf16 critic conv weights reach {k}")
+        log(f"small bfloat16 WGAN steps (gp_lambda {gp_lambda}) on the card: finite, gan "
+            f"updates {did}, float32 state, c_loss_real {[round(v, 4) for v in losses]}")
+
+
 def run_sndcgan_slice(card: str) -> dict:
     dev = torch.device("cuda", 0)
     dataset = SyntheticImageDataset(EPOCH_BATCHES * BATCH, (HEIGHT, WIDTH))
@@ -649,6 +755,67 @@ def run_cyclegan_slice(card: str) -> dict:
             "config": f"{CG_SIZE}x{CG_SIZE} bs{CG_BATCH} base{CG_BASE} res{CG_RES} f32"}
 
 
+def run_wgan_slice(card: str) -> dict:
+    """The reference WGAN configuration through WGANEngine: one epoch, then a
+    new engine that resumes from its checkpoint for a second."""
+    dev = torch.device("cuda", 0)
+    dataset = SyntheticImageDataset(EPOCH_BATCHES * BATCH, (HEIGHT, WIDTH), seed=3)
+    args = (dataset, (HEIGHT, WIDTH, 3), BATCH, WGAN_N_CRITIC)
+    kwargs = dict(device=dev, base_width=BASE, dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/wgan"
+        engine = WGANEngine(*args, path_like=out, **kwargs)
+        require(engine.epoch == 0 and engine.resident, "fresh resident engine")
+        zero_launches()
+        engine.train(1)  # epoch 1, checkpoint 1
+        first = engine.last_epoch_metrics
+        resumed = WGANEngine(*args, path_like=out, load=True, **kwargs)
+        require(resumed.epoch == 1, f"resume gave epoch {resumed.epoch}")
+        require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
+        require(resumed.state.critic_count == EPOCH_BATCHES % WGAN_N_CRITIC,
+                f"resumed critic_count {resumed.state.critic_count}")
+        resumed.train(2)  # epoch 2, checkpoint 2
+        launches = read_launches()
+        copies = adam.GRAD_COPIES["adam"]
+        second = resumed.last_epoch_metrics
+        with open(f"{out}/perf.jsonl") as f:
+            perf = [json.loads(line) for line in f]
+        with open(f"{out}/stats.pickle", "rb") as f:
+            history = pickle.load(f)
+        checkpoints = resumed.ckpt_manager.all_epochs()
+        samples = resumed.generate_fake_samples(4)
+        steps = int(resumed.state.step)
+        critic_count = resumed.state.critic_count
+        kernel_max = max(w.abs().max().item() for w in critic_kernels(resumed.state.critic))
+    require(steps == 2 * EPOCH_BATCHES, f"step counter {steps}")
+    gan_steps = first["gan_update_steps"] + second["gan_update_steps"]
+    require(first["gan_updates"] + second["gan_updates"] == 3 and gan_steps == [5, 10, 15],
+            f"gan updates at steps {gan_steps}, expected [5, 10, 15]")
+    require(critic_count == 1, f"critic_count {critic_count} after 16 steps")
+    for name, m in (("epoch 1", first), ("epoch 2", second)):
+        require(all(math.isfinite(v) for v in m.values() if isinstance(v, float)),
+                f"{name} losses {m}")
+    require(kernel_max <= CLIP_VALUE, f"critic conv weights reach {kernel_max}")
+    require(checkpoints == [1, 2], f"checkpoints {checkpoints}")
+    require(sorted(history) == ["c1_hist", "c2_hist", "g_hist"]
+            and all(len(v) == 3 and all(map(math.isfinite, v)) for v in history.values()),
+            f"stats.pickle {history}")
+    require(samples.shape == (4, HEIGHT, WIDTH, 3) and samples.min() >= 0.0
+            and samples.max() <= 1.0, "preview samples")
+    want = dict.fromkeys(launches, 0)
+    require(launches == want, f"launch counts {launches}, expected none")
+    require(copies == 0, f"adam gradient copies {copies} on a path without Adam")
+    log(f"wgan slice: {steps} steps over 2 epochs (one resumed), gan updates at steps "
+        f"{gan_steps}, critic_count {critic_count}, critic conv weights within "
+        f"{kernel_max:.4g}, losses {second}")
+    log(f"wgan slice: launches {launches}")
+    log(f"wgan slice: epoch 2 {perf[-1]['steps_per_sec']:.3f} steps/s, "
+        f"{perf[-1]['images_per_sec']:.1f} images/s at {WIDTH}x{HEIGHT} bs{BATCH} base "
+        f"{BASE} f32 n_critic {WGAN_N_CRITIC} clip ({card})")
+    return {"launches": launches, "grad_copies": copies, "perf": perf,
+            "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} f32 n_critic{WGAN_N_CRITIC} clip"}
+
+
 def main() -> int:
     dev = platform.require_cuda()
     numerics = platform.configure_numerics()
@@ -671,7 +838,14 @@ def main() -> int:
     kernels += check_instance_norm(card)
     check_small_step_against_cpu(dev)
     check_small_cyclegan_step_against_cpu(dev)
-    slices = {"sndcgan": run_sndcgan_slice(card), "cyclegan": run_cyclegan_slice(card)}
+    check_small_wgan_steps_against_cpu(dev)
+    check_small_wgan_bf16_steps(dev)
+    slices = {"sndcgan": run_sndcgan_slice(card), "cyclegan": run_cyclegan_slice(card),
+              "wgan": run_wgan_slice(card)}
+    names = {k["name"] for k in kernels}
+    for p, r in slices.items():
+        require(set(r["launches"]) == names, f"{p}: counters {sorted(r['launches'])} "
+                f"are not the kernels {sorted(names)}")
     for k in kernels:
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in slices.items()}
         # The path that runs it; Adam runs on both, and its record's times

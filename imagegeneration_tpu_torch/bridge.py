@@ -3,8 +3,8 @@
 Takes and returns nested dicts of numpy arrays, so it needs no jax: a test
 or an import script pulls the JAX side to numpy (`jax.device_get`) first.
 Collections covered: flax `params`, `batch_stats` (BN mean/var), `spectral`
-(SN `u`), and Adam `mu`/`nu`/`count` (optax.ScaleByAdamState), whose trees
-have the params' structure.
+(SN `u`), Adam `mu`/`nu`/`count` (optax.ScaleByAdamState) and RMSprop `nu`
+(optax.ScaleByRmsState), whose trees have the params' structure.
 
 Layout rules, per kind of leaf:
 
@@ -20,6 +20,8 @@ Layout rules, per kind of leaf:
   JAX model, lowered to a plain conv there and stored as `to_rgb/
   ConvTranspose_0/kernel` (HWIO): it bridges as a conv, with no flip. The
   CycleGAN `to_rgb` is a plain `Conv` (`to_rgb/Conv_0`);
+- the WGAN generator's `to_rgb` is a plain `Conv` (`to_rgb/Conv_0`), as
+  its class is not the SNDCGAN `Generator` that the override names;
 - the CycleGAN up-sampling ConvTransposes (3x3 s2) are stored unflipped as
   `upN/ConvTranspose_0/kernel` (kh, kw, in, out) and bridge as convT;
 - an InstanceNorm's `scale` and `bias` sit at `N/scale`, `N/bias` (no inner
@@ -231,6 +233,43 @@ def jax_train_state(state) -> dict:
         "d_opt": {"count": np.asarray(int(state.d_opt.count)),
                   "mu": param_tree(state.disc, state.d_opt.mu),
                   "nu": param_tree(state.disc, state.d_opt.nu)},
+    }
+
+
+def load_jax_wgan_state(state, jax_state: dict) -> None:
+    """Copy a JAX WGANState (as a dict of numpy trees: step, critic_count,
+    g_params, g_batch_stats, c_params, c_batch_stats, c_opt {nu} and gan_opt
+    {nu: (g tree, c tree)}, the gan optimizer's state over every generator
+    and critic leaf) into a port WGANState, in place."""
+    with torch.no_grad():
+        state.step.fill_(int(jax_state["step"]))
+    state.critic_count = int(jax_state["critic_count"])
+    load_flax_variables(state.gen, {"params": jax_state["g_params"],
+                                    "batch_stats": jax_state["g_batch_stats"]})
+    load_flax_variables(state.critic, {"params": jax_state["c_params"],
+                                       "batch_stats": jax_state["c_batch_stats"]})
+    load_param_tree(state.critic, jax_state["c_opt"]["nu"], state.c_opt.nu)
+    g_nu, c_nu = jax_state["gan_opt"]["nu"]
+    n_g = len(list(state.gen.parameters()))
+    load_param_tree(state.gen, g_nu, state.gan_opt.nu[:n_g])
+    load_param_tree(state.critic, c_nu, state.gan_opt.nu[n_g:])
+
+
+def jax_wgan_state(state) -> dict:
+    """Inverse of `load_jax_wgan_state` (numpy leaves)."""
+    g = flax_variables(state.gen)
+    c = flax_variables(state.critic)
+    n_g = len(list(state.gen.parameters()))
+    return {
+        "step": np.asarray(int(state.step)),
+        "critic_count": np.asarray(state.critic_count),
+        "g_params": g["params"],
+        "g_batch_stats": g["batch_stats"],
+        "c_params": c["params"],
+        "c_batch_stats": c["batch_stats"],
+        "c_opt": {"nu": param_tree(state.critic, state.c_opt.nu)},
+        "gan_opt": {"nu": (param_tree(state.gen, state.gan_opt.nu[:n_g]),
+                           param_tree(state.critic, state.gan_opt.nu[n_g:]))},
     }
 
 

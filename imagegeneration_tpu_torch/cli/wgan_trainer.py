@@ -1,0 +1,100 @@
+"""WGAN training CLI — signature-compatible with wasserstein_gan/Trainer.py:34-51.
+
+  python -m imagegeneration_tpu_torch.cli.wgan_trainer <bSize> <epochs>
+      [-d DIR] [-c INTERVAL] [-ct] [-x DATA] [--n-critic N] [--gp LAMBDA]
+      [--bf16] [--height H] [--width W] [--seed S] [--device {cuda,cpu}]
+
+The flags are those of imagegeneration_tpu.cli.wgan_trainer: the dataset
+directory defaults to the reference's hardcoded "bilderNeuro", n_critic to
+5, the image size to 144x256, and `--gp` > 0 replaces the weight clip by
+the WGAN-GP penalty. Training runs on one CUDA device; `--device cpu` runs
+the same code on the CPU (tests, debugging). `-c` is accepted and has no
+effect: the msgpack exports it paces are not written yet, and the train
+state is checkpointed every epoch. The multi-device and
+profiling flags (`--mesh-data`, `--mesh-spatial` > 1, `--host-sharded-data`,
+`--profile`) are refused: they are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Train Wasserstein GAN to generate landscapes"
+    )
+    parser.add_argument("bSize", type=int, help="Batch Size to use")
+    parser.add_argument("epochs", type=int, help="Number of epochs to train")
+    parser.add_argument(
+        "-d", "--directory", type=str, dest="path", default="training",
+        help="The output directory where the checkpoints are saved.",
+    )
+    parser.add_argument(
+        "-c", "--checkpoints", type=int, dest="chps", default=5,
+        help="Take checkpoint every x epochs. Default = 5",
+    )
+    parser.add_argument(
+        "-ct", "--continue", dest="continue_", action="store_true", default=False,
+        help="Continue training (default: Start from the beginning)",
+    )
+    parser.add_argument(
+        "-x", "--data", type=str, dest="data", default="bilderNeuro",
+        help="Image directory (reference hardcodes 'bilderNeuro').",
+    )
+    parser.add_argument("--n-critic", type=int, default=5)
+    parser.add_argument("--gp", type=float, dest="gp_lambda", default=0.0,
+                        help="WGAN-GP gradient penalty weight (replaces weight "
+                        "clipping when > 0; reference default 0 = clipping)")
+    parser.add_argument("--bf16", action="store_true", default=False)
+    parser.add_argument("--mesh-data", type=int, default=0,
+                        help="not supported: multi-GPU training is not ported")
+    parser.add_argument("--mesh-spatial", type=int, default=1,
+                        help="not supported: multi-GPU training is not ported")
+    parser.add_argument("--height", type=int, default=144)
+    parser.add_argument("--width", type=int, default=256)
+    parser.add_argument("--seed", type=int, default=62)
+    parser.add_argument("--profile", action="store_true", default=False,
+                        help="not supported: use imagegeneration_tpu_torch."
+                        "tools.profile_step --workload wgan")
+    parser.add_argument("--host-sharded-data", action="store_true", default=False,
+                        help="not supported: multi-host training is not ported")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default; fails without a GPU) or cpu "
+                        "(for tests and debugging)")
+    return parser
+
+
+def main(argv=None) -> None:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.mesh_data or args.mesh_spatial != 1 or args.host_sharded_data:
+        parser.error(
+            "--mesh-data/--mesh-spatial/--host-sharded-data: multi-device "
+            "training is not ported to PyTorch yet; this trainer runs on one GPU"
+        )
+    if args.profile:
+        parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
+
+    from imagegeneration_tpu_torch.core.platform import resolve_device
+    from imagegeneration_tpu_torch.train.wgan_engine import WGANEngine
+
+    engine = WGANEngine(
+        args.data,
+        (args.height, args.width, 3),
+        args.bSize,
+        args.n_critic,
+        path_like=args.path,
+        load=args.continue_,
+        device=resolve_device(args.device),
+        gp_lambda=args.gp_lambda,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        seed=args.seed,
+    )
+    engine.train(args.epochs)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,14 +7,15 @@ and the GPU machine has neither. Semantics kept:
 - an image folder is decoded once into one contiguous uint8 (N, H, W, 3)
   array: center crop to the target aspect ratio, then bilinear resize
   (keras `image_dataset_from_directory(crop_to_aspect_ratio=True)`);
-- each epoch reshuffles images (not batches) from a seeded stream and drops
-  the remainder, so every batch has the static batch size;
+- each epoch reshuffles images (not batches) from a seeded stream
+  (`permutation`); the engines' feed (train/feed.py) drops the remainder,
+  so every batch has the static batch size;
 - batches leave the host as uint8 and are rescaled on the device by
   `normalize` (x / 127.5 - 1);
 - `PairedDataset` zips two unpaired domains per batch (CycleGAN), each
   with its own shuffle stream.
 
-`resident_budget` decides, for both engines, whether a dataset is kept on
+`resident_budget` decides, for the engines, whether a dataset is kept on
 the device as uint8 or streamed from the host.
 
 The decoders (cv2, else PIL) are imported only when a folder is read.
@@ -136,7 +137,7 @@ def load_image(
 
 
 class _ShuffledImages:
-    """Per-epoch reshuffled uint8 batches over an in-memory image array."""
+    """An in-memory uint8 image array, reshuffled per epoch."""
 
     _images: np.ndarray
     _chain: KeyChain
@@ -148,21 +149,13 @@ class _ShuffledImages:
     def images(self) -> np.ndarray:
         return self._images
 
-    def num_batches(self, batch_size: int, drop_remainder: bool = True) -> int:
-        n = len(self)
-        return n // batch_size if drop_remainder else -(-n // batch_size)
+    def num_batches(self, batch_size: int) -> int:
+        """Full batches only: an epoch drops the remainder."""
+        return len(self) // batch_size
 
     def permutation(self, epoch: int) -> np.ndarray:
         """The epoch's image order, from the dataset's own "data" stream."""
         return self._chain.numpy_rng("data", epoch).permutation(len(self))
-
-    def epoch_batches(
-        self, batch_size: int, epoch: int, drop_remainder: bool = True
-    ) -> Iterator[np.ndarray]:
-        """Yield uint8 (B, H, W, 3) batches, reshuffled per epoch."""
-        perm = self.permutation(epoch)
-        for b in range(self.num_batches(batch_size, drop_remainder)):
-            yield self._images[perm[b * batch_size:(b + 1) * batch_size]]
 
 
 class ImageFolderDataset(_ShuffledImages):
@@ -211,14 +204,6 @@ class PairedDataset:
 
     def num_batches(self, batch_size: int) -> int:
         return min(self.ds_x.num_batches(batch_size), self.ds_y.num_batches(batch_size))
-
-    def epoch_batches(
-        self, batch_size: int, epoch: int
-    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        it_x = self.ds_x.epoch_batches(batch_size, epoch)
-        it_y = self.ds_y.epoch_batches(batch_size, epoch)
-        for _ in range(self.num_batches(batch_size)):
-            yield next(it_x), next(it_y)
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

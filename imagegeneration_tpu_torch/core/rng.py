@@ -116,3 +116,10 @@ def uniform_z(
     """SNDCGAN latent: U[-1, 1) (sndcgan/SNDCGAN.py:283), float32."""
     u = torch.rand((batch, z_size), generator=gen, device=device)
     return -1.0 + 2.0 * u
+
+
+def normal_z(
+    gen: torch.Generator, batch: int, z_size: int, device: torch.device | str
+) -> torch.Tensor:
+    """WGAN latent: standard normal (wasserstein_gan/WGAN.py:212-217), float32."""
+    return torch.randn((batch, z_size), generator=gen, device=device)

@@ -5,7 +5,8 @@ Counterparts of imagegeneration_tpu/nn/layers.py (`Dense`, `Conv`,
 `ResBlock`). Stock PyTorch differs from Keras in ways that change numbers,
 so each default is pinned here:
 
-- kernel init is Keras `glorot_uniform`, bias zeros;
+- kernel init is Keras `glorot_uniform`, bias zeros; a conv or transposed
+  conv can take Keras `RandomNormal(stddev=0.02)` instead (WGAN);
 - SAME padding is TF's: total = max((ceil(n/s)-1)*s + k - n, 0), with the
   odd pixel on the bottom/right. For an even kernel at an odd extent that is
   asymmetric, which `Conv2d(padding=...)` cannot express, so it goes through
@@ -14,8 +15,9 @@ so each default is pinned here:
   lax.conv_transpose (flax, `transpose_kernel=False`). Where that rule pads
   the low side more than the high side (3x3 at stride 2: (2, 1)), the conv
   is computed with (2, 2) and the extra high-side row and column cropped;
-- BatchNorm is Keras's: momentum 0.99, epsilon 1e-3, statistics in float32,
-  and the running variance is updated with the BIASED batch variance (flax),
+- BatchNorm is Keras's: momentum 0.99, epsilon 1e-3, statistics in at
+  least float32 (flax: the input's dtype promoted with float32), and the
+  running variance is updated with the BIASED batch variance (flax),
   where `nn.BatchNorm2d` would use the unbiased one;
 - InstanceNorm is tfa's (epsilon 1e-3, Keras `random_uniform` U(-0.05,
   0.05) scale and offset); its corrected per-channel form runs through the
@@ -50,11 +52,17 @@ def glorot_uniform_(
         return t.uniform_(-limit, limit, generator=generator)
 
 
+KERNEL_INITS = ("glorot_uniform", "normal_002")
+
+
 def conv_weight(
-    shape: tuple[int, int, int, int], generator: torch.Generator | None
+    shape: tuple[int, int, int, int], generator: torch.Generator | None,
+    kernel_init: str = "glorot_uniform",
 ) -> nn.Parameter:
     """A conv (out, in, kh, kw) or ConvTranspose (in, out, kh, kw) weight,
-    glorot-uniform (its limit depends on fan_in + fan_out only), channels_last.
+    channels_last: glorot-uniform (its limit depends on fan_in + fan_out
+    only), or N(0, 0.02) for `kernel_init="normal_002"` (Keras
+    RandomNormal(stddev=0.02)).
 
     The values are drawn in the contiguous order (the same weights for a
     seed as a contiguous tensor) and then laid out channels_last, the
@@ -62,7 +70,12 @@ def conv_weight(
     returns its gradient in the same layout, which the Adam kernel walks
     with the moments (ops/adam.py)."""
     a, b, kh, kw = shape
-    w = glorot_uniform_(torch.empty(shape), kh * kw * b, kh * kw * a, generator)
+    if kernel_init == "glorot_uniform":
+        w = glorot_uniform_(torch.empty(shape), kh * kw * b, kh * kw * a, generator)
+    elif kernel_init == "normal_002":
+        w = torch.empty(shape).normal_(0.0, 0.02, generator=generator)
+    else:
+        raise ValueError(f"kernel_init must be one of {KERNEL_INITS}, got {kernel_init!r}")
     return nn.Parameter(w.contiguous(memory_format=torch.channels_last))
 
 
@@ -139,14 +152,14 @@ class Conv(nn.Module):
         self, in_features: int, features: int, kernel_size: tuple[int, int],
         strides: tuple[int, int] = (1, 1), padding: str = "SAME",
         use_bias: bool = True, dtype: torch.dtype = torch.float32,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, kernel_init: str = "glorot_uniform",
     ) -> None:
         super().__init__()
         kh, kw = kernel_size
         self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
-        self.weight = conv_weight((features, in_features, kh, kw), generator)
+        self.weight = conv_weight((features, in_features, kh, kw), generator, kernel_init)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +179,7 @@ class ConvTranspose(nn.Module):
         self, in_features: int, features: int, kernel_size: tuple[int, int],
         strides: tuple[int, int] = (1, 1), use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, kernel_init: str = "glorot_uniform",
     ) -> None:
         super().__init__()
         kh, kw = kernel_size
@@ -180,7 +193,7 @@ class ConvTranspose(nn.Module):
         self.crop = any(hi < lo for lo, hi in pads)
         self.strides = tuple(strides)
         self.dtype = dtype
-        self.weight = conv_weight((in_features, features, kh, kw), generator)
+        self.weight = conv_weight((in_features, features, kh, kw), generator, kernel_init)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -197,9 +210,10 @@ class ConvTranspose(nn.Module):
 class BatchNorm(nn.Module):
     """Keras BatchNorm (momentum 0.99, eps 1e-3) over every axis but 1.
 
-    Parameters `scale`, `bias`; running statistics `mean`, `var` (buffers).
-    Statistics are float32: mean = E[x], var = max(E[x^2] - E[x]^2, 0)
-    (flax's fast variance); the running variance takes this biased var."""
+    Parameters `scale`, `bias`; running statistics `mean`, `var` (float32
+    buffers). Statistics are computed in the input's dtype promoted with
+    float32, as flax computes them: mean = E[x], var = max(E[x^2] - E[x]^2,
+    0) (flax's fast variance); the running variance takes this biased var."""
 
     def __init__(
         self, features: int, momentum: float = 0.99, epsilon: float = 1e-3,
@@ -215,7 +229,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, use_running_average: bool) -> torch.Tensor:
-        xf = x.float()
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(ct)
         shape = [1, -1] + [1] * (x.dim() - 2)
         if use_running_average:
             mean, var = self.mean, self.var
@@ -229,7 +244,7 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1.0 - m) * var)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
+        return y.to(self.dtype or ct)
 
 
 class InstanceNorm(nn.Module):

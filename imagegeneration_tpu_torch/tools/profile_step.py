@@ -2,33 +2,45 @@
 """Where a headline train step's time goes, on one CUDA card.
 
     python -m imagegeneration_tpu_torch.tools.profile_step --out DIR
-        [--workload {sndcgan,cyclegan}]
+        [--workload {sndcgan,cyclegan,wgan}]
 
 The step is a headline configuration, with random weights from the default
 seed and synthetic uint8 batches made on the card:
 - sndcgan (default): 256x144, batch 32, base_width 512, spectral-norm D,
   hinge loss, bf16 compute, d_updates=2;
 - cyclegan: 128x128, batch 4, base_width 64, 9 res blocks, float32 (the
-  reference's configuration; TF32 off).
+  reference's configuration; TF32 off);
+- wgan: 256x144, batch 32, base_width 512, float32 (TF32 off), n_critic 5,
+  weight clipping (bench.py:445-468); a 10-step window holds two gan
+  updates, the 5-step profile one.
 
 Phases:
 
 1. rate: host clock around windows of WINDOW steps, each ending in a
-   synchronize; the device memory one step takes at its peak.
-2. profile: torch.profiler over PROFILE_STEPS steps. Device time by kernel
+   synchronize; the device memory a step takes at its peak (the most over
+   one window).
+2. memory: the allocator's history over one window of WINDOW steps,
+   replayed to the moment the allocated bytes peak. The blocks live then
+   are grouped by the innermost frame of this package that allocated them
+   (blocks with no Python frame come from the autograd engine's backward
+   thread) and by the train step's function; memory.txt lists them, and
+   each block of LARGE_BLOCK bytes or more in the order of allocation.
+3. profile: torch.profiler over PROFILE_STEPS steps. Device time by kernel
    class and by kernel name, self device time by aten op, and the device's
    busy share: the union of the trace's kernel, copy and memset intervals
    over the span of the profiled window. That is the busy share under the
    profiler, whose host overhead lengthens the window.
-3. ab: windows of the step with its hand kernels ("kernels"), and with the
+4. ab: windows of the step with its hand kernels ("kernels"), and with the
    plain version in place of one kernel family at a time (sndcgan:
    "plain_dropout", "plain_adam"; cyclegan: "plain_instance_norm",
    "plain_adam"), in turns k 1 2 2 1 k, twice. nvidia-smi samples the SM
-   clock and the power draw every 100 ms beside the windows.
-4. data: the engine's resident and streaming epochs, in turns r s s r:
+   clock and the power draw every 100 ms beside the windows. Skipped for
+   wgan, whose path runs no hand kernel.
+5. data: the engine's resident and streaming epochs, in turns r s s r:
    steps/s of the second epoch of a fresh engine.
 
-Writes summary.json, kernels.txt, ops.txt and trace.json.gz under DIR. The
+Writes summary.json, memory.txt, kernels.txt, ops.txt and trace.json.gz
+under DIR. The
 card's name and power limit are printed before the last line, which is
 the summary as one JSON object. Without a CUDA card the tool fails.
 """
@@ -56,10 +68,12 @@ from imagegeneration_tpu_torch.core import data as datalib
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import SNDCGANConfig
+from imagegeneration_tpu_torch.models.wgan import WGANConfig
 from imagegeneration_tpu_torch.ops import adam, dropout
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
 from imagegeneration_tpu_torch.train import cyclegan_engine, cyclegan_step, sndcgan_engine
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
+from imagegeneration_tpu_torch.train import wgan_engine, wgan_step
 
 N_BATCHES = 8  # distinct device batches the step cycles through
 WINDOW = 10
@@ -68,6 +82,7 @@ PROFILE_STEPS = 5
 DATA_EPOCH_BATCHES = 16
 DATA_ORDER = ("resident", "streaming", "streaming", "resident")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LARGE_BLOCK = 64 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +143,23 @@ def _cyclegan() -> Workload:
     )
 
 
-WORKLOADS = {"sndcgan": _sndcgan, "cyclegan": _cyclegan}
+def _wgan() -> Workload:
+    h, w, b, base = 144, 256, 32, 512
+    ds = datalib.SyntheticImageDataset(DATA_EPOCH_BATCHES * b, (h, w))
+    return Workload(
+        config=f"{w}x{h} bs{b} base{base} f32 n_critic5 clip",
+        train_config=wgan_step.WGANTrainConfig(
+            model=WGANConfig(image_size=(h, w, 3), base_width=base), batch_size=b),
+        variants={"kernels": {}},
+        make_engine=lambda out, dev: wgan_engine.WGANEngine(
+            ds, (h, w, 3), b, path_like=out, device=dev, base_width=base),
+    )
+
+
+WORKLOADS = {"sndcgan": _sndcgan, "cyclegan": _cyclegan, "wgan": _wgan}
+STEP_LIBS = {steplib.SNDCGANTrainConfig: steplib,
+             cyclegan_step.CycleGANTrainConfig: cyclegan_step,
+             wgan_step.WGANTrainConfig: wgan_step}
 
 
 def log(msg: str) -> None:
@@ -141,7 +172,7 @@ class StepLoop:
 
     def __init__(self, cfg, dev: torch.device):
         paired = isinstance(cfg, cyclegan_step.CycleGANTrainConfig)
-        lib = cyclegan_step if paired else steplib
+        lib = STEP_LIBS[type(cfg)]
         self.state = lib.init_state(cfg, dev)
         self.step = lib.make_train_step(cfg)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -168,16 +199,98 @@ def phase_rate(loop: StepLoop, dev: torch.device) -> dict:
     loop.run(3)  # warm-up: cuDNN algorithm choice, the caching allocator
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
-    loop.run(1)
+    loop.run(WINDOW)  # a whole window: WGAN's gan update runs every 5th step
     peak = torch.cuda.max_memory_allocated(dev)
     ms = [loop.ms_per_step(WINDOW) for _ in range(RATE_WINDOWS)]
     return {
         "ms_per_step": ms,
         "steps_per_sec": [1e3 / m for m in ms],
         "allocated_before_step_bytes": before,
-        "step_peak_allocated_bytes": peak,
+        "window_peak_allocated_bytes": peak,
         "free_bytes": torch.cuda.mem_get_info(dev)[0],
         "resident_budget_bytes": datalib.resident_budget(dev),
+    }
+
+
+# ---------------------------------------------------------------- memory
+PACKAGE = "imagegeneration_tpu_torch/"
+NO_FRAME = "(no Python frame: autograd backward)"
+
+
+def _site(frames: list[dict], inside: str) -> str:
+    """The innermost frame whose file lies under `inside`, as file:line fn."""
+    for f in frames:
+        name = f.get("filename", "")
+        if inside in name:
+            return f"{name[name.index(PACKAGE) + len(PACKAGE):]}:{f['line']} {f['name']}"
+    return NO_FRAME if not frames else "(outside the package)"
+
+
+def peak_blocks(trace: list[dict], base: int) -> tuple[int, list[dict], dict | None]:
+    """Replay an allocator trace from `base` allocated bytes: the peak, the
+    blocks the trace allocated that are live at it, and the allocation that
+    reached it. A free of a block the trace never allocated lowers the
+    base (it was live before the trace began)."""
+    live: dict[int, dict] = {}
+    cur = peak = base
+    at_peak: list[dict] = []
+    peak_event = None
+    for e in trace:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            cur += e["size"]
+            if cur > peak:
+                peak, at_peak, peak_event = cur, list(live.values()), e
+        elif e["action"] == "free_requested":
+            cur -= e["size"]
+            live.pop(e["addr"], None)
+    return peak, at_peak, peak_event
+
+
+def phase_memory(loop: StepLoop, dev: torch.device, out: Path) -> dict:
+    loop.run(1)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python", max_entries=2_000_000,
+        clear_history=True)
+    try:
+        loop.run(WINDOW)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    trace = snap["device_traces"][dev.index or 0]
+    peak, blocks, peak_event = peak_blocks(trace, base)
+    groups = {}
+    for title, inside in (("by allocating frame", PACKAGE), ("by train step function", "train/")):
+        sums: dict[str, list[int]] = {}
+        for b in blocks:
+            rec = sums.setdefault(_site(b.get("frames", []), inside), [0, 0])
+            rec[0] += b["size"]
+            rec[1] += 1
+        groups[title] = sorted(([k, v[0], v[1]] for k, v in sums.items()),
+                               key=lambda r: -r[1])
+    reached_at = _site(peak_event.get("frames", []), PACKAGE) if peak_event else None
+    large = [[_site(b.get("frames", []), PACKAGE), _site(b.get("frames", []), "train/"),
+              b["size"]] for b in blocks if b["size"] >= LARGE_BLOCK]
+    with open(out / "memory.txt", "w") as f:
+        f.write(f"peak {peak / 2**30:.3f} GiB over {WINDOW} steps; allocated before the "
+                f"window {base / 2**30:.3f} GiB; reached by an allocation at {reached_at}\n")
+        for title, rows in groups.items():
+            f.write(f"\n# live at the peak, {title}: GiB, blocks, site\n")
+            for site, nbytes, count in rows:
+                f.write(f"{nbytes / 2**30:9.3f} {count:6d}  {site}\n")
+        f.write(f"\n# blocks of {LARGE_BLOCK >> 20} MiB or more live at the peak, in the "
+                f"order of allocation: bytes, site, step function\n")
+        for site, fn, nbytes in large:
+            f.write(f"{nbytes:14d}  {site}  ({fn})\n")
+    return {
+        "trace_events": len(trace),
+        "allocated_before_window_bytes": base,
+        "peak_allocated_bytes": peak,
+        "peak_reached_at": reached_at,
+        "live_at_peak_bytes_by_site": groups["by allocating frame"][:15],
+        "live_at_peak_bytes_by_step_function": groups["by train step function"],
+        "large_blocks_at_peak": large[:40],
     }
 
 
@@ -190,7 +303,11 @@ def kernel_class(name: str) -> str:
         return "instance norm kernels (csrc/instance_norm.cu)"
     if "adam_multi_kernel" in n:
         return "adam kernel (csrc/adam.cu)"
-    if any(s in n for s in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad")):
+    if "multi_tensor_apply" in n:
+        return "foreach (multi-tensor: RMSprop, clip)"
+    # cuDNN's FFT algorithms: DSE::*fft*, fft2d_*, pointwise_mult_and_sum_complex
+    if any(s in n for s in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad", "fft",
+                            "pointwise_mult_and_sum_complex")):
         return "convolution (cuDNN)"
     if any(s in n for s in ("gemm", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
@@ -339,7 +456,9 @@ def smi_samples(path: Path):
             continue
 
 
-def phase_ab(loop: StepLoop, variants: dict, out: Path) -> dict:
+def phase_ab(loop: StepLoop, variants: dict, out: Path) -> dict | None:
+    if len(variants) == 1:
+        return None  # no hand kernel on the path: nothing to swap
     first, second = [v for v in variants if v != "kernels"]
     order = ("kernels", first, second, second, first, "kernels") * 2
     windows = []
@@ -378,7 +497,7 @@ def phase_data(work: Workload, dev: torch.device) -> dict:
                 eng = work.make_engine(f"{tmp}/{i}", dev)
                 if eng.resident != (mode == "resident"):
                     raise RuntimeError(f"engine picked the wrong data path for {mode}")
-                eng.train(2, 100)  # epoch 0 warms up; epoch 1 is read
+                eng.train(2)  # the first epoch warms up; the second is read
             perf = json.loads(Path(f"{tmp}/{i}/perf.jsonl").read_text().splitlines()[-1])
             rates[mode].append(perf["steps_per_sec"])
             del eng
@@ -405,8 +524,14 @@ def main(argv: list[str] | None = None) -> int:
     loop = StepLoop(work.train_config, dev)
     rate = summary["rate"] = phase_rate(loop, dev)
     log(f"rate: {[f'{s:.3f}' for s in rate['steps_per_sec']]} steps/s over "
-        f"{WINDOW}-step windows; one step's peak allocation "
-        f"{rate['step_peak_allocated_bytes'] / 2**30:.2f} GiB ({card})")
+        f"{WINDOW}-step windows; peak allocation over a window "
+        f"{rate['window_peak_allocated_bytes'] / 2**30:.2f} GiB ({card})")
+    mem = summary["memory"] = phase_memory(loop, dev, out)
+    log(f"memory: peak {mem['peak_allocated_bytes'] / 2**30:.2f} GiB from the allocator's "
+        f"history ({mem['allocated_before_window_bytes'] / 2**30:.2f} GiB before the "
+        f"window), reached at {mem['peak_reached_at']} ({card})")
+    for site, nbytes, count in mem["live_at_peak_bytes_by_site"][:8]:
+        log(f"  {nbytes / 2**30:8.3f} GiB in {count:5d} blocks  {site}")
     prof = summary["profile"] = phase_profile(loop, out)
     log(f"profile: {prof['window_ms_per_step']:.2f} ms/step under the profiler, "
         f"device busy {prof['device_busy_ms_per_step']:.2f} ms/step "
@@ -414,7 +539,7 @@ def main(argv: list[str] | None = None) -> int:
     for cls, ms in prof["device_ms_per_step_by_class"].items():
         log(f"  {ms:8.3f} ms/step  {cls}")
     ab = summary["ab"] = phase_ab(loop, work.variants, out)
-    for v, ms in ab["ms_per_step"].items():
+    for v, ms in (ab or {"ms_per_step": {}})["ms_per_step"].items():
         log(f"ab: {v} ms/step {[round(m, 2) for m in ms]} ({card})")
     del loop
     gc.collect()

@@ -1,12 +1,14 @@
-"""Keras-form Adam state and the GAN losses.
+"""Keras-form Adam and RMSprop states and the GAN losses.
 
 The counterpart of imagegeneration_tpu/train/common.py. The Adam here is
 tf.keras's, not `torch.optim.Adam`: eps sits outside the sqrt and the bias
 correction rides in alpha = lr*sqrt(1-b2^t)/(1-b1^t), computed in float32
 on the device from the step counter (ops/adam.py, whose CUDA kernel applies
-every leaf of an apply in one launch). The moments share each parameter's
-layout (channels_last for conv weights). Losses reduce in at least
-float32. RMSprop waits for the WGAN slice.
+every leaf of an apply in one launch). RMSprop is optax's `rmsprop(lr,
+decay=0.9, eps=1e-7)` (Keras defaults, WGAN), in plain multi-tensor torch
+ops: the JAX package has no kernel for it. Optimizer states share each
+parameter's layout (channels_last for conv weights). Losses reduce in at
+least float32.
 """
 
 from __future__ import annotations
@@ -64,6 +66,61 @@ def adam_apply(
                        table=state.table)
 
 
+@dataclasses.dataclass
+class RMSpropState:
+    """optax.ScaleByRmsState's field (optax keeps no count for RMSprop): the
+    running mean of g^2, one float32 tensor per parameter, in the order of
+    the parameter list."""
+
+    nu: list[torch.Tensor]
+
+    def state_dict(self) -> dict:
+        return {"nu": self.nu}
+
+    def load_state_dict(self, sd: dict) -> None:
+        with torch.no_grad():
+            for dst, src in zip(self.nu, sd["nu"], strict=True):
+                dst.copy_(src)
+
+
+def rmsprop_init(params: Sequence[torch.Tensor]) -> RMSpropState:
+    return RMSpropState(
+        nu=[torch.zeros_like(p, memory_format=torch.preserve_format) for p in params])
+
+
+@torch.no_grad()
+def rmsprop_apply(
+    params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor | None],
+    state: RMSpropState, lr: float, decay: float = 0.9, eps: float = 1e-7,
+) -> None:
+    """One RMSprop step, in place, in the float operations of optax's
+    scale_by_rms(eps_in_sqrt=True) then scale_by_learning_rate:
+
+        nu = (1 - decay) * g*g + decay * nu;  p = p + (-lr) * (rsqrt(nu + eps) * g)
+
+    A None gradient is a zero one (the frozen leaves of a masked update):
+    its nu decays, nu = decay * nu, which is what the formula gives exactly
+    for g = 0, and its parameter keeps every bit (p + (-lr * 0) = p)."""
+    live = [i for i, g in enumerate(grads) if g is not None]
+    frozen = [state.nu[i] for i, g in enumerate(grads) if g is None]
+    if frozen:
+        torch._foreach_mul_(frozen, decay)
+    if not live:
+        return
+    p = [params[i] for i in live]
+    g = [grads[i] for i in live]
+    nu = [state.nu[i] for i in live]
+    g2 = torch._foreach_mul(g, g)
+    torch._foreach_mul_(g2, 1.0 - decay)
+    torch._foreach_mul_(nu, decay)
+    torch._foreach_add_(nu, g2)
+    u = torch._foreach_add(nu, eps)
+    torch._foreach_rsqrt_(u)
+    torch._foreach_mul_(u, g)
+    torch._foreach_mul_(u, -lr)
+    torch._foreach_add_(p, u)
+
+
 def _loss_dtype(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
@@ -88,3 +145,9 @@ def hinge_d_loss_fake(logits_fake: torch.Tensor) -> torch.Tensor:
 
 def hinge_g_loss(logits_fake: torch.Tensor) -> torch.Tensor:
     return -torch.mean(_loss_dtype(logits_fake))
+
+
+def wasserstein_loss(labels: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
+    """mean(y_true * y_pred) (wasserstein_gan/WGAN.py:48-49), in >= float32."""
+    x = _loss_dtype(preds)
+    return torch.mean(labels.to(x.dtype) * x)

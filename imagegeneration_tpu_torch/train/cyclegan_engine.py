@@ -14,11 +14,9 @@ reference class `CycleGAN`, cyclegan/CycleGAN.py:211-425), on one device:
   `losses.pickle`, a line to `perf.jsonl`, and a checkpoint of the whole
   train state is saved (numbered epoch + 1, `max_to_keep=5`).
 
-Both domains are resident on the device (uint8) when together they fit
-`core.data.resident_budget`: each epoch is a loop of train steps over two
-permutation gathers, and the metrics stay on the device until the epoch's
-one sync. Otherwise uint8 batches stream from the host through a prefetch
-thread.
+The data path is `train/feed.EpochFeed`: both domains resident on the
+device when together they fit, streamed from the host otherwise, each in
+the order of its own permutation.
 
 Not here yet: the per-epoch preview sheet and the loss plot (matplotlib is
 absent on the GPU machine; they wait for the core/preview.py port) and the
@@ -40,6 +38,7 @@ from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import cyclegan as modellib
 from imagegeneration_tpu_torch.train import cyclegan_step as steplib
+from imagegeneration_tpu_torch.train import feed as feedlib
 
 LOSS_KEYS = (
     "gen_g_loss", "gen_f_loss", "identity_loss_g", "identity_loss_f",
@@ -50,7 +49,7 @@ LOSS_KEYS = (
 class CycleGANEngine:
     def __init__(
         self,
-        dataset1_path,  # a folder, or any object with images/permutation/epoch_batches
+        dataset1_path,  # a folder, or any object with images/permutation
         dataset2_path,
         path_like: str,
         batch_size: int,
@@ -86,11 +85,9 @@ class CycleGANEngine:
             seed=seed,
         )
         self.state = steplib.init_state(self.cfg, self.device)
-        self._step = steplib.make_train_step(self.cfg)
-        nbytes = self.loader.ds_x.images.nbytes + self.loader.ds_y.images.nbytes
-        self.resident = nbytes <= datalib.resident_budget(self.device)
-        self._epoch_runner = steplib.make_epoch_runner(self.cfg) if self.resident else None
-        self._resident: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.feed = feedlib.EpochFeed(
+            [self.loader.ds_x, self.loader.ds_y], self.cfg, self.device, steplib)
+        self.resident = self.feed.resident
         self.translate_g, self.translate_f = steplib.make_translators()
         self.last_epoch_metrics: dict[str, float] | None = None
 
@@ -109,31 +106,6 @@ class CycleGANEngine:
         print("Initialized CycleGAN SUCCESS!")
 
     # --------------------------------------------------------------- train
-    def _run_epoch_resident(self, epoch: int):
-        if self._resident is None:
-            self._resident = tuple(
-                torch.from_numpy(ds.images).to(self.device)
-                for ds in (self.loader.ds_x, self.loader.ds_y))
-        n = self.num_batches * self.batch_size
-        perms = [
-            torch.from_numpy(ds.permutation(epoch)[:n].reshape(self.num_batches, -1))
-            .to(self.device) for ds in (self.loader.ds_x, self.loader.ds_y)]
-        self.state, metrics = self._epoch_runner(self.state, *self._resident, *perms)
-        return metrics
-
-    def _run_epoch_streaming(self, epoch: int):
-        per_step = []
-        pinned = self.device.type == "cuda"
-        for batch_x, batch_y in datalib.prefetch(
-                self.loader.epoch_batches(self.batch_size, epoch), depth=2):
-            bx, by = torch.from_numpy(batch_x), torch.from_numpy(batch_y)
-            if pinned:
-                bx, by = bx.pin_memory(), by.pin_memory()
-            self.state, m = self._step(self.state, bx.to(self.device, non_blocking=True),
-                                       by.to(self.device, non_blocking=True))
-            per_step.append(m)
-        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
-
     def train(self, epochs: int, checkpoint_frequency: int = 5) -> None:
         """Train `epochs` more epochs. `checkpoint_frequency` paces the
         generator exports of the JAX engine, which are not ported yet; the
@@ -145,10 +117,8 @@ class CycleGANEngine:
             watch.epoch_start()
             epoch = self.epoch
             print("####### Epoch", epoch, "#######")
-            if self.resident:
-                metrics = self._run_epoch_resident(epoch)
-            else:
-                metrics = self._run_epoch_streaming(epoch)
+            self.state, metrics = self.feed.run(
+                self.state, [ds.permutation(epoch) for ds in self.feed.datasets])
             # The epoch's one host sync: the device finishes its steps here.
             agg = {k: float(v.float().mean()) for k, v in metrics.items()}
             n_steps = self.num_batches

@@ -11,11 +11,10 @@ reference class `SNDCGAN`, sndcgan/SNDCGAN.py:148-335), on one device:
   train state and appends + pickles the loss history; every epoch appends a
   line to `perf.jsonl`.
 
-A dataset that fits `core.data.resident_budget` is resident on the device
-(uint8): each epoch is a Python loop of train steps over a permutation
-gather, and the metrics stay on the device until the epoch's one sync. A
-larger dataset streams uint8 batches from the host through a prefetch
-thread.
+The data path is `train/feed.EpochFeed`: resident on the device when the
+dataset fits, streamed from the host otherwise. As in the JAX engine, a
+resident epoch takes its order from the engine's "data" stream and a
+streamed one from the dataset's own.
 
 Not here yet: multi-device training, live-preview PDFs and the loss plot
 (both need matplotlib, which the GPU machine lacks; they wait for the
@@ -38,6 +37,7 @@ from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import sndcgan as modellib
+from imagegeneration_tpu_torch.train import feed as feedlib
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 
 LOSS_KEYS = ("epoch", "avg_g_loss", "avg_d_loss", "d_real", "d_fake")
@@ -49,7 +49,7 @@ class SNDCGANEngine:
     def __init__(
         self,
         dir_path: str,
-        dataset,  # path to an image folder, or any object with images/epoch_batches
+        dataset,  # path to an image folder, or any object with images/permutation
         batch_size: int,
         dropout: float = 0.5,
         learning_rate_disc: float = 2e-4,
@@ -76,8 +76,7 @@ class SNDCGANEngine:
             dataset = datalib.ImageFolderDataset(dataset, image_size[:2], labeled=True)
         self.dataset = dataset
         self.batch_size = batch_size
-        self.num_batches = len(dataset.images) // batch_size
-        if self.num_batches < 1:
+        if len(dataset.images) < batch_size:
             raise ValueError(
                 f"dataset of {len(dataset.images)} images has no full batch "
                 f"of {batch_size}"
@@ -97,12 +96,9 @@ class SNDCGANEngine:
         )
         self.chain = rnglib.KeyChain(seed)
         self.state = steplib.init_state(self.cfg, self.device)
-        self._step = steplib.make_train_step(self.cfg)
-        self.resident = self.dataset.images.nbytes <= datalib.resident_budget(self.device)
-        self._epoch_runner = (
-            steplib.make_epoch_runner(self.cfg) if self.resident else None
-        )
-        self._resident_images: torch.Tensor | None = None
+        self.feed = feedlib.EpochFeed([dataset], self.cfg, self.device, steplib)
+        self.resident = self.feed.resident
+        self.num_batches = self.feed.num_batches
         self._sample = steplib.make_sampler(self.cfg)
         self.last_epoch_metrics: dict[str, float] | None = None
 
@@ -130,32 +126,6 @@ class SNDCGANEngine:
         return self._sample(self.state, z.to(self.device)).cpu().numpy()
 
     # --------------------------------------------------------------- train
-    def _run_epoch_streaming(self, epoch: int):
-        per_step = []
-        pinned = self.device.type == "cuda"
-        for batch in datalib.prefetch(
-            self.dataset.epoch_batches(self.batch_size, epoch), depth=2
-        ):
-            t = torch.from_numpy(batch)
-            if pinned:
-                t = t.pin_memory()
-            self.state, m = self._step(self.state, t.to(self.device, non_blocking=True))
-            per_step.append(m)
-        stacked = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
-        return stacked, len(per_step)
-
-    def _run_epoch_resident(self, epoch: int):
-        if self._resident_images is None:
-            self._resident_images = torch.from_numpy(self.dataset.images).to(self.device)
-        nb = self.num_batches
-        rng = self.chain.numpy_rng("data", epoch)
-        perm = rng.permutation(len(self.dataset.images))[: nb * self.batch_size]
-        perm = torch.from_numpy(perm.reshape(nb, self.batch_size)).to(self.device)
-        self.state, metrics = self._epoch_runner(
-            self.state, self._resident_images, perm
-        )
-        return metrics, nb
-
     def train(self, num_epochs: int, checkpoint_frequency: int = 5) -> None:
         start_time = perf_counter()
         watch = metricslib.Stopwatch()
@@ -164,9 +134,11 @@ class SNDCGANEngine:
         for epoch in range(self.start_epoch, num_epochs):
             watch.epoch_start()
             if self.resident:
-                metrics, n_steps = self._run_epoch_resident(epoch)
+                perm = self.chain.numpy_rng("data", epoch).permutation(len(self.dataset.images))
             else:
-                metrics, n_steps = self._run_epoch_streaming(epoch)
+                perm = self.dataset.permutation(epoch)
+            self.state, metrics = self.feed.run(self.state, [perm])
+            n_steps = self.num_batches
             # The epoch's one host sync: the device finishes its steps here.
             agg = {k: float(v.float().mean()) for k, v in metrics.items()}
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)

@@ -1,0 +1,173 @@
+"""WGAN training engine: epoch loop, n_critic history windows, checkpoints.
+
+The counterpart of imagegeneration_tpu/train/wgan_engine.py (itself the
+reference class `WGAN`, wasserstein_gan/WGAN.py:155-326), on one device:
+
+- the directory scaffold `g_models/`, `c_models/`, `samples/` is wiped
+  unless `load` (WGAN.py:161-167);
+- a label-free image folder (symlinks followed), or any dataset object
+  with images/permutation/num_batches;
+- epochs are 1-based: `self.epoch` is the last finished one, and a resume
+  (`load=True`) restores the latest checkpoint of the whole train state
+  and continues from its epoch; `train(epochs)` runs up to epoch `epochs`;
+- the loss history is kept exactly as the reference keeps it (WGAN.py:
+  284-318): c1 and c2 are averaged over each window of batches that ends
+  at a gan update and appended with that update's g; the open window is
+  reset at each `train()` call; `stats.pickle` holds {c1_hist, c2_hist,
+  g_hist};
+- every epoch: a line to `perf.jsonl`, the reference's console line, a
+  checkpoint numbered with the epoch (`max_to_keep=2`) and `stats.pickle`.
+
+The data path is `train/feed.EpochFeed`: resident on the device when the
+dataset fits, streamed from the host otherwise, both in the order of the
+dataset's own permutation, so they train alike.
+
+Not here yet: the per-epoch 10x10 sample sheet `generated_plot_%04d.jpg`
+and the final loss plot (the port does not depend on matplotlib; they wait
+for the core/preview.py port) and the params-only `model_%04d.msgpack`
+exports (they wait for a port of core/checkpoint.export_params).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from os import path
+from time import gmtime, perf_counter, strftime
+
+import numpy as np
+import torch
+
+from imagegeneration_tpu_torch.core import checkpoint as ckptlib
+from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import metrics as metricslib
+from imagegeneration_tpu_torch.core import platform
+from imagegeneration_tpu_torch.core import rng as rnglib
+from imagegeneration_tpu_torch.models import wgan as modellib
+from imagegeneration_tpu_torch.train import feed as feedlib
+from imagegeneration_tpu_torch.train import wgan_step as steplib
+
+HIST_KEYS = ("c1_hist", "c2_hist", "g_hist")
+
+
+class WGANEngine:
+    def __init__(
+        self,
+        dataset,  # folder path or dataset object (label-free)
+        image_size: tuple[int, int, int],
+        batch_size: int,
+        critic_learn_iterations: int = 5,
+        path_like: str = "training",
+        load: bool = False,
+        *,
+        device: torch.device,
+        gp_lambda: float = 0.0,
+        base_width: int = 512,
+        dtype: torch.dtype = torch.float32,
+        seed: int = rnglib.DEFAULT_MODEL_SEED,
+    ) -> None:
+        self.path = path_like
+        if not load and path.exists(path_like):
+            shutil.rmtree(path_like)
+        for sub in ("g_models", "c_models", "samples"):
+            os.makedirs(path.join(path_like, sub), exist_ok=True)
+        self.device = torch.device(device)
+        if isinstance(dataset, (str, os.PathLike)):
+            dataset = datalib.ImageFolderDataset(
+                dataset, image_size[:2], labeled=False, follow_links=True)
+        self.dataset = dataset
+        self.batch_size = batch_size
+        if dataset.num_batches(batch_size) < 1:
+            raise ValueError(
+                f"dataset of {len(dataset)} images has no full batch of {batch_size}")
+        self.cfg = steplib.WGANTrainConfig(
+            model=modellib.WGANConfig(image_size=image_size, base_width=base_width,
+                                      dtype=dtype),
+            batch_size=batch_size,
+            n_critic=critic_learn_iterations,
+            gp_lambda=gp_lambda,
+            seed=seed,
+        )
+        self.chain = rnglib.KeyChain(seed)
+        self.state = steplib.init_state(self.cfg, self.device)
+        self.latent_dim = self.cfg.model.z_size
+        self.feed = feedlib.EpochFeed([dataset], self.cfg, self.device, steplib)
+        self.resident = self.feed.resident
+        self.num_batches = self.feed.num_batches
+        self._sample = steplib.make_sampler(self.cfg)
+        self.last_epoch_metrics: dict[str, float] | None = None
+        self._c1_tmp: list[float] = []
+        self._c2_tmp: list[float] = []
+
+        self.loss_hist = metricslib.LossHistory(path.join(path_like, "stats.pickle"), HIST_KEYS)
+        self.ckpt_manager = ckptlib.CheckpointManager(
+            path.join(path_like, "checkpoints"), max_to_keep=2)
+        latest = self.ckpt_manager.latest_epoch()
+        if load and latest is not None:
+            self.state.load_state_dict(self.ckpt_manager.restore())
+            self.epoch = latest
+            print("Restored WGAN state at epoch", self.epoch)
+        else:
+            self.epoch = 0
+        print("Initialized WGAN SUCCESS!")
+
+    # ------------------------------------------------------------- sampling
+    def generate_fake_samples(self, n_samples: int) -> np.ndarray:
+        """n fake images (n, H, W, C) in [0, 1] from the epoch's "preview"
+        draw (WGAN.py:220-227)."""
+        gen = self.chain.generator("preview", self.device, step=self.epoch)
+        z = rnglib.normal_z(gen, n_samples, self.latent_dim, self.device)
+        return self._sample(self.state, z).cpu().numpy()
+
+    # ---------------------------------------------------------------- train
+    def _fold_metrics(self, c1, c2, g, did) -> None:
+        """The reference's history bookkeeping (WGAN.py:284-318): c1/c2 go
+        into the open window; at each gan update the window's means and
+        that update's g are appended and the window starts again."""
+        for i in range(len(c1)):
+            self._c1_tmp.append(float(c1[i]))
+            self._c2_tmp.append(float(c2[i]))
+            if did[i] > 0.5:
+                self.loss_hist.extend({
+                    "c1_hist": [float(np.mean(self._c1_tmp))],
+                    "c2_hist": [float(np.mean(self._c2_tmp))],
+                    "g_hist": [float(g[i])],
+                })
+                self._c1_tmp, self._c2_tmp = [], []
+
+    def train(self, epochs: int) -> None:
+        """Train until `epochs` epochs are done in all (the reference's
+        count, resumed runs included)."""
+        self._c1_tmp, self._c2_tmp = [], []
+        start_time = perf_counter()
+        watch = metricslib.Stopwatch()
+        for _ in range(epochs - self.epoch):
+            self.epoch += 1
+            watch.epoch_start()
+            print(f"####### Epoch {self.epoch} "
+                  f"Time: {strftime('%H:%M:%S', gmtime(perf_counter() - start_time))} #######")
+            self.state, metrics = self.feed.run(
+                self.state, [self.dataset.permutation(self.epoch)])
+            # The epoch's one host sync: the device finishes its steps here.
+            c1, c2, g, did = torch.stack(
+                [metrics[k].float() for k in steplib.METRIC_KEYS]).cpu().numpy()
+            self._fold_metrics(c1, c2, g, did)
+            n_steps = len(c1)
+            perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
+            metricslib.write_metrics_jsonl(
+                path.join(self.path, "perf.jsonl"),
+                {"epoch": self.epoch, "device": platform.device_name(self.device), **perf})
+            first_step = int(self.state.step) - n_steps + 1
+            self.last_epoch_metrics = {
+                "c_loss_real": float(c1.mean()), "c_loss_fake": float(c2.mean()),
+                "g_loss": float(g[did > 0.5].mean()) if did.any() else 0.0,
+                "gan_updates": int(did.sum()),
+                # 1-based global steps that ran a gan update
+                "gan_update_steps": [first_step + int(i) for i in np.flatnonzero(did > 0.5)],
+            }
+            if self.loss_hist.data["c1_hist"]:
+                print(">RealLoss=%.3f, FakeLoss=%.3f GeneratorLoss=%.3f | %.2f steps/s" % (
+                    self.loss_hist.data["c1_hist"][-1], self.loss_hist.data["c2_hist"][-1],
+                    self.loss_hist.data["g_hist"][-1], perf["steps_per_sec"]))
+            self.ckpt_manager.save(self.epoch, self.state.state_dict())
+            self.loss_hist.save()

@@ -158,6 +158,58 @@ def test_batchnorm_train_eval_and_running_stats(image):
                                    np.asarray(y_eval), **TOL)
 
 
+def test_batchnorm_float64_statistics_match_flax_x64():
+    """A float64 input gets float64 statistics, as flax computes them in
+    promote_types(x.dtype, float32): train-mode output and gradients, the
+    running-stat update (stored float32, as the JAX step keeps it) at 1e-12
+    (bit-equal for the statistics), and inference mode. Statistics taken in
+    float32 are ~1e-7 off."""
+    rng = np.random.default_rng(4)
+    x = 2.0 + 3.0 * rng.normal(size=(4, 5, 3, 6))
+    g = rng.normal(size=x.shape)
+    scale, bias = rng.uniform(0.5, 1.5, 6), rng.normal(size=6)
+    old_x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        p = {"BatchNorm_0": {"scale": jnp.asarray(scale, jnp.float32),
+                             "bias": jnp.asarray(bias, jnp.float32)}}
+        mod_t = jl.BatchNorm(use_running_average=False)
+        bs = mod_t.init(jax.random.key(4), jnp.asarray(x))["batch_stats"]
+
+        def f(p, x):
+            return mod_t.apply({"params": p, "batch_stats": bs}, x, mutable=["batch_stats"])
+
+        (y, mut), vjp = jax.vjp(f, p, jnp.asarray(x))
+        dp, dx = vjp((jnp.asarray(g), jax.tree.map(jnp.zeros_like, mut)))
+        stats = jax.tree.map(lambda a: np.asarray(a, np.float32), mut["batch_stats"])
+        y_eval = jl.BatchNorm(use_running_average=True).apply(
+            {"params": p, "batch_stats": stats}, jnp.asarray(x))
+        assert y.dtype == y_eval.dtype == jnp.float64
+    finally:
+        jax.config.update("jax_enable_x64", old_x64)
+
+    bn = tl.BatchNorm(6)
+    bridge.copy_in(bn.scale, "vec", scale.astype(np.float32))
+    bridge.copy_in(bn.bias, "vec", bias.astype(np.float32))
+    xt = _nchw(x)
+    yt = bn(xt, use_running_average=False)
+    assert yt.dtype == torch.float64 and bn.mean.dtype == torch.float32
+    yt.backward(_nchw(g).detach())
+    tight = dict(rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(_nhwc(yt), np.asarray(y), **tight)
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(dx), **tight)
+    for k in ("scale", "bias"):  # float32 parameters: float32 gradients
+        np.testing.assert_allclose(getattr(bn, k).grad.numpy(),
+                                   np.asarray(dp["BatchNorm_0"][k]), rtol=1e-6)
+    for k in ("mean", "var"):
+        np.testing.assert_array_equal(getattr(bn, k).numpy(), stats["BatchNorm_0"][k])
+    # Inference normalizes with the float32 running statistics on both sides
+    # (flax takes rsqrt of the float32 var), so it agrees to float32 rounding.
+    with torch.no_grad():
+        np.testing.assert_allclose(_nhwc(bn(xt, use_running_average=True)),
+                                   np.asarray(y_eval), rtol=2e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("update", [True, False])
 def test_spectral_norm_conv_sigma_u_and_grads(update):
     rng = np.random.default_rng(4)

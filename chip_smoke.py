@@ -51,6 +51,8 @@ Phases (any failure raises, and the exit code is non-zero):
    copied to its parameter's layout more often than GRAD_COPIES_PER_STEP:
    - SNDCGANEngine: spectral-norm D, hinge loss, bf16, one epoch with a
      checkpoint, then a new engine that resumes from it for a second epoch;
+     each epoch's params-only exports (gen_model-<e>, disc_model-<e>),
+     loaded into fresh models, are bit-equal to the engine's state then;
    - CycleGANEngine at the headline configuration (float32): one epoch, then
      a new engine on the same directory auto-resumes for a second;
    - WGANEngine at the reference's configuration (144x256, batch 32, base
@@ -58,6 +60,24 @@ Phases (any failure raises, and the exit code is non-zero):
      8 steps, then a new engine resumes for a second; gan updates at steps
      5, 10 and 15, critic_count 1 at the end, critic conv weights within
      +-0.01, and no hand kernel launched (the WGAN path has none).
+6. Sampling and FID on the SNDCGAN slice's directory, at its full width,
+   with the launch counters zeroed before and read after (no hand kernel
+   runs: inference uses neither dropout nor Adam):
+   - the sampling CLI's two variants (exports, checkpoints) give the same
+     epochs and bit-equal samples in [0, 1];
+   - FIDEvaluator (spectral norm, lowrank cross term) over a 512-image
+     144x256 synthetic dataset, 16 pinned batches of 32 and 4096 features:
+     every FID finite and >= -1e-6 of its batch's trace terms, again equal
+     from features taken anew; a resumed evaluate computes nothing, and an
+     epoch dropped from fids.pickle comes back equal; on the first two
+     pinned batches the `scipy` FID (float32 covariances, scipy's sqrtm)
+     agrees with lowrank within its float32 rounding bound;
+   - Newton–Schulz on the card against scipy.linalg.sqrtm (n = 512, SPD);
+   - an image folder written here with cv2 (JPEG and PNG) read through
+     ImageFolderDataset, its decoder named, then through the FID CLI's
+     evaluate_fid at batch 2.
+   It prints seconds per sampled epoch, per FID epoch (features and FID
+   math), for pinning, and the phase's peak memory, beside the card.
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -68,22 +88,40 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pickle
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imagegeneration_tpu_torch import bridge
+from imagegeneration_tpu_torch.cli import generator_evaluation, generator_output
 from imagegeneration_tpu_torch.core import platform
-from imagegeneration_tpu_torch.core.data import SyntheticImageDataset
+from imagegeneration_tpu_torch.core.checkpoint import load_params
+from imagegeneration_tpu_torch.core.data import ImageFolderDataset, SyntheticImageDataset
+from imagegeneration_tpu_torch.evalx.fid import (
+    MAX_BATCHES,
+    FIDEvaluator,
+    calculate_fid_from_features,
+)
 from imagegeneration_tpu_torch.core.rng import KeyChain
 from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
-from imagegeneration_tpu_torch.models.sndcgan import DISC_TRUNK, SNDCGANConfig
+from imagegeneration_tpu_torch.models.sndcgan import (
+    DISC_TRUNK,
+    Discriminator,
+    Generator,
+    SNDCGANConfig,
+    trunk_hw,
+)
 from imagegeneration_tpu_torch.models.wgan import CLIP_VALUE, WGANConfig, critic_kernels
 from imagegeneration_tpu_torch.ops import adam, dropout, native
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
+from imagegeneration_tpu_torch.ops.sqrtm import sqrtm_newton_schulz
 from imagegeneration_tpu_torch.tools import in_plans as in_plans_tool
 from imagegeneration_tpu_torch.tools.devtime import L2Flush, device_ms
 from imagegeneration_tpu_torch.train import cyclegan_step
@@ -117,6 +155,11 @@ WGAN_N_CRITIC = 5
 # Every launch counter of the hand kernels: zeroed and read as one set, so
 # that no path can launch a kernel that goes uncounted.
 LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES)
+# FID phase: MAX_BATCHES pinned batches of the headline batch size.
+FID_IMAGES = MAX_BATCHES * BATCH
+FID_FLOOR = 1e-6  # an FID may fall below 0 by this share of its trace terms
+EPS32 = 2.0**-24  # float32 unit roundoff
+NS_TOL = 1e-4  # Newton–Schulz vs scipy.linalg.sqrtm: max abs err / max |sqrtm|
 
 
 def log(msg: str) -> None:
@@ -651,27 +694,58 @@ def check_small_wgan_bf16_steps(dev: torch.device) -> None:
             f"updates {did}, float32 state, c_loss_real {[round(v, 4) for v in losses]}")
 
 
-def run_sndcgan_slice(card: str) -> dict:
+def model_states(state) -> dict[str, dict[str, torch.Tensor]]:
+    """CPU copies of the generator's and discriminator's tensors."""
+    return {name: {k: v.detach().cpu().clone()
+                   for k, v in getattr(state, name).state_dict().items()}
+            for name in ("gen", "disc")}
+
+
+def check_exports(out: str, cfg: SNDCGANConfig, states: dict) -> int:
+    """Each epoch's exports, loaded into fresh models, bit-equal to the
+    engine's state at that epoch; returns the tensors compared."""
+    n = 0
+    for epoch, want in states.items():
+        for name, cls, path in (
+                ("gen", Generator, f"{out}/models/generator/gen_model-{epoch}.msgpack"),
+                ("disc", Discriminator,
+                 f"{out}/models/discriminator/disc_model-{epoch}.msgpack")):
+            fresh = cls(cfg)
+            bridge.load_flax_variables(fresh, load_params(path))
+            got = fresh.state_dict()
+            require(sorted(got) == sorted(want[name]), f"{path}: tensors {sorted(got)}")
+            for k, v in got.items():
+                require(torch.equal(v, want[name][k]), f"{path}: {k} differs from the state")
+            n += len(got)
+    return n
+
+
+def run_sndcgan_slice(card: str, work: str) -> dict:
+    """The headline SNDCGAN configuration through SNDCGANEngine in
+    `work`/sndcgan, which the sampling and FID phase reads afterwards."""
     dev = torch.device("cuda", 0)
     dataset = SyntheticImageDataset(EPOCH_BATCHES * BATCH, (HEIGHT, WIDTH))
     kwargs = dict(image_size=(HEIGHT, WIDTH, 3), device=dev, spectral_norm=True,
-                  loss="hinge", dtype=torch.bfloat16, base_width=BASE)
-    with tempfile.TemporaryDirectory() as tmp:
-        out = f"{tmp}/sndcgan"
-        engine = SNDCGANEngine(out, dataset, BATCH, **kwargs)
-        zero_launches()
-        engine.train(1, 1)  # epoch 0, checkpointed
-        first = engine.last_epoch_metrics
-        resumed = SNDCGANEngine(out, dataset, BATCH, continue_=True, **kwargs)
-        require(resumed.start_epoch == 1, "resume did not start at epoch 1")
-        require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
-        resumed.train(2, 1)  # epoch 1
-        launches = read_launches()
-        copies = adam.GRAD_COPIES["adam"]
-        second = resumed.last_epoch_metrics
-        with open(f"{out}/perf.jsonl") as f:
-            perf = [json.loads(line) for line in f]
-        steps = int(resumed.state.step)
+                  loss="hinge", dtype=torch.bfloat16, base_width=BASE,
+                  live_output=f"{work}/live")
+    out = f"{work}/sndcgan"
+    engine = SNDCGANEngine(out, dataset, BATCH, **kwargs)
+    zero_launches()
+    engine.train(1, 1)  # epoch 0, checkpointed and exported
+    states = {0: model_states(engine.state)}
+    first = engine.last_epoch_metrics
+    resumed = SNDCGANEngine(out, dataset, BATCH, continue_=True, **kwargs)
+    require(resumed.start_epoch == 1, "resume did not start at epoch 1")
+    require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
+    resumed.train(2, 1)  # epoch 1
+    launches = read_launches()
+    states[1] = model_states(resumed.state)
+    copies = adam.GRAD_COPIES["adam"]
+    second = resumed.last_epoch_metrics
+    with open(f"{out}/perf.jsonl") as f:
+        perf = [json.loads(line) for line in f]
+    steps = int(resumed.state.step)
+    n_exported = check_exports(out, engine.cfg.model, states)
     require(steps == 2 * EPOCH_BATCHES, f"step counter {steps}")
     for name, m in (("epoch 0", first), ("epoch 1", second)):
         require(all(math.isfinite(v) for v in m.values()), f"{name} losses {m}")
@@ -686,6 +760,8 @@ def run_sndcgan_slice(card: str) -> dict:
     require(copies == want_copies, f"adam gradient copies {copies}, expected {want_copies}")
     log(f"sndcgan slice: {steps} steps over 2 epochs (one resumed), losses {second}")
     log(f"sndcgan slice: launches {launches}, adam gradient layout copies {copies}")
+    log(f"sndcgan slice: exports gen_model-{{0,1}} and disc_model-{{0,1}} loaded into "
+        f"fresh models: {n_exported} tensors bit-equal to the engine's state at each epoch")
     log(f"sndcgan slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
         f"{perf[-1]['images_per_sec']:.1f} images/s at {WIDTH}x{HEIGHT} bs{BATCH} "
         f"base {BASE} SN hinge bf16 ({card})")
@@ -816,6 +892,211 @@ def run_wgan_slice(card: str) -> dict:
             "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} f32 n_critic{WGAN_N_CRITIC} clip"}
 
 
+def trace_terms(feats: np.ndarray) -> float:
+    """tr(cov) of a feature matrix, in float64."""
+    f = feats.astype(np.float64)
+    return float(np.sum((f - f.mean(axis=0)) ** 2) / max(f.shape[0] - 1, 1))
+
+
+def scipy_rounding_bound(feats_fake: np.ndarray, feats_real: np.ndarray) -> float:
+    """How far the `scipy` FID (the reference formula: float32 covariances,
+    scipy's d x d sqrtm of their product) may sit from the exact lowrank one.
+    The product has rank n - 1; each of its d - n + 1 null directions can
+    take a float32 rounding eigenvalue of up to EPS32 |C_f| |C_r|, which
+    sqrtm lifts to its square root, and the FID counts the trace twice."""
+    def top_eigenvalue(f):
+        x = f.astype(np.float64)
+        x = (x - x.mean(axis=0)) / np.sqrt(x.shape[0] - 1)
+        return float(np.linalg.svd(x, compute_uv=False)[0] ** 2)
+
+    n, d = feats_fake.shape
+    return 2.0 * (d - n + 1) * math.sqrt(
+        EPS32 * top_eigenvalue(feats_fake) * top_eigenvalue(feats_real))
+
+
+def check_sampling(run: str, dev: torch.device, card: str) -> dict:
+    """Both variants of the sampling CLI over the slice's two epochs."""
+    args = (3, run, 1, "grid", 0, (HEIGHT, WIDTH, 3), 128, 62)
+    kw = dict(device=dev, return_samples=True)
+    out = {}
+    for name, fn in (("models", generator_output.output_results_models),
+                     ("checkpoints", generator_output.output_results_ckpts)):
+        t0 = time.perf_counter()
+        epochs, samples = fn(*args, **kw)
+        out[name] = (epochs, samples, (time.perf_counter() - t0) / len(epochs))
+    (epochs_m, from_models, s_m), (epochs_c, from_ckpts, s_c) = out.values()
+    require(epochs_m == epochs_c == [0, 1], f"sampled epochs {epochs_m} / {epochs_c}")
+    for e, a, b in zip(epochs_m, from_models, from_ckpts):
+        require(a.shape == (3, HEIGHT, WIDTH, 3) and bool(np.isfinite(a).all())
+                and a.min() >= 0.0 and a.max() <= 1.0, f"samples of epoch {e}")
+        require(np.array_equal(a, b), f"epoch {e}: samples from the export and the "
+                f"checkpoint differ by {np.abs(a - b).max()}")
+    require(not np.array_equal(from_models[0], from_models[1]), "epochs 0 and 1 sample alike")
+    log(f"sampling: epochs {epochs_m} from exports and from checkpoints, 3 samples each, "
+        f"bit-equal, in [{min(a.min() for a in from_models):.4f}, "
+        f"{max(a.max() for a in from_models):.4f}]; {s_m:.3f} s per epoch from exports, "
+        f"{s_c:.3f} s from checkpoints (model load included) ({card})")
+    return {"epochs": epochs_m, "seconds_per_epoch_exports": s_m,
+            "seconds_per_epoch_checkpoints": s_c}
+
+
+def check_fid(run: str, work: str, dev: torch.device, card: str) -> dict:
+    """FIDEvaluator over 16 pinned batches of 32 at 144x256; resume; the
+    FIDs again from features taken anew; scipy against lowrank."""
+    ds = SyntheticImageDataset(FID_IMAGES, (HEIGHT, WIDTH), seed=4)
+    ev = FIDEvaluator(run, f"{work}/fid", (HEIGHT, WIDTH, 3), spectral_norm=True,
+                      device=dev)
+    t0 = time.perf_counter()
+    results = ev.evaluate(dataset=ds, batch_size=BATCH, start_epoch=0)
+    total = time.perf_counter() - t0
+    pin_s, epoch_s = ev.pin_seconds, dict(ev.epoch_seconds)
+    init = ev.load_init()
+    require(init["batches_used"] == MAX_BATCHES and init["disc_epoch"] == 1
+            and all(x.shape == (BATCH, HEIGHT, WIDTH, 3) for x in init["img_real_used"]),
+            f"pinned {init['batches_used']} batches, disc epoch {init['disc_epoch']}")
+    require(sorted(results) == [0, 1] and all(len(v) == MAX_BATCHES for v in results.values()),
+            f"fids {results}")
+
+    real = [ev.features(x) for x in init["img_real_used"]]
+    th, tw = trunk_hw((HEIGHT, WIDTH))
+    n_feats = DISC_TRUNK[-1][0] * (th // 8) * (tw // 8)  # 4096 at 144x256
+    require(real[0].shape == (BATCH, n_feats), f"feature shape {real[0].shape}")
+    worst_floor, worst_again, fake = 0.0, 0.0, {}
+    for e in results:
+        ev.load_gen(e)
+        fake[e] = [ev.fake_features(torch.from_numpy(z).to(dev)).cpu().numpy()
+                   for z in init["random_z_used"]]
+        for b, (ff, rf) in enumerate(zip(fake[e], real)):
+            fid, scale = results[e][b], trace_terms(ff) + trace_terms(rf)
+            require(math.isfinite(fid) and fid >= -FID_FLOOR * scale,
+                    f"epoch {e} batch {b}: FID {fid} (trace terms {scale})")
+            worst_floor = min(worst_floor, fid / scale)
+            again = calculate_fid_from_features(ff, rf)
+            worst_again = max(worst_again, abs(again - fid) / scale)
+            require(abs(again - fid) <= FID_FLOOR * scale,
+                    f"epoch {e} batch {b}: FID {fid}, from features taken anew {again}")
+
+    results_file = f"{work}/fid/fids.pickle"
+    require(ev.evaluate(continue_=True) == results and ev.epoch_seconds == {},
+            "a resumed evaluation computed again")
+    with open(results_file, "rb") as f:
+        kept = pickle.load(f)
+    del kept[0]
+    with open(results_file, "wb") as f:
+        pickle.dump(kept, f)
+    resumed = ev.evaluate(continue_=True)
+    require(sorted(ev.epoch_seconds) == [0], f"resume recomputed {sorted(ev.epoch_seconds)}")
+    diff = max(abs(a - b) for a, b in zip(resumed[0], results[0]))
+    require(diff <= FID_FLOOR * max(trace_terms(rf) for rf in real),
+            f"epoch 0 again differs by {diff}")
+    log(f"fid: {MAX_BATCHES} pinned batches of {BATCH} at {WIDTH}x{HEIGHT}, {n_feats} features, "
+        f"epochs {sorted(results)}, disc epoch 1: means "
+        f"{[round(float(np.mean(results[e])), 4) for e in sorted(results)]}, "
+        f"min FID / trace terms {worst_floor:.3g} (floor {-FID_FLOOR}), features anew within "
+        f"{worst_again:.3g} of the trace terms; resume computed nothing, a dropped epoch "
+        f"came back {'bit-equal' if diff == 0 else f'within {diff:.3g}'}")
+    log(f"fid timing: pinning {pin_s:.3f} s; per epoch features (synthesis included) "
+        + ", ".join(f"{t['features']:.3f}" for t in epoch_s.values())
+        + " s, FID math " + ", ".join(f"{t['fid']:.3f}" for t in epoch_s.values())
+        + f" s; evaluate() {total:.3f} s in all ({card})")
+
+    # scipy's d x d sqrtm on the first two pinned batches of the last epoch
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        sp = list(pool.map(
+            lambda b: calculate_fid_from_features(fake[1][b], real[b], "scipy"), range(2)))
+    scipy_s = time.perf_counter() - t0
+    gaps = []
+    for b in range(2):
+        gap, tol = abs(sp[b] - results[1][b]), scipy_rounding_bound(fake[1][b], real[b])
+        scale = trace_terms(fake[1][b]) + trace_terms(real[b])
+        gaps.append({"gap": gap, "bound": tol, "trace_terms": scale})
+        require(gap <= tol, f"batch {b}: scipy {sp[b]} vs lowrank {results[1][b]}: "
+                f"{gap} beyond the float32 rounding bound {tol}")
+    log(f"fid: scipy vs lowrank on pinned batches 0-1 of epoch 1: {sp} vs {results[1][:2]}; "
+        + "; ".join(f"gap {g['gap']:.4g} (bound {g['bound']:.4g}, "
+                    f"{g['gap'] / g['trace_terms']:.3g} of the trace terms)" for g in gaps)
+        + f"; {scipy_s:.1f} s on the host")
+    return {"batches": MAX_BATCHES, "batch": BATCH, "features": n_feats,
+            "fid_means": {e: float(np.mean(v)) for e, v in results.items()},
+            "pin_seconds": pin_s, "epoch_seconds": epoch_s, "evaluate_seconds": total,
+            "scipy_vs_lowrank": gaps, "scipy_seconds": scipy_s}
+
+
+def check_newton_schulz(dev: torch.device) -> float:
+    from scipy.linalg import sqrtm
+
+    r = np.random.default_rng(8).standard_normal((512, 512))
+    a = r @ r.T / 512 + np.eye(512)  # SPD, eigenvalues in [1, 5]
+    want = sqrtm(a).real
+    got = sqrtm_newton_schulz(torch.from_numpy(a.astype(np.float32)).to(dev)).double().cpu()
+    err = float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+    require(err <= NS_TOL, f"Newton–Schulz vs scipy sqrtm: {err}")
+    log(f"Newton–Schulz on the card (n 512, SPD, float32, TF32 off) vs scipy.linalg.sqrtm: "
+        f"max abs err {err:.3g} of the largest entry (bound {NS_TOL})")
+    return err
+
+
+def check_image_folder(run: str, work: str, dev: torch.device, card: str) -> dict:
+    """A folder of JPEG and PNG files written here with cv2, read through
+    ImageFolderDataset, then through the FID CLI's evaluate_fid."""
+    import cv2
+
+    folder = f"{work}/images"
+    os.makedirs(f"{folder}/landscape")
+    rng = np.random.default_rng(11)
+    smooth = cv2.resize(rng.integers(0, 256, (3, 4, 3), dtype=np.uint8), (WIDTH, HEIGHT),
+                        interpolation=cv2.INTER_LINEAR)  # JPEG keeps smooth images close
+    exact = {}
+    for i, (h, w) in enumerate(((HEIGHT, WIDTH), (200, 300), (300, 200))):
+        img = smooth if i == 0 else rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for ext in ("png", "jpg"):
+            require(cv2.imwrite(f"{folder}/landscape/i{i}.{ext}",
+                                np.ascontiguousarray(img[..., ::-1])),
+                    f"cv2.imwrite i{i}.{ext}")
+        exact[i] = img
+    t0 = time.perf_counter()
+    ds = ImageFolderDataset(folder, (HEIGHT, WIDTH))
+    read_s = time.perf_counter() - t0
+    require(ds.decoders == {"cv2": 6}, f"decoders {ds.decoders}")
+    names = [p.name for p in ds.files]
+    png, jpg = ds.images[names.index("i0.png")], ds.images[names.index("i0.jpg")]
+    require(np.array_equal(png, exact[0]), "the PNG at the target size did not decode exactly")
+    jpg_err = float(np.abs(jpg.astype(np.int32) - exact[0]).mean())
+    require(jpg_err <= 4.0, f"the JPEG decodes {jpg_err} grey levels off on average")
+    log(f"image folder: 3 PNG + 3 JPEG written with cv2 {cv2.__version__}, read through "
+        f"ImageFolderDataset into {ds.images.shape} uint8 in {read_s:.3f} s, decoders "
+        f"{ds.decoders}; PNG exact, JPEG mean abs err {jpg_err:.3f} ({card})")
+    results = generator_evaluation.evaluate_fid(
+        run, folder, 2, f"{work}/xfid", 1, 0, 1, False, (HEIGHT, WIDTH, 3),
+        spectral_norm=True, device=dev)
+    require(sorted(results) == [0, 1] and all(
+        len(v) == 3 and all(map(math.isfinite, v)) for v in results.values()),
+        f"evaluate_fid over the folder: {results}")
+    log(f"image folder through generator_evaluation.evaluate_fid at batch 2: 3 pinned "
+        f"batches, FIDs {results}")
+    return {"decoders": ds.decoders, "cv2": cv2.__version__, "jpeg_mean_abs_err": jpg_err,
+            "read_seconds": read_s}
+
+
+def run_sampling_and_fid(card: str, work: str, dev: torch.device) -> dict:
+    """Phase 6 on the SNDCGAN slice's directory: no hand kernel may run."""
+    run = f"{work}/sndcgan"
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"sampling": check_sampling(run, dev, card), "fid": check_fid(run, work, dev, card),
+           "newton_schulz_err": check_newton_schulz(dev),
+           "image_folder": check_image_folder(run, work, dev, card)}
+    launches = read_launches()
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    require(set(launches.values()) == {0}, f"hand kernels launched in sampling/FID: {launches}")
+    log(f"sampling and FID: launches {launches}; peak allocated "
+        f"{out['peak_allocated_bytes'] / 2**30:.2f} GiB ({card})")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     dev = platform.require_cuda()
     numerics = platform.configure_numerics()
@@ -840,8 +1121,10 @@ def main() -> int:
     check_small_cyclegan_step_against_cpu(dev)
     check_small_wgan_steps_against_cpu(dev)
     check_small_wgan_bf16_steps(dev)
-    slices = {"sndcgan": run_sndcgan_slice(card), "cyclegan": run_cyclegan_slice(card),
-              "wgan": run_wgan_slice(card)}
+    with tempfile.TemporaryDirectory() as work:
+        slices = {"sndcgan": run_sndcgan_slice(card, work),
+                  "cyclegan": run_cyclegan_slice(card), "wgan": run_wgan_slice(card)}
+        offline = run_sampling_and_fid(card, work, dev)
     names = {k["name"] for k in kernels}
     for p, r in slices.items():
         require(set(r["launches"]) == names, f"{p}: counters {sorted(r['launches'])} "
@@ -858,7 +1141,7 @@ def main() -> int:
         p: {"steps_per_sec": r["perf"][-1]["steps_per_sec"],
             "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"],
             "adam_grad_copies": r["grad_copies"]}
-        for p, r in slices.items()}, "card": card,
+        for p, r in slices.items()}, "sampling_and_fid": offline, "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

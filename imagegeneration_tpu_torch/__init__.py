@@ -8,23 +8,27 @@ kernel here, built on first use from `csrc/` by nvcc and bound with ctypes,
 with a plain PyTorch version of the same function beside it: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
 
-Ported so far: the SNDCGAN and CycleGAN training paths (cli -> engine ->
-step -> models -> layers -> kernels).
+Ported so far: the SNDCGAN, CycleGAN and WGAN training paths (cli ->
+engine -> step -> models -> layers -> kernels), their params-only msgpack
+exports and figures, and the SNDCGAN offline tools (the sampling CLI and
+the discriminator-feature FID).
 
 Package layout (mirrors imagegeneration_tpu):
   core/     platform (CUDA only, TF32 off), PRNG streams, data, metrics,
-            checkpoints
+            checkpoints and flax-format msgpack exports, preview figures
   nn/       Keras-semantics layers (TF-SAME padding, Keras BatchNorm,
             glorot init, tfa InstanceNorm, the CycleGAN ResBlock) and
             spectral norm
-  ops/      kernel wrappers + plain versions; native.py builds csrc/*.cu
+  ops/      kernel wrappers + plain versions; native.py builds csrc/*.cu;
+            sqrtm.py (the FID cross term)
   csrc/     CUDA C++ sources of the kernels
-  models/   SNDCGAN and CycleGAN generators and discriminators
-  train/    Keras-form Adam, losses, the SNDCGAN and CycleGAN steps and
-            engines
-  cli/      reference-signature entry points
-  tools/    profile_step: where a headline step's time goes on a card
-  bridge.py JAX (flax) variables <-> port state, for tests and imports
+  models/   SNDCGAN, CycleGAN and WGAN generators and discriminators
+  train/    Keras-form Adam, RMSprop, losses, the three steps and engines
+  evalx/    the discriminator-feature FID
+  cli/      reference-signature entry points (trainers, sampling, FID)
+  tools/    profile_step and kernel timing tools for a card
+  bridge.py JAX (flax) variables <-> port state, for tests, exports and
+            imports
 """
 
 __version__ = "0.1.0"

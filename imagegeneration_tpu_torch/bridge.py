@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from imagegeneration_tpu_torch.models import cyclegan, sndcgan, wgan
 from imagegeneration_tpu_torch.models.sndcgan import Generator
 from imagegeneration_tpu_torch.nn.layers import (
     BatchNorm,
@@ -182,6 +183,31 @@ def flax_variables(model: nn.Module) -> dict[str, dict]:
         _set(out.setdefault(leaf.collection, {}), leaf.path,
              _to_numpy(tensors[leaf.torch_name], leaf.kind))
     return out
+
+
+# The collections of a model's params-only export, as the JAX engines write
+# them (train/sndcgan_engine.py:201-227, wgan_engine.py:200-207,
+# cyclegan_engine.py:308-322). A collection the model lacks (`spectral`
+# without spectral norm) is exported empty, as the JAX state holds it.
+EXPORT_COLLECTIONS = {
+    sndcgan.Generator: ("params", "batch_stats"),
+    sndcgan.Discriminator: ("params", "spectral"),
+    wgan.Generator: ("params", "batch_stats"),
+    wgan.Critic: ("params", "batch_stats"),
+    cyclegan.Generator: ("params",),
+}
+
+
+def sndcgan_base_width(variables: dict) -> int:
+    """The base width of an SNDCGAN generator's flax variables (an export
+    holds no config): its first ConvTranspose maps base -> base / 2."""
+    return int(variables["params"]["up0"]["ConvTranspose_0"]["kernel"].shape[2])
+
+
+def export_variables(model: nn.Module) -> dict[str, dict]:
+    """The model's params-only export tree (core/checkpoint.export_params)."""
+    variables = flax_variables(model)
+    return {c: variables.get(c, {}) for c in EXPORT_COLLECTIONS[type(model)]}
 
 
 def load_param_tree(model: nn.Module, tree: dict, dst: list[torch.Tensor]) -> None:

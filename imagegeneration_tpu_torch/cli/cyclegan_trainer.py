@@ -9,8 +9,8 @@ runs on one CUDA device; `--device cpu` runs the same code on the CPU with
 the plain versions of the kernels (tests, debugging). As in the reference,
 training resumes from the latest checkpoint in the output directory
 whether or not `-ct` is given (the flag is parsed and has no effect).
-`-c` is accepted; the generator exports it paces are not written yet. The
-multi-device and profiling flags (`--mesh-data`, `--mesh-spatial` > 1,
+`-c` paces the generator exports `gen_weights_{f,g}-<epoch>.msgpack`:
+every epoch that is a multiple of it writes them. The multi-device and profiling flags (`--mesh-data`, `--mesh-spatial` > 1,
 `--host-sharded-data`, `--profile`) are refused: they are not ported.
 """
 

@@ -9,8 +9,9 @@ The flags are those of imagegeneration_tpu.cli.sndcgan_trainer. Training
 runs on one CUDA device; `--device cpu` runs the same code on the CPU with
 the plain versions of the kernels (tests, debugging). The multi-device
 flags `--mesh-data`/`--mesh-spatial` are refused: multi-GPU training is not
-ported yet. `-lo` is accepted for compatibility, but live-preview PDFs are
-not written yet. As in the reference, `epochs + 1` epochs are trained.
+ported yet. `-lo` names the live-preview PDF (`<name>.pdf`, drawn every
+epoch when matplotlib is installed). As in the reference, `epochs + 1`
+epochs are trained.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "-lo", "--liveOutput", type=str, dest="liveOutput", default="live",
-        help="Accepted for compatibility; live previews are not written yet.",
+        help="The live preview is written to <liveOutput>.pdf every epoch.",
     )
     parser.add_argument(
         "-ct", "--continue", dest="continue_", action="store_true",
@@ -108,6 +109,7 @@ def main(argv=None) -> None:
         d_updates=args.d_updates,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         seed=args.seed,
+        live_output=args.liveOutput,
     )
     # Reference quirk preserved: Trainer.py:37 trains epochs+1.
     engine.train(args.epochs + 1, args.ckptFreq)

@@ -8,9 +8,11 @@ The flags are those of imagegeneration_tpu.cli.wgan_trainer: the dataset
 directory defaults to the reference's hardcoded "bilderNeuro", n_critic to
 5, the image size to 144x256, and `--gp` > 0 replaces the weight clip by
 the WGAN-GP penalty. Training runs on one CUDA device; `--device cpu` runs
-the same code on the CPU (tests, debugging). `-c` is accepted and has no
-effect: the msgpack exports it paces are not written yet, and the train
-state is checkpointed every epoch. The multi-device and
+the same code on the CPU (tests, debugging). `-c` paces the msgpack
+exports as in the reference: each epoch writes `model_%04d.msgpack` under
+g_models/ and c_models/ and removes the previous epoch's unless that
+epoch is a multiple of `-c`; the train state is checkpointed every epoch.
+The multi-device and
 profiling flags (`--mesh-data`, `--mesh-spatial` > 1, `--host-sharded-data`,
 `--profile`) are refused: they are not ported.
 """
@@ -88,6 +90,7 @@ def main(argv=None) -> None:
         args.n_critic,
         path_like=args.path,
         load=args.continue_,
+        save_interval=args.chps,
         device=resolve_device(args.device),
         gp_lambda=args.gp_lambda,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,

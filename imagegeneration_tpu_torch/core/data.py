@@ -18,7 +18,11 @@ and the GPU machine has neither. Semantics kept:
 `resident_budget` decides, for the engines, whether a dataset is kept on
 the device as uint8 or streamed from the host.
 
-The decoders (cv2, else PIL) are imported only when a folder is read.
+The decoders are imported only when a folder is read: cv2, then PIL for
+what cv2 cannot read (GIF) or where cv2 is missing. A file that no
+decoder can read raises an error naming the file and the decoders tried;
+`ImageFolderDataset.decoders` counts the files each decoder read. (The
+GPU machine has cv2 4.13 and PIL, and no libjpeg headers: PERF.md §4.)
 Shuffles come from the port's own numpy generator (core/rng.py); they are
 stable for a seed but differ from the JAX package's batch order.
 """
@@ -89,19 +93,29 @@ def list_image_files(
     return files, [0] * len(files), []
 
 
-def _decode_rgb(path: Path) -> np.ndarray:
+def _decode_rgb(path: Path) -> tuple[np.ndarray, str]:
+    """(H, W, 3) uint8 RGB and the name of the decoder that read it."""
+    tried = []
     try:
         import cv2
     except ImportError:
-        cv2 = None
-    if cv2 is not None:
+        tried.append("cv2 (not installed)")
+    else:
         img = cv2.imread(str(path), cv2.IMREAD_COLOR)
         if img is not None:
-            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB), "cv2"
+        tried.append("cv2 (cannot read it)")
+    try:
+        from PIL import Image
+    except ImportError:
+        tried.append("PIL (not installed)")
+    else:
+        try:
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB")), "PIL"
+        except OSError as e:  # PIL's UnidentifiedImageError is an OSError
+            tried.append(f"PIL ({e})")
+    raise ValueError(f"cannot decode {path}: tried {'; '.join(tried)}")
 
 
 def _resize(img: np.ndarray, th: int, tw: int) -> np.ndarray:
@@ -114,13 +128,11 @@ def _resize(img: np.ndarray, th: int, tw: int) -> np.ndarray:
     return cv2.resize(img, (tw, th), interpolation=cv2.INTER_LINEAR)
 
 
-def load_image(
+def _load(
     path: str | Path, image_size: tuple[int, int], crop_to_aspect_ratio: bool = True
-) -> np.ndarray:
-    """Decode one image to uint8 (H, W, 3): largest centered crop with the
-    target aspect ratio, then bilinear resize."""
+) -> tuple[np.ndarray, str]:
     th, tw = image_size
-    img = _decode_rgb(Path(path))
+    img, decoder = _decode_rgb(Path(path))
     h, w = img.shape[:2]
     if crop_to_aspect_ratio and h * tw != w * th:
         if h * tw > w * th:  # too tall -> crop height
@@ -133,7 +145,15 @@ def load_image(
             img = img[:, left:left + cw]
     if img.shape[:2] != (th, tw):
         img = _resize(img, th, tw)
-    return np.ascontiguousarray(img, dtype=np.uint8)
+    return np.ascontiguousarray(img, dtype=np.uint8), decoder
+
+
+def load_image(
+    path: str | Path, image_size: tuple[int, int], crop_to_aspect_ratio: bool = True
+) -> np.ndarray:
+    """Decode one image to uint8 (H, W, 3): largest centered crop with the
+    target aspect ratio, then bilinear resize."""
+    return _load(path, image_size, crop_to_aspect_ratio)[0]
 
 
 class _ShuffledImages:
@@ -174,8 +194,10 @@ class ImageFolderDataset(_ShuffledImages):
         )
         h, w = image_size
         self._images = np.empty((len(self.files), h, w, 3), dtype=np.uint8)
+        self.decoders: dict[str, int] = {}  # files read by each decoder
         for i, f in enumerate(self.files):
-            self._images[i] = load_image(f, image_size)
+            self._images[i], decoder = _load(f, image_size)
+            self.decoders[decoder] = self.decoders.get(decoder, 0) + 1
         self._chain = KeyChain(seed)
 
 

@@ -10,6 +10,11 @@ convolutions in TF32 unless told otherwise, which keeps about three decimal
 digits. The JAX reference computes float32 convolutions in full float32, so
 `configure_numerics()` turns TF32 off for both cuDNN and cuBLAS and returns
 the setting so that callers can print it. bfloat16 compute is unaffected.
+`deterministic=True` also keeps cuDNN to deterministic algorithms (the
+offline tools ask for it: a ConvTranspose runs cuDNN's backward-data
+convolution, some of whose algorithms accumulate with atomics, so two runs
+of one generator could differ in the last bit; the JAX reference's samples
+are bitwise stable). It is only ever turned on, never off again.
 """
 
 from __future__ import annotations
@@ -20,12 +25,15 @@ import subprocess
 import torch
 
 
-def configure_numerics() -> dict[str, bool]:
+def configure_numerics(deterministic: bool = False) -> dict[str, bool]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
     return {
         "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
         "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.deterministic": torch.backends.cudnn.deterministic,
     }
 
 

@@ -118,7 +118,8 @@ def _sndcgan() -> Workload:
         },
         make_engine=lambda out, dev: sndcgan_engine.SNDCGANEngine(
             out, ds, b, image_size=(h, w, 3), device=dev, spectral_norm=True,
-            loss="hinge", dtype=torch.bfloat16, base_width=base),
+            loss="hinge", dtype=torch.bfloat16, base_width=base,
+            live_output=f"{out}/live"),
     )
 
 

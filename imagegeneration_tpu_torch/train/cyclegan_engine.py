@@ -11,16 +11,21 @@ reference class `CycleGAN`, cyclegan/CycleGAN.py:211-425), on one device:
 - two label-free image folders are zipped per batch, full batches only
   (core/data.PairedDataset);
 - every epoch: the mean of the 7 tracked losses is appended to
-  `losses.pickle`, a line to `perf.jsonl`, and a checkpoint of the whole
-  train state is saved (numbered epoch + 1, `max_to_keep=5`).
+  `losses.pickle`, a line to `perf.jsonl`, a checkpoint of the whole train
+  state is saved (numbered epoch + 1, `max_to_keep=5`) and the preview
+  sheet `preview.pdf` is drawn: the first two images of the epoch's last
+  X batch go through BOTH generators (the reference quirk of :408-409);
+- every `checkpoint_frequency` epochs: the params-only generator exports
+  `models/generator_{f,g}/gen_weights_{f,g}-<epoch>.msgpack` ({params})
+  (:414-420);
+- after `train()`: the loss plot `plot_line_plot_loss.png`.
+
+The preview sheet and the loss plot need matplotlib; without it (the GPU
+machine) the engine prints one line when it is built and draws neither.
 
 The data path is `train/feed.EpochFeed`: both domains resident on the
 device when together they fit, streamed from the host otherwise, each in
 the order of its own permutation.
-
-Not here yet: the per-epoch preview sheet and the loss plot (matplotlib is
-absent on the GPU machine; they wait for the core/preview.py port) and the
-msgpack generator-weight exports every `checkpoint_frequency` epochs.
 """
 
 from __future__ import annotations
@@ -29,12 +34,15 @@ import os
 from os import path
 from time import gmtime, perf_counter, strftime
 
+import numpy as np
 import torch
 
+from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
 from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
+from imagegeneration_tpu_torch.core import preview as previewlib
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import cyclegan as modellib
 from imagegeneration_tpu_torch.train import cyclegan_step as steplib
@@ -65,6 +73,7 @@ class CycleGANEngine:
         for d in ("", path.join("models", "generator_f"), path.join("models", "generator_g")):
             os.makedirs(path.join(path_like, d), exist_ok=True)
         self.path = path_like
+        self.preview_output = path.join(path_like, "preview")
         self.device = torch.device(device)
         w, h = image_size
         if isinstance(dataset1_path, (str, os.PathLike)):
@@ -91,6 +100,8 @@ class CycleGANEngine:
         self.translate_g, self.translate_f = steplib.make_translators()
         self.last_epoch_metrics: dict[str, float] | None = None
 
+        self.plots = previewlib.matplotlib_available(
+            f"the preview sheet {self.preview_output}.pdf or plot_line_plot_loss.png")
         self.losses = metricslib.LossHistory(path.join(path_like, "losses.pickle"), LOSS_KEYS)
         self.ckpt_manager = ckptlib.CheckpointManager(
             path.join(path_like, "checkpoints"), max_to_keep=5)
@@ -105,20 +116,34 @@ class CycleGANEngine:
             print("No checkpoints were restored!!")
         print("Initialized CycleGAN SUCCESS!")
 
+    # ------------------------------------------------------------- preview
+    def plot_history(self) -> None:
+        self.losses.plot(path.join(self.path, "plot_line_plot_loss.png"))
+
+    def _preview(self, perms, epoch: int) -> None:
+        """The first two images of the epoch's last X and Y batches; the X
+        pair goes through both generators (CycleGAN.py:408-409)."""
+        nb, bs = self.num_batches, self.batch_size
+        bx01, by01 = (ds.images[p[(nb - 1) * bs:nb * bs][:2]].astype(np.float32) / 127.5 - 1.0
+                      for ds, p in zip(self.feed.datasets, perms))
+        x = torch.from_numpy(bx01).to(self.device)
+        out_g = self.translate_g(self.state, x).cpu().numpy()
+        out_f = self.translate_f(self.state, x).cpu().numpy()
+        previewlib.translation_sheet(bx01, by01, out_g, out_f, epoch,
+                                     self.preview_output + ".pdf")
+
     # --------------------------------------------------------------- train
     def train(self, epochs: int, checkpoint_frequency: int = 5) -> None:
-        """Train `epochs` more epochs. `checkpoint_frequency` paces the
-        generator exports of the JAX engine, which are not ported yet; the
-        train state is checkpointed every epoch."""
-        del checkpoint_frequency
+        """Train `epochs` more epochs; the train state is checkpointed every
+        epoch, the generators exported every `checkpoint_frequency`."""
         start_time = perf_counter()
         watch = metricslib.Stopwatch()
         for _ in range(epochs):
             watch.epoch_start()
             epoch = self.epoch
             print("####### Epoch", epoch, "#######")
-            self.state, metrics = self.feed.run(
-                self.state, [ds.permutation(epoch) for ds in self.feed.datasets])
+            perms = [ds.permutation(epoch) for ds in self.feed.datasets]
+            self.state, metrics = self.feed.run(self.state, perms)
             # The epoch's one host sync: the device finishes its steps here.
             agg = {k: float(v.float().mean()) for k, v in metrics.items()}
             n_steps = self.num_batches
@@ -137,4 +162,14 @@ class CycleGANEngine:
                 f" passed time: {strftime('%H:%M:%S', gmtime(perf_counter() - start_time))}")
             self.epoch = epoch + 1
             self.ckpt_manager.save(self.epoch, self.state.state_dict())
+            if self.plots:
+                self._preview(perms, epoch)
+            if epoch % checkpoint_frequency == 0:
+                models = path.join(self.path, "models")
+                for name, gen in (("f", self.state.gen_f), ("g", self.state.gen_g)):
+                    ckptlib.export_params(
+                        path.join(models, f"generator_{name}", f"gen_weights_{name}-{epoch}.msgpack"),
+                        bridge.export_variables(gen))
             self.losses.save()
+        if self.plots:
+            self.plot_history()

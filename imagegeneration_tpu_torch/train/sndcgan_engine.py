@@ -7,18 +7,23 @@ reference class `SNDCGAN`, sndcgan/SNDCGAN.py:148-335), on one device:
   `losses.pickle`, keeps `max_to_keep=2` checkpoints and restores the
   latest one when `continue_`;
 - `train(num_epochs, checkpoint_frequency)` runs epochs [start,
-  num_epochs); every `checkpoint_frequency` epochs it checkpoints the whole
-  train state and appends + pickles the loss history; every epoch appends a
-  line to `perf.jsonl`.
+  num_epochs); every epoch it appends a line to `perf.jsonl` and draws a
+  3-image live preview into `<live_output>.pdf` (SNDCGAN.py:311-314);
+  every `checkpoint_frequency` epochs it checkpoints the whole train state,
+  appends + pickles the loss history, writes the params-only exports
+  `models/generator/gen_model-<e>.msgpack` ({params, batch_stats}) and
+  `models/discriminator/disc_model-<e>.msgpack` ({params, spectral}) and
+  redraws `plot_line_plot_loss.png` (:317-333).
+
+The preview and the loss plot need matplotlib; without it (the GPU
+machine) the engine prints one line when it is built and draws neither.
 
 The data path is `train/feed.EpochFeed`: resident on the device when the
 dataset fits, streamed from the host otherwise. As in the JAX engine, a
 resident epoch takes its order from the engine's "data" stream and a
 streamed one from the dataset's own.
 
-Not here yet: multi-device training, live-preview PDFs and the loss plot
-(both need matplotlib, which the GPU machine lacks; they wait for the
-core/preview.py port) and params-only msgpack exports.
+Not here yet: multi-device training.
 """
 
 from __future__ import annotations
@@ -31,10 +36,12 @@ from time import gmtime, perf_counter, strftime
 import numpy as np
 import torch
 
+from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
 from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
+from imagegeneration_tpu_torch.core import preview as previewlib
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import sndcgan as modellib
 from imagegeneration_tpu_torch.train import feed as feedlib
@@ -66,6 +73,7 @@ class SNDCGANEngine:
         base_width: int = 512,
         dtype: torch.dtype = torch.float32,
         seed: int = rnglib.DEFAULT_MODEL_SEED,
+        live_output: str = "live",
     ) -> None:
         if not continue_ and os.path.exists(dir_path):
             shutil.rmtree(dir_path)
@@ -102,6 +110,9 @@ class SNDCGANEngine:
         self._sample = steplib.make_sampler(self.cfg)
         self.last_epoch_metrics: dict[str, float] | None = None
 
+        self.live_preview_file = live_output + ".pdf"
+        self.plots = previewlib.matplotlib_available(
+            f"the live preview {self.live_preview_file} or plot_line_plot_loss.png")
         self.losses = metricslib.LossHistory(
             path.join(dir_path, "losses.pickle"), LOSS_KEYS
         )
@@ -124,6 +135,22 @@ class SNDCGANEngine:
     def sample(self, z: torch.Tensor) -> np.ndarray:
         """G(z) in [0, 1], (B, H, W, C) (generator_output semantics)."""
         return self._sample(self.state, z.to(self.device)).cpu().numpy()
+
+    def plot_history(self) -> None:
+        self.losses.plot(path.join(self.dir_path, "plot_line_plot_loss.png"))
+
+    def _save_artifacts(self, epoch: int) -> None:
+        self.ckpt_manager.save(epoch, self.state.state_dict())
+        self.losses.save()
+        models = path.join(self.dir_path, "models")
+        ckptlib.export_params(
+            path.join(models, "generator", f"gen_model-{epoch}.msgpack"),
+            bridge.export_variables(self.state.gen))
+        ckptlib.export_params(
+            path.join(models, "discriminator", f"disc_model-{epoch}.msgpack"),
+            bridge.export_variables(self.state.disc))
+        if self.plots:
+            self.plot_history()
 
     # --------------------------------------------------------------- train
     def train(self, num_epochs: int, checkpoint_frequency: int = 5) -> None:
@@ -153,7 +180,7 @@ class SNDCGANEngine:
             local["d_fake"].append(agg["d_loss_fake"])
             self.last_epoch_metrics = agg
 
-            print(
+            info_text = (
                 "Epoch {:04d} | ET {} min | Avg Losses G/D {:.4f}/{:.4f} "
                 "[D-Real: {:.4f} D-Fake {:.4f}] | {:.2f} steps/s".format(
                     epoch,
@@ -162,8 +189,12 @@ class SNDCGANEngine:
                     agg["d_loss_fake"], perf["steps_per_sec"],
                 )
             )
+            print(info_text)
+            if self.plots:  # the per-epoch preview (SNDCGAN.py:311-314)
+                gen = self.chain.generator("preview", self.device, step=epoch)
+                z = rnglib.uniform_z(gen, 3, self.cfg.model.z_size, self.device)
+                previewlib.live_preview(self.sample(z), info_text, self.live_preview_file)
             if epoch % checkpoint_frequency == 0:
                 self.losses.extend(local)
                 local = {k: [] for k in LOSS_KEYS}
-                self.ckpt_manager.save(epoch, self.state.state_dict())
-                self.losses.save()
+                self._save_artifacts(epoch)

@@ -15,17 +15,22 @@ reference class `WGAN`, wasserstein_gan/WGAN.py:155-326), on one device:
   at a gan update and appended with that update's g; the open window is
   reset at each `train()` call; `stats.pickle` holds {c1_hist, c2_hist,
   g_hist};
-- every epoch: a line to `perf.jsonl`, the reference's console line, a
-  checkpoint numbered with the epoch (`max_to_keep=2`) and `stats.pickle`.
+- every epoch (`summarize_performance`, WGAN.py:251-268): a line to
+  `perf.jsonl`, the reference's console line, a checkpoint numbered with
+  the epoch (`max_to_keep=2`), `stats.pickle`, the 10x10 sample sheet
+  `samples/generated_plot_%04d.jpg` and the params-only exports
+  `g_models/model_%04d.msgpack` and `c_models/model_%04d.msgpack`
+  ({params, batch_stats}); the previous epoch's exports are removed unless
+  that epoch is a multiple of `save_interval` (the trainer's `-c`);
+- after `train()`, the loss plot `plot_line_plot_loss_<epoch>.png` with the
+  reference's series labels (WGAN.py:270-277).
+
+The sample sheet and the loss plot need matplotlib; without it (the GPU
+machine) the engine prints one line when it is built and draws neither.
 
 The data path is `train/feed.EpochFeed`: resident on the device when the
 dataset fits, streamed from the host otherwise, both in the order of the
 dataset's own permutation, so they train alike.
-
-Not here yet: the per-epoch 10x10 sample sheet `generated_plot_%04d.jpg`
-and the final loss plot (the port does not depend on matplotlib; they wait
-for the core/preview.py port) and the params-only `model_%04d.msgpack`
-exports (they wait for a port of core/checkpoint.export_params).
 """
 
 from __future__ import annotations
@@ -38,10 +43,12 @@ from time import gmtime, perf_counter, strftime
 import numpy as np
 import torch
 
+from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
 from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
+from imagegeneration_tpu_torch.core import preview as previewlib
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import wgan as modellib
 from imagegeneration_tpu_torch.train import feed as feedlib
@@ -59,6 +66,7 @@ class WGANEngine:
         critic_learn_iterations: int = 5,
         path_like: str = "training",
         load: bool = False,
+        save_interval: int = 20,
         *,
         device: torch.device,
         gp_lambda: float = 0.0,
@@ -67,6 +75,7 @@ class WGANEngine:
         seed: int = rnglib.DEFAULT_MODEL_SEED,
     ) -> None:
         self.path = path_like
+        self.save_interval = save_interval
         if not load and path.exists(path_like):
             shutil.rmtree(path_like)
         for sub in ("g_models", "c_models", "samples"):
@@ -99,6 +108,8 @@ class WGANEngine:
         self._c1_tmp: list[float] = []
         self._c2_tmp: list[float] = []
 
+        self.plots = previewlib.matplotlib_available(
+            "samples/generated_plot_<epoch>.jpg or plot_line_plot_loss_<epoch>.png")
         self.loss_hist = metricslib.LossHistory(path.join(path_like, "stats.pickle"), HIST_KEYS)
         self.ckpt_manager = ckptlib.CheckpointManager(
             path.join(path_like, "checkpoints"), max_to_keep=2)
@@ -118,6 +129,40 @@ class WGANEngine:
         gen = self.chain.generator("preview", self.device, step=self.epoch)
         z = rnglib.normal_z(gen, n_samples, self.latent_dim, self.device)
         return self._sample(self.state, z).cpu().numpy()
+
+    def summarize_performance(self, step: int) -> None:
+        """The epoch's checkpoint, history, 10x10 sample sheet and exports
+        (WGAN.py:251-268)."""
+        self.ckpt_manager.save(step, self.state.state_dict())
+        if self.plots:
+            previewlib.sample_grid(
+                self.generate_fake_samples(100), 10, 10,
+                path.join(self.path, "samples", f"generated_plot_{step:04d}.jpg"))
+        self.loss_hist.save()
+        # remove the previous exports off the save interval (WGAN.py:255-261)
+        if (step - 1) % self.save_interval != 0:
+            for folder in ("g_models", "c_models"):
+                prev = path.join(self.path, folder, f"model_{step - 1:04d}.msgpack")
+                if path.exists(prev):
+                    os.remove(prev)
+        fname = f"model_{step:04d}.msgpack"
+        ckptlib.export_params(path.join(self.path, "g_models", fname),
+                              bridge.export_variables(self.state.gen))
+        ckptlib.export_params(path.join(self.path, "c_models", fname),
+                              bridge.export_variables(self.state.critic))
+        print(f">Saved: generated_plot_{step:04d}.jpg and {fname}" if self.plots
+              else f">Saved: {fname}")
+
+    def plot_history(self) -> None:
+        """The loss plot with the reference's series labels (WGAN.py:270-277)."""
+        plt = previewlib.pyplot()
+        plt.clf()
+        plt.plot(self.loss_hist.data["c1_hist"], label="crit_real loss")
+        plt.plot(self.loss_hist.data["c2_hist"], label="crit_fake loss")
+        plt.plot(self.loss_hist.data["g_hist"], label="gen loss")
+        plt.legend()
+        plt.savefig(path.join(self.path, f"plot_line_plot_loss_{self.epoch}.png"))
+        plt.close()
 
     # ---------------------------------------------------------------- train
     def _fold_metrics(self, c1, c2, g, did) -> None:
@@ -169,5 +214,6 @@ class WGANEngine:
                 print(">RealLoss=%.3f, FakeLoss=%.3f GeneratorLoss=%.3f | %.2f steps/s" % (
                     self.loss_hist.data["c1_hist"][-1], self.loss_hist.data["c2_hist"][-1],
                     self.loss_hist.data["g_hist"][-1], perf["steps_per_sec"]))
-            self.ckpt_manager.save(self.epoch, self.state.state_dict())
-            self.loss_hist.save()
+            self.summarize_performance(self.epoch)
+        if self.plots:
+            self.plot_history()

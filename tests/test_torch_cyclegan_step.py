@@ -44,6 +44,7 @@ from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.cli import cyclegan_trainer
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import preview as tpreview
 from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.ops import adam as tadam
 from imagegeneration_tpu_torch.ops import instance_norm as tin
@@ -171,6 +172,13 @@ def test_first_step_moments_match_jax(jax_run, port_run, key):
 
 
 # ------------------------------------------------------------------ engine
+@pytest.fixture()
+def no_figures(monkeypatch):
+    """The engine as on a machine without matplotlib: the figures are held to
+    the JAX package in tests/test_torch_preview.py."""
+    monkeypatch.setattr(tpreview, "matplotlib_available", lambda skipped: False)
+
+
 def _datasets():
     return (datalib.SyntheticImageDataset(3, IMAGE[:2], seed=1),
             datalib.SyntheticImageDataset(2, IMAGE[:2], seed=2))
@@ -182,6 +190,7 @@ def _engine(out):
         base_width=8, n_res_blocks=2)
 
 
+@pytest.mark.usefixtures("no_figures")
 def test_engine_auto_resumes_and_keeps_history(tmp_path):
     eng = _engine(tmp_path / "run")
     assert eng.resident and eng.epoch == 0 and eng.num_batches == 2  # min(3, 2)
@@ -205,6 +214,7 @@ def test_engine_auto_resumes_and_keeps_history(tmp_path):
     assert tadam.LAUNCHES == {"adam": 0}
 
 
+@pytest.mark.usefixtures("no_figures")
 def test_engine_resident_and_streaming_agree(tmp_path, monkeypatch):
     """Both data paths take each domain's own permutation: one epoch gives
     the same metrics and weights."""

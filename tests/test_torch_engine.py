@@ -6,7 +6,9 @@
   line per epoch, at most 2 checkpoints, and the resumed state continues
   the step counter.
 - Importing every module of the port leaves jax and flax out of
-  sys.modules (a fresh interpreter).
+  sys.modules (a fresh interpreter), and matplotlib, PIL and cv2 too: the
+  GPU machine lacks matplotlib, so the port imports these only inside the
+  functions that draw or decode.
 - On the CPU no kernel is launched: the launch counters stay 0.
 """
 
@@ -46,6 +48,7 @@ def png_folder(tmp_path):
 def _cli(out, data, epochs, *extra):
     sndcgan_trainer.main([
         "2", str(epochs), "-cf", "1", "-d", str(out), "-x", str(data),
+        "-lo", str(out.parent / "live"),
         "--height", "16", "--width", "16", "--spectral-norm", "--loss", "hinge",
         "--device", "cpu", *extra,
     ])
@@ -65,6 +68,12 @@ def test_cli_train_and_resume(tmp_path, png_folder):
     assert mgr.all_epochs() == [0, 1]
     # 5 images at batch 2: 2 steps per epoch
     assert int(mgr.restore()["step"]) == 4
+    # the figures (matplotlib is installed here) and the params-only exports
+    assert (tmp_path / "live.pdf").exists() and (out / "plot_line_plot_loss.png").exists()
+    assert sorted(p.name for p in (out / "models" / "generator").iterdir()) == [
+        "gen_model-0.msgpack", "gen_model-1.msgpack"]
+    assert sorted(p.name for p in (out / "models" / "discriminator").iterdir()) == [
+        "disc_model-0.msgpack", "disc_model-1.msgpack"]
 
     _cli(out, png_folder, 2, "-ct")  # resumes at epoch 2, trains epoch 2
     hist = pickle.loads((out / "losses.pickle").read_bytes())
@@ -83,7 +92,7 @@ def test_streaming_engine_and_sampler(tmp_path, monkeypatch):
     ds = datalib.SyntheticImageDataset(4, (16, 16))
     eng = sndcgan_engine.SNDCGANEngine(
         str(tmp_path / "s"), ds, 2, image_size=(16, 16, 3), base_width=16,
-        device=torch.device("cpu"), d_updates=1,
+        device=torch.device("cpu"), d_updates=1, live_output=str(tmp_path / "live"),
     )
     assert not eng.resident
     eng.train(1, 1)
@@ -106,7 +115,8 @@ def test_importing_the_port_pulls_in_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'imagegeneration_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'imagegeneration_tpu', "
+        "'matplotlib', 'PIL', 'cv2'))\n"
         "print(len(mods), bad)\n"
         "assert not bad, bad\n"
     )

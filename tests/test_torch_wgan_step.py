@@ -51,6 +51,7 @@ from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.cli import wgan_trainer
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import preview as tpreview
 from imagegeneration_tpu_torch.models.wgan import WGANConfig
 from imagegeneration_tpu_torch.models.wgan import critic_kernels as tm_critic_kernels
 from imagegeneration_tpu_torch.ops import adam as tadam
@@ -375,6 +376,14 @@ def test_epoch_runner_equals_per_batch_stepping():
 
 
 # ------------------------------------------------------------------ engine
+@pytest.fixture()
+def no_figures(monkeypatch):
+    """The engine as on a machine without matplotlib: the 10x10 sample sheet
+    takes seconds per epoch on the CPU, and the figures are held to the JAX
+    package in tests/test_torch_preview.py (the CLI test below draws them)."""
+    monkeypatch.setattr(tpreview, "matplotlib_available", lambda skipped: False)
+
+
 def _engine(out, load=False, n_images=6):
     return wgan_engine.WGANEngine(
         datalib.SyntheticImageDataset(n_images, IMAGE[:2]), IMAGE, B,
@@ -397,6 +406,7 @@ def test_fold_metrics_follows_the_reference_windows(tmp_path):
     assert eng.loss_hist.data["c1_hist"][-1] == 9.0 and eng.loss_hist.data["g_hist"][-1] == 1.5
 
 
+@pytest.mark.usefixtures("no_figures")
 def test_engine_resume_carries_critic_count_and_history(tmp_path, monkeypatch):
     """3 batches per epoch, n_critic 2: gan updates at steps 2, 4 and 6. The
     resumed engine restores step 3 and critic_count 1, so its first batch
@@ -446,6 +456,7 @@ def test_engine_resume_carries_critic_count_and_history(tmp_path, monkeypatch):
     assert set(tin.LAUNCHES.values()) == {0}
 
 
+@pytest.mark.usefixtures("no_figures")
 def test_engine_resident_and_streaming_agree(tmp_path, monkeypatch):
     """Both data paths take the dataset's own permutation: one epoch gives
     the same metrics, weights and preview samples."""
@@ -490,3 +501,8 @@ def test_cli_trains_an_image_folder_on_the_cpu(tmp_path):
     hist = pickle.loads((out / "stats.pickle").read_bytes())
     assert len(hist["g_hist"]) == 2 and np.isfinite(hist["c1_hist"]).all()
     assert ckptlib.CheckpointManager(out / "checkpoints").all_epochs() == [1]
+    # the figures (matplotlib is installed here) and the params-only exports
+    assert (out / "samples" / "generated_plot_0001.jpg").exists()
+    assert (out / "plot_line_plot_loss_1.png").exists()
+    assert [p.name for p in (out / "g_models").iterdir()] == ["model_0001.msgpack"]
+    assert [p.name for p in (out / "c_models").iterdir()] == ["model_0001.msgpack"]

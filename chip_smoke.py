@@ -54,7 +54,8 @@ Phases (any failure raises, and the exit code is non-zero):
      each epoch's params-only exports (gen_model-<e>, disc_model-<e>),
      loaded into fresh models, are bit-equal to the engine's state then;
    - CycleGANEngine at the headline configuration (float32): one epoch, then
-     a new engine on the same directory auto-resumes for a second;
+     a new engine on the same directory auto-resumes for a second; both
+     generators are exported every epoch, for phase 7;
    - WGANEngine at the reference's configuration (144x256, batch 32, base
      512, float32, n_critic 5, weight clip; bench.py:445-468): one epoch of
      8 steps, then a new engine resumes for a second; gan updates at steps
@@ -76,8 +77,31 @@ Phases (any failure raises, and the exit code is non-zero):
    - an image folder written here with cv2 (JPEG and PNG) read through
      ImageFolderDataset, its decoder named, then through the FID CLI's
      evaluate_fid at batch 2.
-   It prints seconds per sampled epoch, per FID epoch (features and FID
-   math), for pinning, and the phase's peak memory, beside the card.
+   It prints seconds per sampled epoch, per FID epoch (export load,
+   features and FID math), for pinning, and the phase's peak memory, beside
+   the card.
+7. The evaluation path, with the launch counters zeroed before each run and
+   read after it:
+   - first the InstanceNorm forward kernel against its plain version at the
+     seven CycleGAN norm shapes at batch 128 (the PD batch), float32, with
+     and without ReLU, timed at (128, 64, 128, 128) with the L2 flushed
+     against the plain version and F.instance_norm (not counted);
+   - the perception-distance CLI (`cyclegan_evaluation.main`, -s 128) on
+     phase 5's CycleGAN run dir, trained there with an export every epoch,
+     once for models/generator_g and once for models/generator_f, over 128
+     PNG images (128x128) written here with cv2: 2 epochs of 128 finite
+     PDs each; exactly 24 InstanceNorm forward launches (6 + 2 x 9 norms)
+     per translated batch and no other kernel; PD(x, x) exactly 0 under
+     deterministic cuDNN; two pairs again on the CPU within 1e-4 relative;
+   - FIDEvaluator(feature_source="inception") over the SNDCGAN run dir of
+     phase 6 (16 pinned batches of 32 at 144x256, lowrank): FIDs finite and
+     >= 0, the same after a resumed evaluation and after an epoch is dropped
+     from fids.pickle; two images' Inception features on the card against
+     the CPU within 1e-4 of the largest; no hand kernel launched.
+   It prints seconds per PD epoch and per Inception-FID epoch (export load,
+   features and math; host clock, each span ending in a device sync or a
+   copy to the host) and the phase's peak memory, and adds the evaluation path's
+   launches to every kernel's `launches_by_path`.
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -100,7 +124,11 @@ import torch
 import torch.nn.functional as F
 
 from imagegeneration_tpu_torch import bridge
-from imagegeneration_tpu_torch.cli import generator_evaluation, generator_output
+from imagegeneration_tpu_torch.cli import (
+    cyclegan_evaluation,
+    generator_evaluation,
+    generator_output,
+)
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core.checkpoint import load_params
 from imagegeneration_tpu_torch.core.data import ImageFolderDataset, SyntheticImageDataset
@@ -110,7 +138,10 @@ from imagegeneration_tpu_torch.evalx.fid import (
     calculate_fid_from_features,
 )
 from imagegeneration_tpu_torch.core.rng import KeyChain
+from imagegeneration_tpu_torch.evalx import inception
+from imagegeneration_tpu_torch.evalx import pd as pdlib
 from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
+from imagegeneration_tpu_torch.models.cyclegan import Generator as CycleGANGenerator
 from imagegeneration_tpu_torch.models.sndcgan import (
     DISC_TRUNK,
     Discriminator,
@@ -160,6 +191,13 @@ FID_IMAGES = MAX_BATCHES * BATCH
 FID_FLOOR = 1e-6  # an FID may fall below 0 by this share of its trace terms
 EPS32 = 2.0**-24  # float32 unit roundoff
 NS_TOL = 1e-4  # Newton–Schulz vs scipy.linalg.sqrtm: max abs err / max |sqrtm|
+# Evaluation phase: the PD CLI's default sample size, the CycleGAN norm
+# shapes at that batch, and the relative bound of card against CPU.
+PD_IMAGES = 128
+IN_EVAL_SHAPES = [(PD_IMAGES, *s[1:]) for s in IN_SHAPES]
+IN_EVAL_TIMED = IN_EVAL_SHAPES[0]
+IN_PER_TRANSLATION = 6 + 2 * CG_RES  # InstanceNorm forwards per generator pass
+EVAL_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -769,36 +807,37 @@ def run_sndcgan_slice(card: str, work: str) -> dict:
             "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2"}
 
 
-def run_cyclegan_slice(card: str) -> dict:
-    """The headline CycleGAN configuration through CycleGANEngine: one epoch,
-    then a new engine that auto-resumes on the same directory."""
+def run_cyclegan_slice(card: str, work: str) -> dict:
+    """The headline CycleGAN configuration through CycleGANEngine in
+    `work`/cyclegan: one epoch, then a new engine that auto-resumes on the
+    same directory; both generators exported every epoch, for the
+    evaluation phase."""
     dev = torch.device("cuda", 0)
     datasets = [SyntheticImageDataset(EPOCH_BATCHES * CG_BATCH, (CG_SIZE, CG_SIZE), seed=s)
                 for s in (1, 2)]
     kwargs = dict(device=dev, base_width=CG_BASE, n_res_blocks=CG_RES, dtype=torch.float32)
     size = (CG_SIZE, CG_SIZE)
-    with tempfile.TemporaryDirectory() as tmp:
-        out = f"{tmp}/cyclegan"
-        engine = CycleGANEngine(*datasets, out, CG_BATCH, size, **kwargs)
-        require(engine.epoch == 0 and engine.resident, "fresh resident engine")
-        zero_launches()
-        engine.train(1)  # epoch 0, checkpoint 1
-        first = engine.last_epoch_metrics
-        resumed = CycleGANEngine(*datasets, out, CG_BATCH, size, **kwargs)
-        require(resumed.epoch == 1, f"auto-resume gave epoch {resumed.epoch}")
-        require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
-        resumed.train(1)  # epoch 1, checkpoint 2
-        launches = read_launches()
-        copies = adam.GRAD_COPIES["adam"]
-        second = resumed.last_epoch_metrics
-        with open(f"{out}/perf.jsonl") as f:
-            perf = [json.loads(line) for line in f]
-        with open(f"{out}/losses.pickle", "rb") as f:
-            history = pickle.load(f)
-        checkpoints = resumed.ckpt_manager.all_epochs()
-        probe = torch.from_numpy(datasets[0].images[:1]).to(dev).float() / 127.5 - 1.0
-        image = resumed.translate_g(resumed.state, probe)
-        steps = int(resumed.state.step)
+    out = f"{work}/cyclegan"
+    engine = CycleGANEngine(*datasets, out, CG_BATCH, size, **kwargs)
+    require(engine.epoch == 0 and engine.resident, "fresh resident engine")
+    zero_launches()
+    engine.train(1, checkpoint_frequency=1)  # epoch 0, checkpoint 1
+    first = engine.last_epoch_metrics
+    resumed = CycleGANEngine(*datasets, out, CG_BATCH, size, **kwargs)
+    require(resumed.epoch == 1, f"auto-resume gave epoch {resumed.epoch}")
+    require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
+    resumed.train(1, checkpoint_frequency=1)  # epoch 1, checkpoint 2
+    launches = read_launches()
+    copies = adam.GRAD_COPIES["adam"]
+    second = resumed.last_epoch_metrics
+    with open(f"{out}/perf.jsonl") as f:
+        perf = [json.loads(line) for line in f]
+    with open(f"{out}/losses.pickle", "rb") as f:
+        history = pickle.load(f)
+    checkpoints = resumed.ckpt_manager.all_epochs()
+    probe = torch.from_numpy(datasets[0].images[:1]).to(dev).float() / 127.5 - 1.0
+    image = resumed.translate_g(resumed.state, probe)
+    steps = int(resumed.state.step)
     require(steps == 2 * EPOCH_BATCHES, f"step counter {steps}")
     for name, m in (("epoch 0", first), ("epoch 1", second)):
         require(all(math.isfinite(v) for v in m.values()), f"{name} losses {m}")
@@ -995,7 +1034,9 @@ def check_fid(run: str, work: str, dev: torch.device, card: str) -> dict:
         f"min FID / trace terms {worst_floor:.3g} (floor {-FID_FLOOR}), features anew within "
         f"{worst_again:.3g} of the trace terms; resume computed nothing, a dropped epoch "
         f"came back {'bit-equal' if diff == 0 else f'within {diff:.3g}'}")
-    log(f"fid timing: pinning {pin_s:.3f} s; per epoch features (synthesis included) "
+    log(f"fid timing: pinning {pin_s:.3f} s; per epoch export load "
+        + ", ".join(f"{t['load']:.3f}" for t in epoch_s.values())
+        + " s, features (synthesis included) "
         + ", ".join(f"{t['features']:.3f}" for t in epoch_s.values())
         + " s, FID math " + ", ".join(f"{t['fid']:.3f}" for t in epoch_s.values())
         + f" s; evaluate() {total:.3f} s in all ({card})")
@@ -1097,6 +1138,211 @@ def run_sampling_and_fid(card: str, work: str, dev: torch.device) -> dict:
     return out
 
 
+def check_instance_norm_eval_batch(card: str) -> dict:
+    """The InstanceNorm forward kernel against its plain version at the
+    CycleGAN norm shapes at the PD batch (128), float32, ReLU off and on
+    (the tolerance of check_instance_norm); timed at the largest with the
+    L2 flushed against the plain version and F.instance_norm."""
+    dev = torch.device("cuda", 0)
+    max_err, flips, flip_max = 0.0, 0, 0.0
+    for shape in IN_EVAL_SHAPES:
+        x, _, gamma, beta = in_inputs(dev, shape, torch.float32)
+        for relu in (False, True):
+            at = f"{shape} f32 relu={relu}"
+            y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, EPS, relu)
+            yp, meanp, rstdp = inorm.in_fwd_plain(x, gamma, beta, EPS, relu)
+            max_err = max(max_err, in_close(f"fwd y {at}", y, yp, 2e-5),
+                          in_close(f"fwd mean {at}", mean, meanp, 1e-5),
+                          in_close(f"fwd rstd {at}", rstd, rstdp, 1e-5))
+            if relu:
+                # Over 2**27 elements a few pre-ReLU values round to either
+                # side of 0: the pattern may differ only within the atol.
+                differ = (y == 0) != (yp == 0)
+                flips += int(differ.sum())
+                flip_max = max(flip_max, float(torch.where(differ, y + yp, 0).max()))
+                require(flip_max <= 2e-5, f"fwd zero pattern {at}: a flip at {flip_max}")
+            del y, yp
+        del x
+    torch.cuda.synchronize()
+    log(f"instance norm forward kernel at the {len(IN_EVAL_SHAPES)} norm shapes at batch "
+        f"{PD_IMAGES}: within tolerance, f32, relu off/on, max abs err {max_err:.3g}; ReLU "
+        f"zero pattern: {flips} elements differ, each within {flip_max:.3g} of 0")
+    x, _, gamma, beta = in_inputs(dev, IN_EVAL_TIMED, torch.float32)
+    n = x.numel()
+    flush = L2Flush(dev)
+    times = timing(lambda: inorm.in_fwd_kernel(x, gamma, beta, EPS, False),
+                   lambda: inorm.in_fwd_plain(x, gamma, beta, EPS, False),
+                   in_plans_tool.library_fwd(x, gamma, beta), flush=flush)
+    del flush, x
+    b, c, h, w = IN_EVAL_TIMED
+    rec = {"shape_nchw": list(IN_EVAL_TIMED), "dtype": "float32", **times,
+           "checked_shapes_nchw": [list(s) for s in IN_EVAL_SHAPES], "max_abs_err": max_err,
+           "relu_zero_pattern_flips": flips, "relu_flip_max_value": flip_max,
+           # read x, gamma, beta, write y, mean, rstd; ~10 operations per element
+           **bound(4 * (2 * n + 2 * b * c + 2 * c), 10 * n),
+           "plans_f32": {str(s): in_plans(s)["fwd"] for s in IN_EVAL_SHAPES}}
+    plan = rec["plans_f32"][str(IN_EVAL_TIMED)]
+    log(f"instance_norm_fwd at {IN_EVAL_TIMED} f32 device time, L2 flushed (warm): kernel "
+        f"{times['ms']:.4f} ({times['warm_ms']:.4f}) ms, plain {times['plain_ms']:.4f} "
+        f"({times['plain_warm_ms']:.4f}) ms, F.instance_norm {times['library_ms']:.4f} "
+        f"({times['library_warm_ms']:.4f}) ms, bound {rec['bound_ms']:.4f} ms; plan "
+        f"{plan['ctas']} CTAs, cluster {plan['cluster']}, held {plan['held']} "
+        f"({plan['smem_bytes']} B shared) ({card})")
+    return rec
+
+
+def write_pd_samples(folder: str) -> None:
+    """PD_IMAGES synthetic 128x128 uint8 images as PNG files, with cv2."""
+    import cv2
+
+    os.makedirs(folder)
+    images = SyntheticImageDataset(PD_IMAGES, (CG_SIZE, CG_SIZE), seed=12).images
+    for i, img in enumerate(images):
+        require(cv2.imwrite(f"{folder}/s{i:03d}.png", np.ascontiguousarray(img[..., ::-1])),
+                f"cv2.imwrite s{i:03d}.png")
+
+
+def pd_on_cpu(export: str, samples: str, n: int) -> np.ndarray:
+    """The PDs of the first `n` pairs of the CLI's batch, on the CPU, with
+    the CLI's models (the random-init VGG16)."""
+    cpu = torch.device("cpu")
+    ds = ImageFolderDataset(samples, (CG_SIZE, CG_SIZE), labeled=False)
+    x = torch.from_numpy(ds.images[ds.permutation(0)[:n]]).float() / 127.5 - 1.0
+    gen = CycleGANGenerator(CycleGANConfig(), torch.Generator()).eval()
+    bridge.load_flax_variables(gen, load_params(export))
+    with torch.no_grad():
+        out = gen(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return pdlib.make_pd_fn(pdlib.load_vgg16_params(device=cpu))(x, out).numpy()
+
+
+def check_pd_cli(work: str, dev: torch.device, card: str) -> dict:
+    """The PD CLI on each generator directory of the CycleGAN run: 2
+    epochs of PD_IMAGES PDs, exact launch counts; PD(x, x) = 0; two pairs
+    again on the CPU."""
+    samples = f"{work}/pd_samples"
+    write_pd_samples(samples)
+    out = {"launches": dict.fromkeys(read_launches(), 0), "by_generator": {}}
+    for name in ("g", "f"):
+        gens = f"{work}/cyclegan/models/generator_{name}"
+        zero_launches()
+        t0 = time.perf_counter()
+        epochs, pds, seconds = cyclegan_evaluation.main(
+            [gens, samples, "-s", str(PD_IMAGES), "-o", f"{work}/pd_{name}"])
+        total = time.perf_counter() - t0
+        launches = read_launches()
+        for k, v in launches.items():
+            out["launches"][k] += v
+        require(epochs == [0, 1], f"generator_{name}: epochs {epochs}")
+        for e, p in zip(epochs, pds):
+            require(len(p) == PD_IMAGES and all(math.isfinite(v) and v > 0 for v in p),
+                    f"generator_{name} epoch {e}: {len(p)} PDs, finite and > 0: "
+                    f"{all(map(math.isfinite, p))}")
+        want = dict.fromkeys(launches, 0)
+        want["instance_norm_fwd"] = IN_PER_TRANSLATION * len(epochs)
+        require(launches == want, f"generator_{name}: launches {launches}, expected {want}")
+        cpu = pd_on_cpu(f"{gens}/gen_weights_{name}-1.msgpack", samples, 2)
+        gap = float(np.max(np.abs(cpu - np.asarray(pds[1][:2])) / np.abs(cpu)))
+        require(gap <= EVAL_RTOL, f"generator_{name} epoch 1: card PDs {pds[1][:2]} vs CPU "
+                f"{cpu.tolist()} ({gap:.3g} relative, bound {EVAL_RTOL})")
+        out["by_generator"][name] = {
+            "epochs": epochs, "pd_means": [float(np.mean(p)) for p in pds],
+            "epoch_seconds": seconds, "main_seconds": total, "card_vs_cpu_rel": gap}
+        log(f"pd cli on generator_{name}: epochs {epochs}, {PD_IMAGES} PDs each, means "
+            f"{[round(float(np.mean(p)), 6) for p in pds]}; launches {launches}; pairs 0-1 "
+            f"of epoch 1 on the CPU within {gap:.3g} relative (bound {EVAL_RTOL})")
+        log(f"pd timing, generator_{name}: per epoch export load "
+            + ", ".join(f"{t['load']:.4f}" for t in seconds)
+            + f" s, features (translation, 2 x {PD_IMAGES} VGG16 at 224) "
+            + ", ".join(f"{t['features']:.3f}" for t in seconds)
+            + " s, math " + ", ".join(f"{t['math']:.4f}" for t in seconds)
+            + f" s; main() {total:.3f} s in all ({card})")
+
+    ds = ImageFolderDataset(samples, (CG_SIZE, CG_SIZE), labeled=False)
+    x = torch.from_numpy(ds.images[ds.permutation(0)]).to(dev).float() / 127.5 - 1.0
+    same = pdlib.make_pd_fn(pdlib.load_vgg16_params(device=dev))(x, x)
+    require(bool((same == 0).all()), f"PD(x, x) up to {same.abs().max().item()}")
+    log(f"pd: PD(x, x) exactly 0 over the {PD_IMAGES} images on the card (deterministic cuDNN)")
+    return out
+
+
+def check_inception_fid(run: str, work: str, dev: torch.device, card: str) -> dict:
+    """FIDEvaluator with the Inception features over the SNDCGAN run, 16
+    pinned batches of 32 at 144x256; resume; card against CPU features."""
+    ds = SyntheticImageDataset(FID_IMAGES, (HEIGHT, WIDTH), seed=4)
+    out_dir = f"{work}/inception_fid"
+    zero_launches()
+    ev = FIDEvaluator(run, out_dir, (HEIGHT, WIDTH, 3), spectral_norm=True,
+                      feature_source="inception", device=dev)
+    t0 = time.perf_counter()
+    results = ev.evaluate(dataset=ds, batch_size=BATCH, start_epoch=0)
+    total = time.perf_counter() - t0
+    pin_s, epoch_s = ev.pin_seconds, dict(ev.epoch_seconds)
+    require(sorted(results) == [0, 1] and all(len(v) == MAX_BATCHES for v in results.values()),
+            f"inception fids {results}")
+    for e, fids in results.items():
+        require(all(math.isfinite(v) and v >= 0 for v in fids), f"epoch {e}: FIDs {fids}")
+    require(ev.evaluate(continue_=True) == results and ev.epoch_seconds == {},
+            "a resumed inception evaluation computed again")
+    results_file = f"{out_dir}/fids.pickle"
+    with open(results_file, "rb") as f:
+        kept = pickle.load(f)
+    del kept[0]
+    with open(results_file, "wb") as f:
+        pickle.dump(kept, f)
+    again = ev.evaluate(continue_=True)
+    launches = read_launches()
+    require(sorted(ev.epoch_seconds) == [0], f"resume recomputed {sorted(ev.epoch_seconds)}")
+    diff = max(abs(a - b) for a, b in zip(again[0], results[0]))
+    require(diff <= 1e-6 * max(map(abs, results[0])),
+            f"epoch 0 again: {again[0]} vs {results[0]}")
+    require(set(launches.values()) == {0}, f"hand kernels launched in the inception FID: "
+            f"{launches}")
+
+    images = ev.load_init()["img_real_used"][0][:2]
+    card_feats = ev.features(images)
+    cpu_model = inception.load_inception_params(device="cpu")
+    cpu_feats = inception.make_feature_fn(cpu_model)(torch.from_numpy(images)).numpy()
+    err = float(np.abs(card_feats - cpu_feats).max() / np.abs(cpu_feats).max())
+    require(card_feats.shape == (2, 2048) and err <= EVAL_RTOL,
+            f"inception features card vs CPU: {err:.3g} of the largest (bound {EVAL_RTOL})")
+    log(f"inception fid: {MAX_BATCHES} pinned batches of {BATCH} at {WIDTH}x{HEIGHT}, 2048 "
+        f"features, epochs {sorted(results)}: means "
+        f"{[round(float(np.mean(results[e])), 4) for e in sorted(results)]}, min "
+        f"{min(min(v) for v in results.values()):.4g}; resume computed nothing, a dropped "
+        f"epoch came back {'bit-equal' if diff == 0 else f'within {diff:.3g}'}; launches {launches}; 2 images' features on the CPU "
+        f"within {err:.3g} of the largest (bound {EVAL_RTOL})")
+    log(f"inception fid timing: pinning {pin_s:.3f} s; per epoch export load "
+        + ", ".join(f"{t['load']:.3f}" for t in epoch_s.values())
+        + " s, features (synthesis and Inception at 299) "
+        + ", ".join(f"{t['features']:.3f}" for t in epoch_s.values())
+        + " s, FID math " + ", ".join(f"{t['fid']:.3f}" for t in epoch_s.values())
+        + f" s; evaluate() {total:.3f} s in all ({card})")
+    return {"launches": launches, "fid_means": {e: float(np.mean(v)) for e, v in results.items()},
+            "pin_seconds": pin_s, "epoch_seconds": epoch_s, "evaluate_seconds": total,
+            "card_vs_cpu_features_err": err}
+
+
+def run_evaluation(card: str, work: str, dev: torch.device, kernels: list[dict]) -> dict:
+    """Phase 7: the InstanceNorm forward at batch 128, then the PD CLI and
+    the Inception FID; their launches summed as the evaluation path's."""
+    at_batch = check_instance_norm_eval_batch(card)
+    next(k for k in kernels if k["name"] == "instance_norm_fwd")["at_pd_batch"] = at_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pd_rec = check_pd_cli(work, dev, card)
+    fid_rec = check_inception_fid(f"{work}/sndcgan", work, dev, card)
+    seconds = time.perf_counter() - t0
+    launches = {k: pd_rec["launches"][k] + fid_rec["launches"][k] for k in pd_rec["launches"]}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"evaluation: launches {launches}; peak allocated {peak / 2**30:.2f} GiB; "
+        f"{seconds:.1f} s ({card})")
+    return {"pd": pd_rec, "inception_fid": fid_rec, "launches": launches,
+            "peak_allocated_bytes": peak, "seconds": seconds,
+            "instance_norm_fwd_at_pd_batch": {k: at_batch[k] for k in (
+                "ms", "warm_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
 def main() -> int:
     dev = platform.require_cuda()
     numerics = platform.configure_numerics()
@@ -1123,14 +1369,18 @@ def main() -> int:
     check_small_wgan_bf16_steps(dev)
     with tempfile.TemporaryDirectory() as work:
         slices = {"sndcgan": run_sndcgan_slice(card, work),
-                  "cyclegan": run_cyclegan_slice(card), "wgan": run_wgan_slice(card)}
+                  "cyclegan": run_cyclegan_slice(card, work), "wgan": run_wgan_slice(card)}
         offline = run_sampling_and_fid(card, work, dev)
+        evaluation = run_evaluation(card, work, dev, kernels)
     names = {k["name"] for k in kernels}
     for p, r in slices.items():
         require(set(r["launches"]) == names, f"{p}: counters {sorted(r['launches'])} "
                 f"are not the kernels {sorted(names)}")
+    require(set(evaluation["launches"]) == names,
+            f"evaluation: counters {sorted(evaluation['launches'])}")
     for k in kernels:
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in slices.items()}
+        k["launches_by_path"]["evaluation"] = evaluation["launches"][k["name"]]
         # The path that runs it; Adam runs on both, and its record's times
         # are the CycleGAN apply's, as are its launches.
         k["launches"] = k["launches_by_path"][
@@ -1141,7 +1391,8 @@ def main() -> int:
         p: {"steps_per_sec": r["perf"][-1]["steps_per_sec"],
             "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"],
             "adam_grad_copies": r["grad_copies"]}
-        for p, r in slices.items()}, "sampling_and_fid": offline, "card": card,
+        for p, r in slices.items()}, "sampling_and_fid": offline, "evaluation": evaluation,
+        "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

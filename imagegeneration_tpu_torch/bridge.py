@@ -26,7 +26,12 @@ Layout rules, per kind of leaf:
   `upN/ConvTranspose_0/kernel` (kh, kw, in, out) and bridge as convT;
 - an InstanceNorm's `scale` and `bias` sit at `N/scale`, `N/bias` (no inner
   module), with the flax shape on both sides ((C,), or (H, 1, 1) for the
-  quirk_axis1 form).
+  quirk_axis1 form);
+- the evaluation trunks (evalx/pd.VGG16Features,
+  evalx/inception.InceptionV3Features) name their layers as flax does,
+  with no inner module: `block1_conv1/{kernel,bias}`; `conv2d_7/kernel` and
+  `batch_normalization_7/bias` (params) with `batch_normalization_7/
+  {mean,var}` (batch_stats).
 
 flax path of a layer named N: `N/<inner>/...` for the JAX package's
 wrapper modules (`Dense_0`, `Conv_0`, `ConvTranspose_0`, `BatchNorm_0`),
@@ -297,6 +302,29 @@ def jax_wgan_state(state) -> dict:
         "gan_opt": {"nu": (param_tree(state.gen, state.gan_opt.nu[:n_g]),
                            param_tree(state.critic, state.gan_opt.nu[n_g:]))},
     }
+
+
+def load_jax_vgg16(model: nn.Module, variables: dict[str, dict]) -> None:
+    """Copy the JAX VGG16Features variables ({"params": {block1_conv1:
+    {kernel, bias}, ...}}) into an evalx/pd.VGG16Features, in place."""
+    params = variables["params"]
+    for name, conv in model.named_children():
+        copy_in(conv.weight, "conv", params[name]["kernel"])
+        copy_in(conv.bias, "vec", params[name]["bias"])
+
+
+def load_jax_inception(model: nn.Module, variables: dict[str, dict]) -> None:
+    """Copy the JAX InceptionV3Features variables (params: conv2d*/kernel,
+    batch_normalization*/bias; batch_stats: batch_normalization*/{mean,
+    var}) into an evalx/inception.InceptionV3Features, in place."""
+    params, stats = variables["params"], variables["batch_stats"]
+    for name, layer in model.named_children():
+        if name.startswith("conv2d"):
+            copy_in(layer.weight, "conv", params[name]["kernel"])
+        else:
+            copy_in(layer.bias, "vec", params[name]["bias"])
+            copy_in(layer.mean, "vec", stats[name]["mean"])
+            copy_in(layer.var, "vec", stats[name]["var"])
 
 
 _CYCLEGAN_MODELS = (("gen_g", "gg"), ("gen_f", "gf"), ("disc_x", "dx"), ("disc_y", "dy"))

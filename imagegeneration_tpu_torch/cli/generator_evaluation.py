@@ -3,19 +3,21 @@
   python -m imagegeneration_tpu_torch.cli.generator_evaluation <discEpoch>
       [-b BSIZE] [-d DIR] [-o OUT] [-x DATA] [-st STEP] [-se START] [-ct]
       [--height H] [--width W] [--sqrtm {lowrank,newton_schulz,scipy}]
-      [--spectral-norm] [--quirk-range-mismatch] [--device {cuda,cpu}]
+      [--spectral-norm] [--inception] [--inception-weights H5]
+      [--quirk-range-mismatch] [--device {cuda,cpu}]
 
 The counterpart of imagegeneration_tpu.cli.generator_evaluation: pins <= 16
 real batches of the image folder `-x` and their latents once (a resumable
 pickle), computes the discriminator-feature FID of every chosen generator
-export with the discriminator export of epoch <discEpoch>, keeps the
+export with the discriminator export of epoch <discEpoch> (with
+`--inception`, the InceptionV3 pool-feature FID instead, its weights from
+`--inception-weights` or IMAGEGEN_INCEPTION_WEIGHTS), keeps the
 results in pickles and draws the boxplot and mean-line plot
 (generator_evaluation.py:107-245; the plots need matplotlib, and without it
 the CLI prints one line and draws none). Output goes to <output>/evaluation,
 which is wiped unless `-ct` (:107-117).
 
 It runs on one CUDA device; `--device cpu` runs it on the CPU.
-`--inception` (InceptionV3 features) is refused: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ def evaluate_fid(
     sqrtm_method: str = "lowrank",
     spectral_norm: bool = False,
     quirk_range_mismatch: bool = False,
+    feature_source: str = "disc",
+    inception_weights: str | None = None,
     *,
     device: torch.device | None = None,
 ):
@@ -59,7 +63,7 @@ def evaluate_fid(
     evaluator = FIDEvaluator(
         dir_path, output, image_size=image_size, sqrtm_method=sqrtm_method,
         spectral_norm=spectral_norm, quirk_range_mismatch=quirk_range_mismatch,
-        device=device,
+        feature_source=feature_source, inception_weights=inception_weights, device=device,
     )
     if continue_:
         dataset = None
@@ -97,10 +101,13 @@ def build_parser() -> argparse.ArgumentParser:
                         default="lowrank")
     parser.add_argument("--spectral-norm", action="store_true", default=False,
                         help="the evaluated run trained with --spectral-norm")
-    parser.add_argument("--inception", action="store_true", default=False,
-                        help="not supported: InceptionV3 features are not ported")
-    parser.add_argument("--inception-weights", type=str, default=None,
-                        help="not supported: InceptionV3 features are not ported")
+    parser.add_argument(
+        "--inception", action="store_true", default=False,
+        help="use standard InceptionV3-pool3 features instead of the "
+        "reference's discriminator features (supply weights via "
+        "--inception-weights or IMAGEGEN_INCEPTION_WEIGHTS; without weights "
+        "a fixed random init gives a relative-only metric)")
+    parser.add_argument("--inception-weights", type=str, default=None)
     parser.add_argument(
         "--quirk-range-mismatch", action="store_true", default=False,
         help="bug-compat: feed fakes in [0,1] vs reals in [-1,1], exactly "
@@ -111,17 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.inception or args.inception_weights:
-        parser.error("--inception: InceptionV3 features are not ported to PyTorch "
-                     "yet; the FID uses the trained discriminator's features")
+    args = build_parser().parse_args(argv)
     from imagegeneration_tpu_torch.core.platform import resolve_device
 
     evaluate_fid(
         args.dirPath, args.data, args.bSize, args.output, args.stepSize, args.start,
         args.discEpoch, args.continue_, (args.height, args.width, 3), args.sqrtm,
         args.spectral_norm, args.quirk_range_mismatch,
+        "inception" if args.inception else "disc", args.inception_weights,
         device=resolve_device(args.device),
     )
 

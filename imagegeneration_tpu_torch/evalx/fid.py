@@ -6,7 +6,10 @@ sndcgan/generator_evaluation.py:
 - the features are the trained discriminator's own trunk with its head
   removed and an 8x8 average pool + flatten appended (:134-138), run
   without dropout (`Discriminator(x, kw=None, features=True)`), not
-  InceptionV3. `feature_source="inception"` is not ported yet;
+  InceptionV3. `feature_source="inception"` takes the standard InceptionV3
+  pool features instead (evalx/inception.py, weights from
+  `inception_weights`); the discriminator epoch is still pinned, and
+  unused;
 - the evaluation state (<= MAX_BATCHES real batches, their latents and the
   epoch list) is pinned once into `fid_tmp_init.pickle`, so runs resume and
   every epoch is measured on the same batches (:58-102). The real batches
@@ -21,12 +24,14 @@ sndcgan/generator_evaluation.py:
 
 `quirk_range_mismatch=True` reproduces the reference's range mismatch:
 fakes in [0, 1] (create_samples) against reals in [-1, 1]
-(generator_evaluation.py:163-176). By default both are in [-1, 1].
+(generator_evaluation.py:163-176). By default both are in [-1, 1]. With
+the Inception features it raises ValueError, as in the JAX package.
 
 On the device, synthesis and features are one pass per batch: the fake
-batch never leaves the card, and only the (B, 4096) feature matrices come
-back. The models run in float32, with TF32 off and cuDNN kept to
-deterministic algorithms, so an epoch evaluated again gives the same FIDs.
+batch never leaves the card, and only the (B, 4096) or (B, 2048) feature
+matrices come back. The models run in float32, with TF32 off and cuDNN
+kept to deterministic algorithms, so an epoch evaluated again gives the
+same FIDs.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import preview as previewlib
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.core.checkpoint import find_epoch_files, load_params
+from imagegeneration_tpu_torch.evalx import inception
 from imagegeneration_tpu_torch.models.sndcgan import (
     Discriminator,
     Generator,
@@ -93,7 +99,9 @@ class FIDEvaluator:
     """Pinned-batch, resumable FID over the exports of one training run.
 
     `device` None is the CUDA card (which must exist). The generator is
-    built at the base width of the first export it loads."""
+    built at the base width of the first export it loads. The feature
+    extractor is the discriminator of the pinned epoch ("disc") or
+    InceptionV3 ("inception", its weights from `inception_weights`)."""
 
     def __init__(
         self,
@@ -107,15 +115,19 @@ class FIDEvaluator:
         spectral_norm: bool = False,  # must match the trained discriminator
         quirk_range_mismatch: bool = False,
         feature_source: str = "disc",
+        inception_weights: str | None = None,
         *,
         device: torch.device | None = None,
     ) -> None:
-        if feature_source == "inception":
-            raise NotImplementedError(
-                "feature_source='inception' (InceptionV3 pool3 features) is not "
-                "ported to PyTorch yet; use the discriminator features")
-        if feature_source != "disc":
+        if feature_source not in ("disc", "inception"):
             raise ValueError(f"unknown feature_source {feature_source!r}")
+        if quirk_range_mismatch and feature_source == "inception":
+            # The quirk reproduces the reference's discriminator-feature
+            # pipeline; the Inception features take [-1, 1] (fid.py:125-134).
+            raise ValueError(
+                "quirk_range_mismatch=True is reference bug-compat for the "
+                "disc-feature pipeline and is meaningless with "
+                "feature_source='inception'")
         self.dir_path = dir_path
         self.output_dir = output_dir
         self.device = platform.require_cuda() if device is None else torch.device(device)
@@ -126,14 +138,19 @@ class FIDEvaluator:
         )
         # Every use loads an export into these; the discriminator's widths
         # are fixed, the generator's are read from its first export.
-        self.disc = Discriminator(self.cfg, torch.Generator()).to(self.device)
+        self.feature_source = feature_source
+        if feature_source == "disc":
+            self.disc = Discriminator(self.cfg, torch.Generator()).to(self.device)
+        else:
+            self.inception = inception.load_inception_params(inception_weights, self.device)
         self.gen: Generator | None = None
         self.seed = seed
         self.sqrtm_method = sqrtm_method
         self.quirk_range_mismatch = quirk_range_mismatch
         # Host seconds of the last evaluate(): pinning, and per epoch the
-        # features (synthesis included, ending in the copy to the host)
-        # and the FID math.
+        # generator export's load (read, parsed, copied in), the features
+        # (synthesis included, ending in the copy to the host) and the FID
+        # math.
         self.pin_seconds: float | None = None
         self.epoch_seconds: dict[int, dict[str, float]] = {}
 
@@ -189,11 +206,17 @@ class FIDEvaluator:
             self.gen = Generator(cfg, torch.Generator()).to(self.device)
         bridge.load_flax_variables(self.gen, variables)
 
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        """Features of a (B, 3, H, W) batch on the device."""
+        if self.feature_source == "disc":
+            return self.disc(x, features=True)
+        return self.inception(inception.prepare_images(x))
+
     @torch.inference_mode()
     def features(self, images: np.ndarray) -> np.ndarray:
-        """Discriminator features of (B, H, W, 3) float images."""
+        """Features of (B, H, W, 3) float images."""
         x = torch.from_numpy(np.asarray(images, np.float32)).to(self.device)
-        return self.disc(x.permute(0, 3, 1, 2), features=True).cpu().numpy()
+        return self._features(x.permute(0, 3, 1, 2)).cpu().numpy()
 
     @torch.inference_mode()
     def fake_features(self, z: torch.Tensor) -> torch.Tensor:
@@ -201,7 +224,7 @@ class FIDEvaluator:
         fake = self.gen(z, train=False)
         if self.quirk_range_mismatch:
             fake = (fake + 1.0) / 2.0  # create_samples' [0, 1] output
-        return self.disc(fake, features=True)
+        return self._features(fake)
 
     def evaluate(
         self, dataset=None, batch_size: int = 32, step_size: int = 1,
@@ -231,7 +254,8 @@ class FIDEvaluator:
             with open(results_file, "rb") as f:
                 results = pickle.load(f)  # written below by an earlier run
 
-        self.load_disc(init["disc_epoch"])
+        if self.feature_source == "disc":
+            self.load_disc(init["disc_epoch"])
         real_feats = [self.features(x) for x in init["img_real_used"]]
         zs = [torch.from_numpy(np.asarray(z, np.float32)).to(self.device)
               for z in init["random_z_used"]]
@@ -241,12 +265,13 @@ class FIDEvaluator:
                 continue  # resumability (generator_evaluation.py:155-157)
             t0 = time.perf_counter()
             self.load_gen(epoch)
+            t_load = time.perf_counter()
             fake_feats = [self.fake_features(z).cpu().numpy() for z in zs]
             t1 = time.perf_counter()
             fids = [calculate_fid_from_features(ff, rf, self.sqrtm_method, self.device)
                     for ff, rf in zip(fake_feats, real_feats)]
             self.epoch_seconds[epoch] = {
-                "features": t1 - t0, "fid": time.perf_counter() - t1}
+                "load": t_load - t0, "features": t1 - t_load, "fid": time.perf_counter() - t1}
             results[epoch] = fids
             with open(results_file, "wb") as f:
                 pickle.dump(results, f)

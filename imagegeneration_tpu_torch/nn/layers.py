@@ -52,7 +52,10 @@ def glorot_uniform_(
         return t.uniform_(-limit, limit, generator=generator)
 
 
-KERNEL_INITS = ("glorot_uniform", "normal_002")
+KERNEL_INITS = ("glorot_uniform", "normal_002", "lecun_normal")
+# flax's lecun_normal: a normal truncated to +-2 std, scaled so that its
+# std is sqrt(1 / fan_in) (the std of N(0, 1) truncated to +-2).
+_TRUNCATED_STD = 0.87962566103423978
 
 
 def conv_weight(
@@ -61,8 +64,9 @@ def conv_weight(
 ) -> nn.Parameter:
     """A conv (out, in, kh, kw) or ConvTranspose (in, out, kh, kw) weight,
     channels_last: glorot-uniform (its limit depends on fan_in + fan_out
-    only), or N(0, 0.02) for `kernel_init="normal_002"` (Keras
-    RandomNormal(stddev=0.02)).
+    only), N(0, 0.02) for `kernel_init="normal_002"` (Keras
+    RandomNormal(stddev=0.02)), or flax's lecun_normal (a conv's fan_in,
+    kh * kw * in) for `"lecun_normal"`.
 
     The values are drawn in the contiguous order (the same weights for a
     seed as a contiguous tensor) and then laid out channels_last, the
@@ -74,6 +78,10 @@ def conv_weight(
         w = glorot_uniform_(torch.empty(shape), kh * kw * b, kh * kw * a, generator)
     elif kernel_init == "normal_002":
         w = torch.empty(shape).normal_(0.0, 0.02, generator=generator)
+    elif kernel_init == "lecun_normal":
+        std = math.sqrt(1.0 / (kh * kw * b)) / _TRUNCATED_STD
+        w = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2.0 * std, 2.0 * std,
+                                        generator=generator)
     else:
         raise ValueError(f"kernel_init must be one of {KERNEL_INITS}, got {kernel_init!r}")
     return nn.Parameter(w.contiguous(memory_format=torch.channels_last))

@@ -116,7 +116,7 @@ def test_importing_the_port_pulls_in_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'imagegeneration_tpu', "
-        "'matplotlib', 'PIL', 'cv2'))\n"
+        "'matplotlib', 'PIL', 'cv2', 'h5py'))\n"
         "print(len(mods), bad)\n"
         "assert not bad, bad\n"
     )

@@ -13,9 +13,15 @@
   its generator at the config's default width and flax refuses other
   shapes; the exports hold port-initialized weights written by the JAX
   package's export_params.
+- The Inception FID (`feature_source="inception"`): the JAX evaluator pins
+  2 batches of 2 images and reads a Keras-2 Inception h5 written from
+  variables with the JAX module's leaves (tests/test_torch_inception.py);
+  the port's evaluator, from a copy of that pin and the same h5, gives the
+  same per-batch FIDs within 1e-4 relative.
 - Resuming skips finished epochs, and an epoch removed from fids.pickle is
   computed again to the same values; the CLI wipes <out>/evaluation unless
-  `-ct`, draws its plots and refuses `--inception`.
+  `-ct`, draws its plots and takes `--inception`; the Inception features
+  with `quirk_range_mismatch=True` raise ValueError, as in the JAX package.
 """
 
 import pickle
@@ -28,12 +34,14 @@ import torch
 from imagegeneration_tpu.core import checkpoint as jckpt
 from imagegeneration_tpu.core import data as jdata
 from imagegeneration_tpu.evalx import fid as jfid
+from imagegeneration_tpu.evalx import inception as jinc
 from imagegeneration_tpu.ops import sqrtm as jsqrtm
 from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.cli import generator_evaluation as tcli
 from imagegeneration_tpu_torch.evalx import fid as tfid
 from imagegeneration_tpu_torch.models import sndcgan as tmodels
 from imagegeneration_tpu_torch.ops import sqrtm as tsqrtm
+from test_torch_pd import random_like_init, write_keras_h5
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -115,6 +123,40 @@ def test_evaluator_matches_jax_from_a_shared_pin(run_dir, tmp_path, quirk):
         np.testing.assert_allclose(got[e], want[e], rtol=FID_RTOL, atol=0)
 
 
+def test_inception_evaluator_matches_jax_from_a_shared_pin(run_dir, tmp_path, monkeypatch):
+    data = tmp_path / "data" / "landscape"
+    data.mkdir(parents=True)
+    for src in sorted((run_dir / "data" / "landscape").iterdir())[:4]:
+        shutil.copy(src, data / src.name)
+    variables = random_like_init(jinc.InceptionV3Features(), (1, 75, 75, 3), seed=6)
+    params, stats = variables["params"], variables["batch_stats"]
+    h5 = tmp_path / "inception.h5"
+    write_keras_h5(h5, {
+        **{n: {"kernel:0": p["kernel"]} for n, p in params.items() if "kernel" in p},
+        **{n: {"beta:0": params[n]["bias"], "moving_mean:0": s["mean"],
+               "moving_variance:0": np.abs(s["var"]) + 0.5} for n, s in stats.items()}})
+    # The JAX loader's flax init at 299x299 (~25 s of eager compiles on the
+    # CPU) is replaced by the variables: the file overwrites every leaf.
+    monkeypatch.setattr(jinc.InceptionV3Features, "init", lambda self, key, x: variables)
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    jev = jfid.FIDEvaluator(str(run_dir / "train"), str(jax_out), image_size=(H, W, 3),
+                            dropout=0.0, feature_source="inception", inception_weights=str(h5))
+    ds = jdata.ImageFolderDataset(str(tmp_path / "data"), (H, W), labeled=True)
+    want = jev.evaluate(dataset=ds, batch_size=2, start_epoch=0)
+    port_out.mkdir()
+    shutil.copy(jax_out / "fid_tmp_init.pickle", port_out / "fid_tmp_init.pickle")
+    tev = tfid.FIDEvaluator(str(run_dir / "train"), str(port_out), image_size=(H, W, 3),
+                            dropout=0.0, feature_source="inception",
+                            inception_weights=str(h5), device=CPU)
+    got = tev.evaluate(continue_=True)
+    assert tev.load_init()["disc_epoch"] == 2  # pinned, and unused
+    assert sorted(got) == sorted(want) == [1, 2]
+    for e in want:
+        assert len(got[e]) == len(want[e]) == 2  # 4 images: 2 pinned batches of 2
+        assert np.isfinite(got[e]).all() and min(got[e]) > 0
+        np.testing.assert_allclose(got[e], want[e], rtol=FID_RTOL, atol=0)
+
+
 def test_resume_skips_done_epochs(run_dir, tmp_path):
     ev = tfid.FIDEvaluator(str(run_dir / "train"), str(tmp_path), image_size=(H, W, 3),
                            dropout=0.0, sqrtm_method="scipy", device=CPU)
@@ -153,9 +195,13 @@ def test_cli_wipes_unless_continue_and_refuses_inception(run_dir, tmp_path, caps
     (ev_dir / "kept.txt").write_text("kept with -ct")
     tcli.main([*argv, "-ct"])
     assert (ev_dir / "kept.txt").exists()
-    with pytest.raises(SystemExit):
-        tcli.main([*argv, "--inception"])
-    assert "not ported" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError):
+    capsys.readouterr()
+    tcli.main([*argv, "--inception"])
+    assert "[inception] no weights available" in capsys.readouterr().out
+    fids = pickle.loads((ev_dir / "fids.pickle").read_bytes())
+    assert sorted(fids) == [2] and len(fids[2]) == 2 and np.isfinite(fids[2]).all()
+    with pytest.raises(FileNotFoundError):
+        tcli.main([*argv, "--inception", "--inception-weights", str(tmp_path / "no.h5")])
+    with pytest.raises(ValueError, match="quirk_range_mismatch"):
         tfid.FIDEvaluator(str(run_dir / "train"), str(tmp_path), feature_source="inception",
-                          device=CPU)
+                          quirk_range_mismatch=True, device=CPU)

@@ -102,6 +102,31 @@ Phases (any failure raises, and the exit code is non-zero):
    features and math; host clock, each span ending in a device sync or a
    copy to the host) and the phase's peak memory, and adds the evaluation path's
    launches to every kernel's `launches_by_path`.
+8. Data parallelism (parallel/dp.py, core/mesh.py), with the counters read
+   per rank:
+   a. the dropout kernels with an element-index base: at each of the four
+      discriminator site shapes, bf16 and f32, forward and backward, the
+      kernel on rank r's rows of the global batch of 32 (2 ranks) with base
+      r*16*H*W*C is bit-equal to those rows of the full-batch kernel and to
+      the plain version with that base; one timing at the largest site;
+   b. two ranks on this one card over gloo, named explicitly (gloo reduces
+      CUDA tensors through the host; NCCL runs one rank per card): the
+      headline SNDCGANEngine (256x144, global batch 32 as 2 x 16, base 512,
+      SN, hinge, bf16) for a 2-step epoch and a resumed one; per rank and
+      step 21 + 21 dropout launches, 3 Adam launches, 3 gradient
+      all-reduces, no Adam gradient copy; the ranks' digests equal after
+      each epoch; artifacts from rank 0 only. Then small float32 2-rank
+      steps (SNDCGAN with dropout, WGAN with the clip and with the penalty,
+      CycleGAN with the InstanceNorm kernels) against the one-process steps
+      on the card: metrics within 1e-3 of max(1, |v|) (WGAN's
+      ill-conditioned steps 1e-2), and each step's state, per collection,
+      within 1e-3 of its largest |v| (WGAN 0.15): DP_STEP_BOUND;
+      the rates printed are of two ranks sharing one card;
+   c. the same engine over NCCL on two cards where the machine has two
+      (else a line says it was skipped), and a world-1 NCCL group through
+      the engine either way.
+   Rank 0's launches in (b) are every kernel's `launches_by_path`
+   ["data_parallel"].
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -129,6 +154,8 @@ from imagegeneration_tpu_torch.cli import (
     generator_evaluation,
     generator_output,
 )
+from imagegeneration_tpu_torch.core import checkpoint as ckptlib
+from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core.checkpoint import load_params
 from imagegeneration_tpu_torch.core.data import ImageFolderDataset, SyntheticImageDataset
@@ -153,6 +180,8 @@ from imagegeneration_tpu_torch.models.wgan import CLIP_VALUE, WGANConfig, critic
 from imagegeneration_tpu_torch.ops import adam, dropout, native
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
 from imagegeneration_tpu_torch.ops.sqrtm import sqrtm_newton_schulz
+from imagegeneration_tpu_torch.parallel import dp
+from imagegeneration_tpu_torch.tools import dp_parity
 from imagegeneration_tpu_torch.tools import in_plans as in_plans_tool
 from imagegeneration_tpu_torch.tools.devtime import L2Flush, device_ms
 from imagegeneration_tpu_torch.train import cyclegan_step
@@ -198,6 +227,23 @@ IN_EVAL_SHAPES = [(PD_IMAGES, *s[1:]) for s in IN_SHAPES]
 IN_EVAL_TIMED = IN_EVAL_SHAPES[0]
 IN_PER_TRANSLATION = 6 + 2 * CG_RES  # InstanceNorm forwards per generator pass
 EVAL_RTOL = 1e-4
+# Data-parallel phase: ranks, global batches per epoch, and the bounds of
+# the small 2-rank float32 steps against one process on the card, as
+# (metric error relative to max(1, |v|), state error per collection
+# relative to its largest |v|; small_dp_errors). Set from runs on an H100
+# 80GB HBM3 at 700 W of sound ranks and of ranks with a planted fault
+# (local BatchNorm statistics; a sum for the mean): sound, metrics <= 1.6e-7
+# and states <= 9.4e-6 (SNDCGAN, CycleGAN), metrics <= 6.9e-4 and states
+# <= 2.3e-2 (WGAN: RMSprop moves every entry by ~sqrt(10) * lr whatever its
+# gradient, clipped convs feed BatchNorm, so a rounding flips some signs);
+# faulty, metrics >= 4.6e-2 where a model has BatchNorm and states >= 0.98
+# in every case (a sum for the mean moves the Adam runs' metrics only
+# 4.2e-5 to 2.5e-4, its moments by the world size). Each bound sits well
+# clear of both.
+DP_WORLD = 2
+DP_EPOCH_BATCHES = 4
+DP_RANKS_TIMEOUT_S = 400  # each spawn of phase 8 ends its ranks past this
+DP_STEP_BOUND = {"sndcgan": (1e-3, 1e-3), "cyclegan": (1e-3, 1e-3), "wgan": (1e-2, 0.15)}
 
 
 def log(msg: str) -> None:
@@ -1343,6 +1389,297 @@ def run_evaluation(card: str, work: str, dev: torch.device, kernels: list[dict])
                 "ms", "warm_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
+# ------------------------------------------------------------------ phase 8
+def check_dropout_base(dev: torch.device, card: str) -> dict:
+    """Phase 8a: at every distinct D site shape, bf16 and f32, forward and
+    backward, the kernel on rank r's rows [r*b, (r+1)*b) of the global batch
+    with base r*b*H*W*C is bit-equal to those rows of the full-batch kernel
+    and to the plain version with that base; timed on rank 1's rows of the
+    largest site (bf16)."""
+    kw = KeyChain(7).dropout_kw(torch.zeros((), dtype=torch.int64, device=dev), 1)[0]
+    cut = dropout.dropout_cut(0.5)
+    b = BATCH // DP_WORLD
+    n_checked = 0
+    for shape in disc_site_shapes():
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(sum(shape) + 1)
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            g = g.contiguous(memory_format=torch.channels_last)
+            full_y = dropout.fwd_kernel(x, kw, cut)
+            full_dx = dropout.bwd_kernel(x, g, kw, cut)
+            total = x.numel()
+            for r in range(DP_WORLD):
+                rows = slice(r * b, (r + 1) * b)
+                xr, gr = x[rows], g[rows]
+                base = dropout.rows_base(x, r * b)
+                at = f"{shape} {dtype} rank {r}"
+                y = dropout.fwd_kernel(xr, kw, cut, base, total)
+                dx = dropout.bwd_kernel(xr, gr, kw, cut, base, total)
+                require(torch.equal(y, full_y[rows]), f"dropout fwd with base {at}: "
+                        "differs from the full batch's rows")
+                require(torch.equal(dx, full_dx[rows]), f"dropout bwd with base {at}: "
+                        "differs from the full batch's rows")
+                require(torch.equal(y, dropout.fwd_plain(xr, kw, cut, base)),
+                        f"dropout fwd with base {at}: differs from plain")
+                require(torch.equal(dx, dropout.bwd_plain(xr, gr, kw, cut, base)),
+                        f"dropout bwd with base {at}: differs from plain")
+                n_checked += 4
+    shape = disc_site_shapes()[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    g = g.contiguous(memory_format=torch.channels_last)
+    xr, gr = x[b:], g[b:]
+    base, total = dropout.rows_base(x, b), x.numel()
+    fwd = timing(lambda: dropout.fwd_kernel(xr, kw, cut, base, total),
+                 lambda: dropout.fwd_plain(xr, kw, cut, base))
+    bwd = timing(lambda: dropout.bwd_kernel(xr, gr, kw, cut, base, total),
+                 lambda: dropout.bwd_plain(xr, gr, kw, cut, base))
+    log(f"phase 8a: dropout kernels with an index base: {n_checked} rank slices at "
+        f"{len(disc_site_shapes())} site shapes, bf16 and f32, bit-equal to the full "
+        f"batch's rows and to the plain version; rank 1's rows of {shape} (bf16): "
+        f"fwd {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}), bwd {bwd['ms']:.4f} ms "
+        f"(plain {bwd['plain_ms']:.4f}) device time ({card})")
+    return {"checked": n_checked, "timed_shape_nchw": [b, *shape[1:]], "fwd": fwd, "bwd": bwd}
+
+
+def dp_engine_config() -> dict:
+    """The headline SNDCGAN configuration of phase 8's engine runs."""
+    return dict(height=HEIGHT, width=WIDTH, batch=BATCH, base=BASE, dtype=torch.bfloat16,
+                epoch_batches=DP_EPOCH_BATCHES)
+
+
+def dp_engine_rank(group, out: str, phases, small_jobs, ecfg: dict) -> dict:
+    """One rank of phase 8b/8c: SNDCGANEngine at the configuration `ecfg`
+    (dp_engine_config), `phases` of (epochs, continue_), with the launch and
+    collective counts, the state digest and which artifacts this rank
+    wrote; then the small float32 steps of `small_jobs` (tools/dp_parity)."""
+    writes = {"checkpoint": 0, "export": 0, "losses": 0, "perf": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            writes[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    ckptlib.CheckpointManager.save = counting("checkpoint", ckptlib.CheckpointManager.save)
+    ckptlib.export_params = counting("export", ckptlib.export_params)
+    metricslib.LossHistory.save = counting("losses", metricslib.LossHistory.save)
+    metricslib.write_metrics_jsonl = counting("perf", metricslib.write_metrics_jsonl)
+    hw = (ecfg["height"], ecfg["width"])
+    dataset = SyntheticImageDataset(ecfg["epoch_batches"] * ecfg["batch"], hw)
+    kwargs = dict(image_size=(*hw, 3), device=group.device, spectral_norm=True,
+                  loss="hinge", dtype=ecfg["dtype"], base_width=ecfg["base"],
+                  live_output=f"{out}/live", mesh=group)
+    results = []
+    for epochs, cont in phases:
+        engine = SNDCGANEngine(f"{out}/sndcgan", dataset, ecfg["batch"], continue_=cont,
+                               **kwargs)
+        start = engine.start_epoch
+        zero_launches()
+        before = dict(group.counts)
+        torch.cuda.synchronize(group.device)
+        t0 = time.perf_counter()
+        engine.train(epochs, 1)
+        torch.cuda.synchronize(group.device)
+        seconds = time.perf_counter() - t0
+        perf = None
+        if group.is_main:  # the engine's own rate of the epoch (rank 0 writes perf.jsonl)
+            with open(f"{out}/sndcgan/perf.jsonl") as f:
+                perf = json.loads(f.read().splitlines()[-1])
+        results.append({
+            "start": start, "steps": engine.num_batches * (epochs - start),
+            "seconds": seconds, "perf": perf, "launches": read_launches(),
+            "grad_copies": adam.GRAD_COPIES["adam"],
+            "collectives": {k: group.counts[k] - before[k] for k in before},
+            "digest": engine.last_digest, "metrics": engine.last_epoch_metrics,
+            "resident": engine.resident})
+        del engine
+    small = {name: dp_parity.run_steps(group, family, cfg, inputs, init)
+             for name, family, cfg, inputs, init in small_jobs}
+    return {"rank": group.rank, "backend": group.backend, "device": str(group.device),
+            "phases": results, "writes": writes, "small": small}
+
+
+def small_dp_jobs() -> list[tuple]:
+    """The small float32 steps of phase 8b: (name, family, config, global
+    inputs, initial state or None); WGAN's replay a one-process trajectory
+    step by step, so their initial states are filled in later."""
+    gen = np.random.default_rng(8)
+    im = (32, 48, 3)
+    snd = steplib.SNDCGANTrainConfig(
+        model=SNDCGANConfig(image_size=im, base_width=32, spectral_norm=True),
+        batch_size=4, loss="hinge")
+    jobs = [("sndcgan", "sndcgan", snd, {
+        "batches": gen.integers(0, 256, (2, 4, *im), np.uint8),
+        "z": gen.uniform(-1, 1, (2, 4, 128)).astype(np.float32),
+        "kw": gen.integers(0, 2**32, (steplib.N_SITES, 2)).astype(np.int64)}, None)]
+    wgan_in = {"batches": gen.integers(0, 256, (4, 4, *im), np.uint8),
+               "z_fake": gen.normal(size=(4, 4, 128)).astype(np.float32),
+               "z_gan": gen.normal(size=(4, 4, 128)).astype(np.float32)}
+    for name, gp in (("wgan_clip", 0.0), ("wgan_gp", 10.0)):
+        cfg = wgan_step.WGANTrainConfig(model=WGANConfig(image_size=im, base_width=16),
+                                        batch_size=4, n_critic=2, gp_lambda=gp)
+        inputs = dict(wgan_in)
+        if gp:
+            inputs["gp_eps"] = gen.uniform(size=(4, 4, 1, 1, 1)).astype(np.float32)
+        jobs.append((name, "wgan", cfg, inputs, None))
+    cyc = cyclegan_step.CycleGANTrainConfig(
+        model=CycleGANConfig(image_size=(96, 96, 3), base_width=8, n_res_blocks=2),
+        batch_size=2)
+    jobs.append(("cyclegan", "cyclegan", cyc, {
+        "batches_x": gen.integers(0, 256, (2, 2, 96, 96, 3), np.uint8),
+        "batches_y": gen.integers(0, 256, (2, 2, 96, 96, 3), np.uint8)}, None))
+    return jobs
+
+
+def small_dp_errors(got: dict, want: dict) -> dict:
+    """How far a small 2-rank run (tools/dp_parity) is from the one-process
+    run: the worst metric error relative to max(1, |v|); and per state
+    collection (a model's parameters, its BatchNorm statistics, each
+    optimizer moment) of each step's state, the largest error over the
+    collection's largest |v| (a moment off by the world size reads ~1 or
+    more; a leaf whose gradient is rounding noise, a conv bias before a
+    norm, is weighed against its collection, not against itself). Also
+    where each is, and the largest metric |v|."""
+    out = {"metric": 0.0, "metric_at": None, "leaf": 0.0, "leaf_at": None, "max_abs_metric": 0.0}
+    for i, (a, b) in enumerate(zip(got["metrics"], want["metrics"])):
+        for k, v in b.items():
+            d = abs(a[k] - v) / max(1.0, abs(v)) if math.isfinite(a[k]) else math.inf
+            out["max_abs_metric"] = max(out["max_abs_metric"], abs(v))
+            if d >= out["metric"]:
+                out["metric"], out["metric_at"] = d, f"step {i} {k}"
+    for i, (sa, sb) in enumerate(zip(got["states"], want["states"])):
+        leaves_a = dict(dp._leaves(sa))
+        diff: dict[str, float] = {}
+        scale: dict[str, float] = {}
+        for path, b in dp._leaves(sb):
+            parts = path.strip("/").split("/")
+            coll = "/".join(parts[:2] if parts[0].endswith("_opt") else parts[:1])
+            a = np.asarray(leaves_a[path], np.float64)
+            b = np.asarray(b, np.float64)
+            d = float(np.abs(a - b).max()) if np.isfinite(a).all() else math.inf
+            diff[coll] = max(diff.get(coll, 0.0), d)
+            scale[coll] = max(scale.get(coll, 0.0), float(np.abs(b).max()))
+        for coll, d in diff.items():
+            rel = d / scale[coll] if scale[coll] else (math.inf if d else 0.0)
+            if rel >= out["leaf"]:
+                out["leaf"], out["leaf_at"] = rel, f"step {i} /{coll}"
+    return out
+
+
+def check_dp_engine_ranks(ranks: list[dict], label: str, card: str, ecfg: dict) -> dict:
+    """Per rank: exact launch counts (dropout 21 + 21, Adam 3 and 3 gradient
+    all-reduces per step), no Adam gradient copy, bit-equal digests after
+    each phase, artifacts from rank 0 only."""
+    for p in range(len(ranks[0]["phases"])):
+        digests = {r["phases"][p]["digest"] for r in ranks}
+        require(len(digests) == 1, f"{label} phase {p}: rank digests differ")
+        for r in ranks:
+            ph = r["phases"][p]
+            steps = ph["steps"]
+            want = {"leaky_relu_dropout_fwd": steplib.N_SITES * steps,
+                    "leaky_relu_dropout_bwd": steplib.N_SITES * steps,
+                    "adam": 3 * steps, "instance_norm_fwd": 0, "instance_norm_bwd": 0}
+            require(ph["launches"] == want,
+                    f"{label} rank {r['rank']} phase {p}: launches {ph['launches']}, "
+                    f"expected {want}")
+            require(ph["grad_copies"] == 0, f"{label}: adam gradient copies {ph['grad_copies']}")
+            require(ph["collectives"]["grad_all_reduce"] == 3 * steps,
+                    f"{label} rank {r['rank']}: {ph['collectives']} for {steps} steps")
+            require(ph["start"] == p and all(math.isfinite(v) for v in ph["metrics"].values()),
+                    f"{label} rank {r['rank']} phase {p}: start {ph['start']}, {ph['metrics']}")
+    require(all(v > 0 for v in ranks[0]["writes"].values()), f"{label}: rank 0 wrote "
+            f"{ranks[0]['writes']}")
+    for r in ranks[1:]:
+        require(set(r["writes"].values()) == {0}, f"{label}: rank {r['rank']} wrote {r['writes']}")
+    perf = ranks[0]["phases"][-1]["perf"]
+    rate = perf["steps_per_sec"]
+    log(f"{label}: backend {ranks[0]['backend']}, {len(ranks)} rank(s) on "
+        f"{sorted({r['device'] for r in ranks})}, {ecfg['width']}x{ecfg['height']} global "
+        f"batch {ecfg['batch']} ({ecfg['batch'] // len(ranks)} per rank) base {ecfg['base']} "
+        f"SN hinge {ecfg['dtype']}; per rank and step: "
+        f"dropout {steplib.N_SITES}+{steplib.N_SITES}, adam 3, 3 gradient all-reduces, "
+        f"0 gradient copies; digests equal after each epoch; artifacts from rank 0 only "
+        f"{ranks[0]['writes']}; last epoch {rate:.3f} steps/s, {perf['images_per_sec']:.1f} "
+        f"global images/s (the engine's perf.jsonl; ranks sharing a card are no speed-up "
+        f"claim) ({card})")
+    return {"ranks": len(ranks), "backend": ranks[0]["backend"],
+            "devices": sorted({r["device"] for r in ranks}),
+            "last_epoch_steps_per_sec": rate, "last_epoch_images_per_sec": perf["images_per_sec"],
+            "last_epoch_wall_seconds_with_checkpoint": ranks[0]["phases"][-1]["seconds"],
+            "launches_rank0": {k: sum(ph["launches"][k] for ph in ranks[0]["phases"])
+                               for k in ranks[0]["phases"][0]["launches"]},
+            "collectives_rank0": ranks[0]["phases"][-1]["collectives"]}
+
+
+def run_data_parallel(card: str, work: str, dev: torch.device) -> dict:
+    """Phase 8: (a) the dropout kernels with an index base; (b) two ranks on
+    this one card over gloo, named explicitly (gloo reduces CUDA tensors
+    through the host; NCCL runs one rank per card): SNDCGANEngine at the
+    headline configuration, then small float32 2-rank steps held to the
+    one-process steps on the card; (c) two cards over NCCL where the machine
+    has them, and a world-1 NCCL group through the engine either way."""
+    t0 = time.perf_counter()
+    ecfg = dp_engine_config()
+    torch.cuda.empty_cache()
+    dropout_base = check_dropout_base(dev, card)
+    jobs = small_dp_jobs()
+    one = {}
+    for i, (name, family, cfg, inputs, _) in enumerate(jobs):
+        one[name] = dp_parity.run_steps(None, family, cfg, inputs, device=str(dev))
+        if family == "wgan":  # replay the one-process trajectory step by step
+            replay = [one[name]["state0"]] + one[name]["states"][:-1]
+            jobs[i] = (name, family, cfg, inputs, replay)
+    torch.cuda.empty_cache()
+    phases = [(1, False), (2, True)]
+    ranks = dp.spawn_local(dp_engine_rank, DP_WORLD, backend="gloo",
+                           devices=[str(dev)] * DP_WORLD, timeout=DP_RANKS_TIMEOUT_S,
+                           args=(f"{work}/dp_gloo", phases, jobs, ecfg))
+    shared = check_dp_engine_ranks(ranks, "phase 8b (2 ranks sharing one card)", card, ecfg)
+    worst, families = {}, {name: family for name, family, *_ in jobs}
+    for name, want in one.items():
+        got = [r["small"][name] for r in ranks]
+        require(got[0]["digest"] == got[1]["digest"], f"small 2-rank {name}: digests differ")
+        # the WGAN path has no hand kernel; the others launch theirs
+        require(got[0]["launches"] == got[1]["launches"] == want["launches"]
+                and any(want["launches"].values()) != name.startswith("wgan"),
+                f"small 2-rank {name}: launches {got[0]['launches']}, one process "
+                f"{want['launches']}")
+        err = small_dp_errors(got[0], want)
+        bounds = DP_STEP_BOUND[families[name]]
+        for what, bound_rel in zip(("metric", "leaf"), bounds):
+            require(err[what] <= bound_rel, f"small 2-rank {name}: {what} error "
+                    f"{err[what]} at {err[what + '_at']} past {bound_rel}")
+        worst[name] = err
+    log(f"phase 8b: small float32 2-rank steps against the one-process steps on the card "
+        f"(SNDCGAN SN hinge with dropout 2 steps, WGAN clip and GP 4 steps each from the "
+        f"one-process state before it, CycleGAN 2 steps): {worst} (bounds (metric, leaf) "
+        f"{DP_STEP_BOUND}), rank digests equal, each rank's kernel launches those of one "
+        f"process")
+    two_cards = None
+    if torch.cuda.device_count() >= 2:
+        two = dp.spawn_local(dp_engine_rank, 2, "cuda", backend="nccl",
+                             timeout=DP_RANKS_TIMEOUT_S,
+                             args=(f"{work}/dp_nccl2", phases, [], ecfg))
+        two_cards = check_dp_engine_ranks(two, "phase 8c (2 cards, NCCL)", card, ecfg)
+    else:
+        log("phase 8c: 1 card visible: the 2-card NCCL run is skipped for want of a second card")
+    single = dp.spawn_local(dp_engine_rank, 1, "cuda", backend="nccl",
+                            timeout=DP_RANKS_TIMEOUT_S,
+                            args=(f"{work}/dp_nccl1", [(1, False)], [], ecfg))
+    world1 = check_dp_engine_ranks(single, "phase 8c (world-1 NCCL group)", card, ecfg)
+    seconds = time.perf_counter() - t0
+    log(f"phase 8: {seconds:.1f} s ({card})")
+    return {"dropout_base": dropout_base, "shared_card_gloo": shared,
+            "small_steps_errors": worst, "small_steps_bound": DP_STEP_BOUND,
+            "two_cards_nccl": two_cards, "world1_nccl": world1, "seconds": seconds,
+            "launches": shared["launches_rank0"]}
+
+
 def main() -> int:
     dev = platform.require_cuda()
     numerics = platform.configure_numerics()
@@ -1359,7 +1696,6 @@ def main() -> int:
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         log(f"built {name}.cu in {info['seconds']:.2f} s: {regs}")
     log(f"kernel build total {time.perf_counter() - t0:.2f} s (parallel)")
-
     kernels = check_dropout(dev, card)
     kernels.append(check_adam(dev, card))
     kernels += check_instance_norm(card)
@@ -1372,6 +1708,7 @@ def main() -> int:
                   "cyclegan": run_cyclegan_slice(card, work), "wgan": run_wgan_slice(card)}
         offline = run_sampling_and_fid(card, work, dev)
         evaluation = run_evaluation(card, work, dev, kernels)
+        data_parallel = run_data_parallel(card, work, dev)
     names = {k["name"] for k in kernels}
     for p, r in slices.items():
         require(set(r["launches"]) == names, f"{p}: counters {sorted(r['launches'])} "
@@ -1381,6 +1718,12 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in slices.items()}
         k["launches_by_path"]["evaluation"] = evaluation["launches"][k["name"]]
+        k["launches_by_path"]["data_parallel"] = data_parallel["launches"][k["name"]]
+        if k["name"].startswith("leaky"):  # phase 8a: rank 1's rows, with their base
+            base = data_parallel["dropout_base"]
+            k["at_rank_rows_with_base"] = {
+                "shape_nchw": base["timed_shape_nchw"],
+                **base["fwd" if k["name"].endswith("fwd") else "bwd"]}
         # The path that runs it; Adam runs on both, and its record's times
         # are the CycleGAN apply's, as are its launches.
         k["launches"] = k["launches_by_path"][
@@ -1392,6 +1735,7 @@ def main() -> int:
             "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"],
             "adam_grad_copies": r["grad_copies"]}
         for p, r in slices.items()}, "sampling_and_fid": offline, "evaluation": evaluation,
+        "data_parallel": data_parallel,
         "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)

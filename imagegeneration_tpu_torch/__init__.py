@@ -9,13 +9,16 @@ with a plain PyTorch version of the same function beside it: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
 
 Ported so far: the SNDCGAN, CycleGAN and WGAN training paths (cli ->
-engine -> step -> models -> layers -> kernels), their params-only msgpack
-exports and figures, and the SNDCGAN offline tools (the sampling CLI and
-the discriminator-feature FID).
+engine -> step -> models -> layers -> kernels), on one card or data
+parallel over several (one process per card, parallel/dp.py), their
+params-only msgpack exports and figures, the SNDCGAN offline tools (the
+sampling CLI and both FIDs) and the CycleGAN perception distance. Not
+ported yet: spatial (image-H) partitioning across cards.
 
 Package layout (mirrors imagegeneration_tpu):
-  core/     platform (CUDA only, TF32 off), PRNG streams, data, metrics,
-            checkpoints and flax-format msgpack exports, preview figures
+  core/     platform (CUDA only, TF32 off; a rank's card), process groups
+            (mesh.py), PRNG streams, data, metrics, checkpoints and
+            flax-format msgpack exports, preview figures
   nn/       Keras-semantics layers (TF-SAME padding, Keras BatchNorm,
             glorot init, tfa InstanceNorm, the CycleGAN ResBlock) and
             spectral norm
@@ -23,10 +26,13 @@ Package layout (mirrors imagegeneration_tpu):
             sqrtm.py (the FID cross term)
   csrc/     CUDA C++ sources of the kernels
   models/   SNDCGAN, CycleGAN and WGAN generators and discriminators
+  parallel/ data parallelism by hand: gradient mean, synced BatchNorm
+            statistics, replication checks, the local launcher
   train/    Keras-form Adam, RMSprop, losses, the three steps and engines
-  evalx/    the discriminator-feature FID
-  cli/      reference-signature entry points (trainers, sampling, FID)
-  tools/    profile_step and kernel timing tools for a card
+  evalx/    the FIDs (discriminator features, InceptionV3) and the PD
+  cli/      reference-signature entry points (trainers, sampling, FID, PD)
+  tools/    profile_step, kernel timing tools for a card, the data-parallel
+            dry run and 2-rank step checks
   bridge.py JAX (flax) variables <-> port state, for tests, exports and
             imports
 """

@@ -2,16 +2,20 @@
 
   python -m imagegeneration_tpu_torch.cli.cyclegan_trainer <bSize> <epochs>
       [-x DATA1] [-y DATA2] [-d DIR] [-c FREQ] [-ct] [--bf16]
+      [--mesh-data N] [--host-sharded-data]
       [--height H] [--width W] [--quirk-axis1] [--seed S] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.cyclegan_trainer. Training
-runs on one CUDA device; `--device cpu` runs the same code on the CPU with
-the plain versions of the kernels (tests, debugging). As in the reference,
+runs on one CUDA device, or with `--mesh-data N` on N data-parallel ranks,
+one card each, over a global batch of bSize (`--host-sharded-data`: each
+rank decodes only its shard of each domain's files; cli/launch.py).
+`--device cpu` runs the same code on the CPU with the plain versions of the
+kernels (tests, debugging; with `--mesh-data`, gloo ranks). As in the reference,
 training resumes from the latest checkpoint in the output directory
 whether or not `-ct` is given (the flag is parsed and has no effect).
 `-c` paces the generator exports `gen_weights_{f,g}-<epoch>.msgpack`:
-every epoch that is a multiple of it writes them. The multi-device and profiling flags (`--mesh-data`, `--mesh-spatial` > 1,
-`--host-sharded-data`, `--profile`) are refused: they are not ported.
+every epoch that is a multiple of it writes them. `--mesh-spatial` > 1
+(spatial partitioning) and `--profile` are refused: they are not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 import argparse
 
 import torch
+
+from imagegeneration_tpu_torch.cli import launch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,10 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
         "latest checkpoint, as in the reference",
     )
     parser.add_argument("--bf16", action="store_true", default=False)
-    parser.add_argument("--mesh-data", type=int, default=0,
-                        help="not supported: multi-GPU training is not ported")
-    parser.add_argument("--mesh-spatial", type=int, default=1,
-                        help="not supported: multi-GPU training is not ported")
+    launch.add_mesh_args(parser)
     parser.add_argument("--height", type=int, default=128)
     parser.add_argument("--width", type=int, default=128)
     parser.add_argument("--quirk-axis1", action="store_true", default=False,
@@ -61,8 +64,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile", action="store_true", default=False,
                         help="not supported: use imagegeneration_tpu_torch."
                         "tools.profile_step")
-    parser.add_argument("--host-sharded-data", action="store_true", default=False,
-                        help="not supported: multi-host training is not ported")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default; fails without a GPU) or cpu "
                         "(plain kernel versions, for tests and debugging)")
@@ -72,13 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh_data or args.mesh_spatial != 1 or args.host_sharded_data:
-        parser.error(
-            "--mesh-data/--mesh-spatial/--host-sharded-data: multi-device "
-            "training is not ported to PyTorch yet; this trainer runs on one GPU"
-        )
     if args.profile:
         parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
+    launch.run(parser, args, _train)
+
+
+def _train(args: argparse.Namespace, mesh) -> None:
 
     from imagegeneration_tpu_torch.core.platform import resolve_device
     from imagegeneration_tpu_torch.train.cyclegan_engine import CycleGANEngine
@@ -89,10 +89,12 @@ def main(argv=None) -> None:
         args.path,
         args.bSize,
         (args.width, args.height),
-        device=resolve_device(args.device),
+        device=mesh.device if mesh else resolve_device(args.device),
         quirk_axis1=args.quirk_axis1,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         seed=args.seed,
+        mesh=mesh,
+        host_sharded_data=args.host_sharded_data,
     )
     engine.train(args.epochs, args.chps)
 

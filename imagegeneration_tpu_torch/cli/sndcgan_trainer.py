@@ -3,15 +3,17 @@
   python -m imagegeneration_tpu_torch.cli.sndcgan_trainer <bSize> <epochs>
       [-cf N] [-d DIR] [-x DATA] [-r RATE] [-ld LR] [-lg LR] [-lo NAME] [-ct]
       [--spectral-norm] [--loss {bce,hinge}] [--d-updates {1,2}] [--bf16]
+      [--mesh-data N] [--host-sharded-data]
       [--height H] [--width W] [--z Z] [--seed S] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.sndcgan_trainer. Training
-runs on one CUDA device; `--device cpu` runs the same code on the CPU with
-the plain versions of the kernels (tests, debugging). The multi-device
-flags `--mesh-data`/`--mesh-spatial` are refused: multi-GPU training is not
-ported yet. `-lo` names the live-preview PDF (`<name>.pdf`, drawn every
-epoch when matplotlib is installed). As in the reference, `epochs + 1`
-epochs are trained.
+runs on one CUDA device, or with `--mesh-data N` on N data-parallel ranks,
+one card each, over a global batch of bSize (cli/launch.py; `--mesh-spatial`
+> 1 is refused: spatial partitioning is not ported yet). `--device cpu`
+runs the same code on the CPU with the plain versions of the kernels
+(tests, debugging; with `--mesh-data`, gloo ranks). `-lo` names the
+live-preview PDF (`<name>.pdf`, drawn every epoch when matplotlib is
+installed). As in the reference, `epochs + 1` epochs are trained.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import argparse
 
 import torch
+
+from imagegeneration_tpu_torch.cli import launch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,10 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="D optimizer applies per batch: 2 = the "
                         "reference's double apply, 1 = one combined update")
     parser.add_argument("--bf16", action="store_true", default=False)
-    parser.add_argument("--mesh-data", type=int, default=0,
-                        help="not supported: multi-GPU training is not ported")
-    parser.add_argument("--mesh-spatial", type=int, default=1,
-                        help="not supported: multi-GPU training is not ported")
+    launch.add_mesh_args(parser)
     parser.add_argument("--height", type=int, default=144)
     parser.add_argument("--width", type=int, default=256)
     parser.add_argument("--z", type=int, dest="z_size", default=128)
@@ -84,12 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh_data or args.mesh_spatial != 1:
-        parser.error(
-            "--mesh-data/--mesh-spatial: multi-device training is not ported "
-            "to PyTorch yet; this trainer runs on one GPU"
-        )
+    launch.run(parser, args, _train)
 
+
+def _train(args: argparse.Namespace, mesh) -> None:
     from imagegeneration_tpu_torch.core.platform import resolve_device
     from imagegeneration_tpu_torch.train.sndcgan_engine import SNDCGANEngine
 
@@ -103,13 +102,15 @@ def main(argv=None) -> None:
         args.continue_,
         (args.height, args.width, 3),
         args.z_size,
-        device=resolve_device(args.device),
+        device=mesh.device if mesh else resolve_device(args.device),
         spectral_norm=args.spectral_norm,
         loss=args.loss,
         d_updates=args.d_updates,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         seed=args.seed,
         live_output=args.liveOutput,
+        mesh=mesh,
+        host_sharded_data=args.host_sharded_data,
     )
     # Reference quirk preserved: Trainer.py:37 trains epochs+1.
     engine.train(args.epochs + 1, args.ckptFreq)

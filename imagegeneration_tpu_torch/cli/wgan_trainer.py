@@ -2,19 +2,22 @@
 
   python -m imagegeneration_tpu_torch.cli.wgan_trainer <bSize> <epochs>
       [-d DIR] [-c INTERVAL] [-ct] [-x DATA] [--n-critic N] [--gp LAMBDA]
-      [--bf16] [--height H] [--width W] [--seed S] [--device {cuda,cpu}]
+      [--bf16] [--mesh-data N] [--host-sharded-data]
+      [--height H] [--width W] [--seed S] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.wgan_trainer: the dataset
 directory defaults to the reference's hardcoded "bilderNeuro", n_critic to
 5, the image size to 144x256, and `--gp` > 0 replaces the weight clip by
-the WGAN-GP penalty. Training runs on one CUDA device; `--device cpu` runs
-the same code on the CPU (tests, debugging). `-c` paces the msgpack
+the WGAN-GP penalty. Training runs on one CUDA device, or with
+`--mesh-data N` on N data-parallel ranks, one card each, over a global
+batch of bSize (`--host-sharded-data`: each rank decodes only its shard of
+the files; cli/launch.py). `--device cpu` runs the same code on the CPU
+(tests, debugging; with `--mesh-data`, gloo ranks). `-c` paces the msgpack
 exports as in the reference: each epoch writes `model_%04d.msgpack` under
 g_models/ and c_models/ and removes the previous epoch's unless that
 epoch is a multiple of `-c`; the train state is checkpointed every epoch.
-The multi-device and
-profiling flags (`--mesh-data`, `--mesh-spatial` > 1, `--host-sharded-data`,
-`--profile`) are refused: they are not ported.
+`--mesh-spatial` > 1 (spatial partitioning) and `--profile` are refused:
+they are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 import argparse
 
 import torch
+
+from imagegeneration_tpu_torch.cli import launch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,18 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="WGAN-GP gradient penalty weight (replaces weight "
                         "clipping when > 0; reference default 0 = clipping)")
     parser.add_argument("--bf16", action="store_true", default=False)
-    parser.add_argument("--mesh-data", type=int, default=0,
-                        help="not supported: multi-GPU training is not ported")
-    parser.add_argument("--mesh-spatial", type=int, default=1,
-                        help="not supported: multi-GPU training is not ported")
+    launch.add_mesh_args(parser)
     parser.add_argument("--height", type=int, default=144)
     parser.add_argument("--width", type=int, default=256)
     parser.add_argument("--seed", type=int, default=62)
     parser.add_argument("--profile", action="store_true", default=False,
                         help="not supported: use imagegeneration_tpu_torch."
                         "tools.profile_step --workload wgan")
-    parser.add_argument("--host-sharded-data", action="store_true", default=False,
-                        help="not supported: multi-host training is not ported")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default; fails without a GPU) or cpu "
                         "(for tests and debugging)")
@@ -72,13 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh_data or args.mesh_spatial != 1 or args.host_sharded_data:
-        parser.error(
-            "--mesh-data/--mesh-spatial/--host-sharded-data: multi-device "
-            "training is not ported to PyTorch yet; this trainer runs on one GPU"
-        )
     if args.profile:
         parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
+    launch.run(parser, args, _train)
+
+
+def _train(args: argparse.Namespace, mesh) -> None:
 
     from imagegeneration_tpu_torch.core.platform import resolve_device
     from imagegeneration_tpu_torch.train.wgan_engine import WGANEngine
@@ -91,10 +90,12 @@ def main(argv=None) -> None:
         path_like=args.path,
         load=args.continue_,
         save_interval=args.chps,
-        device=resolve_device(args.device),
+        device=mesh.device if mesh else resolve_device(args.device),
         gp_lambda=args.gp_lambda,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         seed=args.seed,
+        mesh=mesh,
+        host_sharded_data=args.host_sharded_data,
     )
     engine.train(args.epochs)
 

@@ -18,6 +18,13 @@ and the GPU machine has neither. Semantics kept:
 `resident_budget` decides, for the engines, whether a dataset is kept on
 the device as uint8 or streamed from the host.
 
+Host-sharded mode (`ImageFolderDataset(shard=(i, n))`, the trainers'
+`--host-sharded-data`): data-parallel rank i of n decodes only its
+contiguous block of the sorted files (the JAX package's bounds,
+linspace(0, files, n + 1)) and shuffles it with its own per-(epoch, rank)
+stream. Every rank knows every shard's size (`shard_sizes`), so all ranks
+reach the same batch count (train/feed.py) without a collective.
+
 The decoders are imported only when a folder is read: cv2, then PIL for
 what cv2 cannot read (GIF) or where cv2 is missing. A file that no
 decoder can read raises an error naming the file and the decoders tried;
@@ -173,13 +180,22 @@ class _ShuffledImages:
         """Full batches only: an epoch drops the remainder."""
         return len(self) // batch_size
 
+    shard: tuple[int, int] | None = None
+
     def permutation(self, epoch: int) -> np.ndarray:
-        """The epoch's image order, from the dataset's own "data" stream."""
-        return self._chain.numpy_rng("data", epoch).permutation(len(self))
+        """The epoch's image order, from the dataset's own "data" stream
+        (a shard's: its own stream per rank)."""
+        if self.shard is None:
+            return self._chain.numpy_rng("data", epoch).permutation(len(self))
+        seed = self._chain.seed
+        rng = np.random.default_rng([seed & 0xFFFFFFFF, seed >> 32, epoch, 1 + self.shard[0]])
+        return rng.permutation(len(self))
 
 
 class ImageFolderDataset(_ShuffledImages):
-    """Decoded-and-cached image folder."""
+    """Decoded-and-cached image folder; with `shard=(i, n)` only the i-th
+    of n contiguous blocks of its sorted files (`shard_sizes`: every
+    block's size)."""
 
     def __init__(
         self,
@@ -188,10 +204,20 @@ class ImageFolderDataset(_ShuffledImages):
         labeled: bool = True,
         follow_links: bool = False,
         seed: int = DEFAULT_DATA_SEED,
+        shard: tuple[int, int] | None = None,
     ) -> None:
         self.files, self.labels, self.class_names = list_image_files(
             root, labeled, follow_links
         )
+        if shard is not None:
+            i, n = shard
+            if not 0 <= i < n:
+                raise ValueError(f"bad shard {shard}")
+            bounds = np.linspace(0, len(self.files), n + 1).astype(int)
+            self.shard_sizes = np.diff(bounds)
+            self.files = self.files[bounds[i]:bounds[i + 1]]
+            self.labels = self.labels[bounds[i]:bounds[i + 1]]
+            self.shard = (i, n)
         h, w = image_size
         self._images = np.empty((len(self.files), h, w, 3), dtype=np.uint8)
         self.decoders: dict[str, int] = {}  # files read by each decoder

@@ -1,9 +1,11 @@
 """Device selection and the facts printed beside every measured number.
 
-The port's main path runs on one CUDA card and never falls back to the CPU:
-`require_cuda()` raises when no card is visible. The CPU runs only where a
-caller asks for it by name (tests, debugging), and there every kernel takes
-its plain PyTorch version.
+The port's main path runs on CUDA cards and never falls back to the CPU:
+`require_cuda()` raises when no card is visible. A process takes the card
+of its local rank (`LOCAL_RANK`, torchrun's variable; 0 when unset), so that
+each data-parallel rank on a host has its own card, and raises when that
+card does not exist. The CPU runs only where a caller asks for it by name
+(tests, debugging), and there every kernel takes its plain PyTorch version.
 
 Float32 numerics are pinned, not left to defaults: cuDNN runs float32
 convolutions in TF32 unless told otherwise, which keeps about three decimal
@@ -19,6 +21,7 @@ are bitwise stable). It is only ever turned on, never off again.
 
 from __future__ import annotations
 
+import os
 import shutil
 import subprocess
 
@@ -37,15 +40,28 @@ def configure_numerics(deterministic: bool = False) -> dict[str, bool]:
     }
 
 
+def local_rank() -> int:
+    """This process's rank on its host (`LOCAL_RANK`; 0 when unset)."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
 def require_cuda() -> torch.device:
-    """The one CUDA device of the main path; raises without one."""
+    """The CUDA card of this process's local rank, made the current one;
+    raises without a card, and when the rank's card does not exist."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device visible: the port's main path needs an NVIDIA "
             "GPU and has no CPU fallback"
         )
+    index, count = local_rank(), torch.cuda.device_count()
+    if index >= count:
+        raise RuntimeError(
+            f"local rank {index} needs card {index}, but {count} card(s) are "
+            "visible: one card per data-parallel rank on a host"
+        )
     configure_numerics()
-    return torch.device("cuda", 0)
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
 
 
 def resolve_device(name: str) -> torch.device:

@@ -5,8 +5,11 @@
 // mask of the JAX main path (imagegeneration_tpu/ops/bitdropout.py,
 // `_hash_mask` rounds=1) instead of the TPU's hardware PRNG:
 //
-//   idx  = NHWC linear index of the element (= its offset in a channels_last
-//          tensor), as uint32
+//   idx  = base + NHWC linear index of the element (= its offset in a
+//          channels_last tensor), as uint32. base is 0 on one device; a
+//          data-parallel rank holding rows [r*b, (r+1)*b) of a global batch
+//          passes r*b*H*W*C, so its mask is the global batch's at its rows
+//          (the wrapper bounds the global element count below 2^32)
 //   h    = fmix32(idx ^ k0) + k1            (uint32 wrap-around)
 //   keep = (h & 0xFF) >= cut,  cut = round(rate * 256)
 //   fwd: y  = keep ? leaky(x) * scale : 0
@@ -24,8 +27,8 @@
 // the tensor with a grid-stride loop in memory order, so neighbouring
 // threads touch neighbouring addresses.
 //
-// C interface: raw pointers, the element count and the CUDA stream; each
-// entry point returns cudaGetLastError() after its launch.
+// C interface: raw pointers, the element count, the index base and the
+// CUDA stream; each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,13 +64,14 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i, float v) 
 template <typename T>
 __global__ void lrd_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                                const int64_t* __restrict__ kw, int64_t n,
-                               uint32_t cut, float scale, float slope) {
+                               uint32_t base, uint32_t cut, float scale,
+                               float slope) {
   const uint32_t k0 = static_cast<uint32_t>(kw[0]);
   const uint32_t k1 = static_cast<uint32_t>(kw[1]);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    const uint32_t h = fmix32(static_cast<uint32_t>(i) ^ k0) + k1;
+    const uint32_t h = fmix32((base + static_cast<uint32_t>(i)) ^ k0) + k1;
     const float v = load_f32(x, i);
     const float l = v >= 0.f ? v : __fmul_rn(v, slope);
     store_f32(y, i, (h & 0xFFu) >= cut ? __fmul_rn(l, scale) : 0.f);
@@ -78,13 +82,14 @@ template <typename T>
 __global__ void lrd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                                T* __restrict__ dx,
                                const int64_t* __restrict__ kw, int64_t n,
-                               uint32_t cut, float scale, float slope) {
+                               uint32_t base, uint32_t cut, float scale,
+                               float slope) {
   const uint32_t k0 = static_cast<uint32_t>(kw[0]);
   const uint32_t k1 = static_cast<uint32_t>(kw[1]);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    const uint32_t h = fmix32(static_cast<uint32_t>(i) ^ k0) + k1;
+    const uint32_t h = fmix32((base + static_cast<uint32_t>(i)) ^ k0) + k1;
     const float gs = __fmul_rn(load_f32(g, i), scale);
     const float d = load_f32(x, i) >= 0.f ? gs : __fmul_rn(gs, slope);
     store_f32(dx, i, (h & 0xFFu) >= cut ? d : 0.f);
@@ -103,42 +108,44 @@ inline unsigned int num_blocks(int64_t n) {
 extern "C" {
 
 int lrd_fwd_f32(const void* x, void* y, const void* kw, int64_t n,
-                uint32_t cut, float scale, float slope, void* stream) {
+                uint32_t base, uint32_t cut, float scale, float slope,
+                void* stream) {
   lrd_fwd_kernel<float><<<num_blocks(n), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<const int64_t*>(kw), n, cut, scale, slope);
+      static_cast<const int64_t*>(kw), n, base, cut, scale, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
 int lrd_fwd_bf16(const void* x, void* y, const void* kw, int64_t n,
-                 uint32_t cut, float scale, float slope, void* stream) {
+                 uint32_t base, uint32_t cut, float scale, float slope,
+                 void* stream) {
   lrd_fwd_kernel<__nv_bfloat16><<<num_blocks(n), kThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-      static_cast<const int64_t*>(kw), n, cut, scale, slope);
+      static_cast<const int64_t*>(kw), n, base, cut, scale, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
 int lrd_bwd_f32(const void* x, const void* g, void* dx, const void* kw,
-                int64_t n, uint32_t cut, float scale, float slope,
-                void* stream) {
+                int64_t n, uint32_t base, uint32_t cut, float scale,
+                float slope, void* stream) {
   lrd_bwd_kernel<float><<<num_blocks(n), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<float*>(dx), static_cast<const int64_t*>(kw), n, cut, scale,
-      slope);
+      static_cast<float*>(dx), static_cast<const int64_t*>(kw), n, base, cut,
+      scale, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
 int lrd_bwd_bf16(const void* x, const void* g, void* dx, const void* kw,
-                 int64_t n, uint32_t cut, float scale, float slope,
-                 void* stream) {
+                 int64_t n, uint32_t base, uint32_t cut, float scale,
+                 float slope, void* stream) {
   lrd_bwd_kernel<__nv_bfloat16><<<num_blocks(n), kThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dx),
-      static_cast<const int64_t*>(kw), n, cut, scale, slope);
+      static_cast<const int64_t*>(kw), n, base, cut, scale, slope);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,7 +19,9 @@ card (the JAX config's `in_backend` has no counterpart: there is one
 route). `quirk_axis1=True` selects the reference's bug-compatible axis=1
 norm, in plain torch.
 
-Image tensors are NCHW logical and channels_last in memory.
+Image tensors are NCHW logical and channels_last in memory. float64 is
+accepted as a compute dtype for the CPU parity tests against the JAX
+package's float64 step (the kernels take float32 and bfloat16 only).
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ class CycleGANConfig:
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self) -> None:
-        if self.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be float32 or bfloat16, got {self.dtype}")
+        if self.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise ValueError(f"dtype must be float32, bfloat16 or float64, got {self.dtype}")
 
 
 class Generator(nn.Module):

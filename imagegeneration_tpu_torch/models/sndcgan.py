@@ -16,7 +16,11 @@ architecture, parameter shapes and config fields:
 
 Image tensors are NCHW logical and channels_last in memory, so the NHWC
 reshape and flatten are views, and the dropout kernel's mask index (the
-NHWC linear index of the JAX package) is the memory offset.
+NHWC linear index of the JAX package) is the memory offset. A data-parallel
+rank passes `rows=(first row, global batch)`, so that every site's mask is
+the global batch's at the rank's rows. float64 is accepted as a compute
+dtype for the CPU parity tests against the JAX package's float64 step (the
+kernels take float32 and bfloat16 only).
 """
 
 from __future__ import annotations
@@ -57,8 +61,8 @@ class SNDCGANConfig:
 
     def __post_init__(self) -> None:
         dropout_cut(self.dropout_rate)  # validates the rate
-        if self.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be float32 or bfloat16, got {self.dtype}")
+        if self.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise ValueError(f"dtype must be float32, bfloat16 or float64, got {self.dtype}")
 
 
 class Generator(nn.Module):
@@ -140,10 +144,12 @@ class Discriminator(nn.Module):
         kw: torch.Tensor | None = None,
         update_sn: bool = False,
         features: bool = False,
+        rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """kw: (7, 2) dropout key words, one row per conv; None runs the
         trunk without dropout (inference). update_sn writes the spectral
-        norm estimates `u`."""
+        norm estimates `u`. rows: (first row, global batch) of this shard
+        of a data-parallel batch; None for a whole batch."""
         sn = self.cfg.spectral_norm
         x = x.to(self.cfg.dtype)
         for i in range(N_DROPOUT_SITES):
@@ -153,7 +159,7 @@ class Discriminator(nn.Module):
             if kw is None:
                 x = F.leaky_relu(x, NEGATIVE_SLOPE)
             else:
-                x = leaky_relu_dropout(x, kw[i], self.cfg.dropout_rate)
+                x = leaky_relu_dropout(x, kw[i], self.cfg.dropout_rate, rows)
 
         if features:
             if min(x.shape[2], x.shape[3]) < 8:

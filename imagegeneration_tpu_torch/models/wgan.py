@@ -140,6 +140,7 @@ def clip_critic_kernels_(critic: Critic, clip: float = CLIP_VALUE) -> None:
     """Clip the conv weights to [-clip, clip] in place (min(max(w, -clip),
     clip), as jnp.clip)."""
     kernels = critic_kernels(critic)
+    clip = float(torch.tensor(clip, dtype=torch.float32))  # float32's 0.01, also for float64 leaves
     torch._foreach_clamp_min_(kernels, -clip)
     torch._foreach_clamp_max_(kernels, clip)
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagegeneration_tpu_torch.ops.instance_norm import instance_norm
+from imagegeneration_tpu_torch.parallel import dp
 
 
 def glorot_uniform_(
@@ -221,7 +222,16 @@ class BatchNorm(nn.Module):
     Parameters `scale`, `bias`; running statistics `mean`, `var` (float32
     buffers). Statistics are computed in the input's dtype promoted with
     float32, as flax computes them: mean = E[x], var = max(E[x^2] - E[x]^2,
-    0) (flax's fast variance); the running variance takes this biased var."""
+    0) (flax's fast variance); the running variance takes this biased var.
+
+    Under data parallelism (`group` set by `sync_batch_norm`) the
+    train-mode statistics are those of the GLOBAL batch, as the JAX step
+    computes them over a mesh: one differentiable all-reduce sums the
+    per-channel [sum x, sum x^2] over the ranks, and N counts every rank's
+    elements (the ranks' shards are equal). Its backward sums the
+    cotangents over the ranks; each rank's loss is the mean over its own
+    rows and the gradients are then averaged (parallel/dp.py), which gives
+    the global-batch gradient."""
 
     def __init__(
         self, features: int, momentum: float = 0.99, epsilon: float = 1e-3,
@@ -235,6 +245,17 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.group = None  # a core.mesh.DataGroup: global batch statistics
+
+    def _moments(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(E[x], E[x^2]) per channel over this rank's batch, or over the
+        group's global batch."""
+        dims = [d for d in range(xf.dim()) if d != 1]
+        if self.group is None:
+            return xf.mean(dims), (xf * xf).mean(dims)
+        sums = dp.all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), self.group)
+        n = xf.numel() // xf.shape[1] * self.group.world
+        return sums[0] / n, sums[1] / n
 
     def forward(self, x: torch.Tensor, use_running_average: bool) -> torch.Tensor:
         ct = torch.promote_types(x.dtype, torch.float32)
@@ -243,9 +264,8 @@ class BatchNorm(nn.Module):
         if use_running_average:
             mean, var = self.mean, self.var
         else:
-            dims = [d for d in range(x.dim()) if d != 1]
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            mean, mean2 = self._moments(xf)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -253,6 +273,14 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype or ct)
+
+
+def sync_batch_norm(module: nn.Module, group) -> None:
+    """Make every BatchNorm in `module` take global batch statistics over
+    `group` (a core.mesh.DataGroup; None: this process's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class InstanceNorm(nn.Module):

@@ -6,7 +6,8 @@ main path's (imagegeneration_tpu/ops/bitdropout.py, `_hash_mask` with
 rounds=1), not the TPU hardware PRNG, so the port is held to the JAX
 discriminator bit for bit given the same two key words:
 
-    idx  = NHWC linear index (the memory offset of a channels_last tensor)
+    idx  = base + NHWC linear index (the memory offset of a channels_last
+           tensor); base = 0 on one device
     h    = fmix32(idx ^ k0) + k1                       (uint32 arithmetic)
     keep = (h & 0xFF) >= cut,   cut = round(rate * 256)
     y    = keep ? leaky_relu(x, 0.1) * 256 / (256 - cut) : 0
@@ -17,6 +18,13 @@ counterpart, because its main path uses this one ("hash1": counter hash,
 one fmix32 round) and nothing else is ported.
 
 The backward regenerates the mask, so the only saved activation is `x`.
+
+Under data parallelism a rank holds rows [r*b, (r+1)*b) of a global batch
+of B; the JAX package keys the mask by the GLOBAL NHWC index of the
+(B, H, W, C) array, so rank r passes `base = r*b*H*W*C` (`rows_base`) and
+the global element count `total = B*H*W*C`, which must stay below 2**32
+(the index is uint32). The base is a launch argument (a host int), so a
+launch still never syncs the host.
 
 On the H100 both passes are bound by device-memory bandwidth (forward reads
 x and writes y; backward reads x and g and writes dx); the kernel
@@ -58,11 +66,23 @@ def keep_scale(cut: int) -> float:
 
 
 # ------------------------------------------------------------ plain version
-def hash_keep_mask(kw: torch.Tensor, numel: int, cut: int) -> torch.Tensor:
-    """Keep mask over linear indices 0..numel-1 (bool, flat)."""
-    idx = torch.arange(numel, device=kw.device, dtype=torch.int64)
+def hash_keep_mask(kw: torch.Tensor, numel: int, cut: int, base: int = 0) -> torch.Tensor:
+    """Keep mask over linear indices base..base+numel-1 (bool, flat)."""
+    idx = torch.arange(base, base + numel, device=kw.device, dtype=torch.int64) & _U32
     h = (fmix32(idx ^ kw[0]) + kw[1]) & _U32
     return (h & 0xFF) >= cut
+
+
+def rows_base(x: torch.Tensor, first_row: int) -> int:
+    """The element-index base of a shard of rows that starts at global row
+    `first_row`: rows before it times the elements of one row."""
+    return first_row * (x.numel() // x.shape[0])
+
+
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    # float32 for float32 and bfloat16 (the kernel's math); float64 stays
+    # float64, as the JAX float64 step computes it (CPU tests).
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -73,20 +93,20 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def fwd_plain(x: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
-    xn = _nhwc(x).float()
-    keep = hash_keep_mask(kw, x.numel(), cut).view(xn.shape)
+def fwd_plain(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0) -> torch.Tensor:
+    xn = _nhwc(x).to(_compute_dtype(x))
+    keep = hash_keep_mask(kw, x.numel(), cut, base).view(xn.shape)
     leaky = torch.where(xn >= 0, xn, xn * NEGATIVE_SLOPE)
     y = torch.where(keep, leaky * keep_scale(cut), torch.zeros((), device=x.device))
     return _nchw(y.to(x.dtype))
 
 
 def bwd_plain(
-    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int
+    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0
 ) -> torch.Tensor:
-    xn = _nhwc(x).float()
-    keep = hash_keep_mask(kw, x.numel(), cut).view(xn.shape)
-    gs = _nhwc(g).float() * keep_scale(cut)
+    xn = _nhwc(x).to(_compute_dtype(x))
+    keep = hash_keep_mask(kw, x.numel(), cut, base).view(xn.shape)
+    gs = _nhwc(g).to(xn.dtype) * keep_scale(cut)
     d = torch.where(xn >= 0, gs, gs * NEGATIVE_SLOPE)
     dx = torch.where(keep, d, torch.zeros((), device=x.device))
     return _nchw(dx.to(x.dtype))
@@ -94,8 +114,8 @@ def bwd_plain(
 
 # ------------------------------------------------------------------- kernel
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGS_TAIL = [ctypes.c_int64, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-              ctypes.c_void_p]
+_ARGS_TAIL = [ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+              ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
@@ -112,14 +132,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_args(x: torch.Tensor, kw: torch.Tensor) -> None:
+def check_index_range(numel: int, base: int, total: int | None) -> int:
+    """The global element count (`total`, default base + numel), checked:
+    the shard [base, base + numel) lies inside it, and it is below 2**32,
+    since the mask's index is uint32."""
+    total = base + numel if total is None else total
+    if base < 0 or base + numel > total:
+        raise ValueError(f"shard [{base}, {base + numel}) outside the {total} elements")
+    if total >= 2**32:
+        raise ValueError(
+            f"the uint32 element index covers < 2**32 elements of the global "
+            f"batch, got {total}")
+    return total
+
+
+def _check_kernel_args(x: torch.Tensor, kw: torch.Tensor, base: int,
+                       total: int | None) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     _check_channels_last(x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.numel() >= 2**32:
-        raise ValueError("the uint32 element index covers < 2**32 elements")
+    check_index_range(x.numel(), base, total)
     if (kw.device != x.device or kw.dtype != torch.int64
             or kw.shape != (2,) or not kw.is_contiguous()):
         raise ValueError(
@@ -128,12 +162,13 @@ def _check_kernel_args(x: torch.Tensor, kw: torch.Tensor) -> None:
         )
 
 
-def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
-    _check_kernel_args(x, kw)
+def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
+               total: int | None = None) -> torch.Tensor:
+    _check_kernel_args(x, kw, base, total)
     lib = _lib()
     y = torch.empty_like(x, memory_format=torch.channels_last)
     rc = getattr(lib, f"lrd_fwd_{_DTYPES[x.dtype]}")(
-        x.data_ptr(), y.data_ptr(), kw.data_ptr(), x.numel(), cut,
+        x.data_ptr(), y.data_ptr(), kw.data_ptr(), x.numel(), base, cut,
         keep_scale(cut), NEGATIVE_SLOPE, torch.cuda.current_stream(x.device).cuda_stream,
     )
     native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout forward")
@@ -142,9 +177,10 @@ def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
 
 
 def bwd_kernel(
-    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int
+    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
+    total: int | None = None,
 ) -> torch.Tensor:
-    _check_kernel_args(x, kw)
+    _check_kernel_args(x, kw, base, total)
     if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
         raise ValueError("gradient must match x in dtype, shape and device")
     _check_channels_last(g)
@@ -152,7 +188,7 @@ def bwd_kernel(
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     rc = getattr(lib, f"lrd_bwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), kw.data_ptr(), x.numel(),
-        cut, keep_scale(cut), NEGATIVE_SLOPE,
+        base, cut, keep_scale(cut), NEGATIVE_SLOPE,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout backward")
@@ -173,40 +209,53 @@ def _check_channels_last(x: torch.Tensor) -> None:
         )
 
 
-def fwd(x: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
+def fwd(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
+        total: int | None = None) -> torch.Tensor:
     """Forward: the plain version for a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
-        return fwd_plain(x, kw, cut)
-    return fwd_kernel(x, kw, cut)
+        check_index_range(x.numel(), base, total)
+        return fwd_plain(x, kw, cut, base)
+    return fwd_kernel(x, kw, cut, base, total)
 
 
-def bwd(x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int) -> torch.Tensor:
+def bwd(x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
+        total: int | None = None) -> torch.Tensor:
     """Backward: the plain version for a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
-        return bwd_plain(x, g, kw, cut)
-    return bwd_kernel(x, g, kw, cut)
+        check_index_range(x.numel(), base, total)
+        return bwd_plain(x, g, kw, cut, base)
+    return bwd_kernel(x, g, kw, cut, base, total)
 
 
 class _LeakyReluDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kw, cut):
+    def forward(ctx, x, kw, cut, base, total):
         ctx.save_for_backward(x, kw)
-        ctx.cut = cut
-        return fwd(x, kw, cut)
+        ctx.cut, ctx.base, ctx.total = cut, base, total
+        return fwd(x, kw, cut, base, total)
 
     @staticmethod
     def backward(ctx, g):
         x, kw = ctx.saved_tensors
         g = g.contiguous(memory_format=torch.channels_last)
-        return bwd(x, g, kw, ctx.cut), None, None
+        return bwd(x, g, kw, ctx.cut, ctx.base, ctx.total), None, None, None, None
 
 
 def leaky_relu_dropout(
-    x: torch.Tensor, kw: torch.Tensor, rate: float
+    x: torch.Tensor, kw: torch.Tensor, rate: float,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """dropout(leaky_relu(x, 0.1)) with the hash1 mask of key words `kw`.
 
-    x: (B, C, H, W) channels_last, float32 or bfloat16. kw: (2,) int64
-    holding two uint32 words, on x's device."""
+    x: (B, C, H, W) channels_last, float32 or bfloat16 (float64 on the CPU).
+    kw: (2,) int64 holding two uint32 words, on x's device. rows: (first
+    row, global batch) when x holds rows [first, first + B) of a larger
+    batch (a data-parallel rank); the mask is then that batch's, at these
+    rows' global indices."""
     _check_channels_last(x)
-    return _LeakyReluDropout.apply(x, kw, dropout_cut(rate))
+    base, total = 0, None
+    if rows is not None:
+        first, global_rows = rows
+        base = rows_base(x, first)
+        total = rows_base(x, global_rows)
+    return _LeakyReluDropout.apply(x, kw, dropout_cut(rate), base, total)

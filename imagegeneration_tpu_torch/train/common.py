@@ -9,6 +9,20 @@ decay=0.9, eps=1e-7)` (Keras defaults, WGAN), in plain multi-tensor torch
 ops: the JAX package has no kernel for it. Optimizer states share each
 parameter's layout (channels_last for conv weights). Losses reduce in at
 least float32.
+
+Data parallelism (a core.mesh.DataGroup passed as `group`): each rank's
+loss is the mean over its own rows of the global batch, and both applies
+average the gradients over the ranks first (parallel/dp.all_reduce_mean_,
+one all-reduce per apply), so every rank applies the global-batch gradient
+to its replica of the state. `shard_rows` gives a step its rows, and
+`global_draw` keeps a rank's rows of a draw made for the global batch.
+
+float64 compute (the CPU parity tests against the JAX package's float64
+step, whose parameters and optimizer states are float32): the leaves are
+float64 tensors holding float32 values (`place`), so a gradient is
+the float64 sum, averaged over the ranks in float64 and rounded to
+float32 once, in the apply, as the JAX step rounds its float64 sum; the
+optimizer states and arithmetic stay float32.
 """
 
 from __future__ import annotations
@@ -20,6 +34,48 @@ import torch
 import torch.nn.functional as F
 
 from imagegeneration_tpu_torch.ops import adam as adam_op
+from imagegeneration_tpu_torch.parallel import dp
+
+
+def place(model: torch.nn.Module, device, compute_dtype: torch.dtype) -> None:
+    """Move `model` to `device`; for float64 compute its parameters become
+    float64 tensors holding the same (float32) values. Buffers (BatchNorm
+    statistics, spectral-norm `u`) keep their dtype."""
+    model.to(device)
+    if compute_dtype == torch.float64:
+        for prm in model.parameters():
+            prm.data = prm.data.double()
+
+
+def _float32_apply(apply, params, grads, *args, **kwargs) -> None:
+    """Run a float32 optimizer `apply` on float64 leaves that hold float32
+    values: on float32 copies, written back."""
+    p32 = [p.detach().float() for p in params]
+    g32 = [None if g is None else g.float() for g in grads]
+    apply(p32, g32, *args, **kwargs)
+    with torch.no_grad():
+        torch._foreach_copy_([p.data for p in params], p32)
+
+
+def shard_rows(group, local_batch: int) -> tuple[int, int]:
+    """(first global row, global batch) of this rank's `local_batch` rows;
+    (0, local_batch) without a group."""
+    if group is None:
+        return 0, local_batch
+    return group.rank * local_batch, group.world * local_batch
+
+
+def global_draw(t: torch.Tensor, rows: tuple[int, int], local_batch: int) -> torch.Tensor:
+    """This rank's rows of `t`, a draw (or an input) over the global batch."""
+    first, global_batch = rows
+    if t.shape[0] != global_batch:
+        raise ValueError(f"a global draw has {global_batch} rows, got {t.shape[0]}")
+    return t[first:first + local_batch]
+
+
+def reduce_grads(grads, group):
+    """The ranks' mean of each gradient (in place), or `grads` as they are."""
+    return grads if group is None else dp.all_reduce_mean_(grads, group)
 
 
 @dataclasses.dataclass
@@ -49,17 +105,24 @@ def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
     device = params[0].device
     return AdamState(
         count=torch.zeros((), dtype=torch.int64, device=device),
-        mu=[torch.zeros_like(p, memory_format=torch.preserve_format) for p in params],
-        nu=[torch.zeros_like(p, memory_format=torch.preserve_format) for p in params],
+        mu=[torch.zeros_like(p, dtype=torch.float32, memory_format=torch.preserve_format)
+            for p in params],
+        nu=[torch.zeros_like(p, dtype=torch.float32, memory_format=torch.preserve_format)
+            for p in params],
     )
 
 
 def adam_apply(
     params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     state: AdamState, lr: float, b1: float = 0.9, b2: float = 0.999,
+    group=None,
 ) -> None:
     """One Keras-form Adam step, in place on params and state: on the card
-    one kernel launch over every leaf."""
+    one kernel launch over every leaf. With a group, the gradients are
+    first averaged over the ranks."""
+    grads = reduce_grads(grads, group)
+    if params[0].dtype == torch.float64:
+        return _float32_apply(adam_apply, params, grads, state, lr, b1, b2)
     if state.table is None and params[0].device.type == "cuda":
         state.table = adam_op.LeafTable(params, state.mu, state.nu)
     adam_op.adam_apply(params, grads, state.mu, state.nu, state.count, lr, b1, b2,
@@ -85,13 +148,15 @@ class RMSpropState:
 
 def rmsprop_init(params: Sequence[torch.Tensor]) -> RMSpropState:
     return RMSpropState(
-        nu=[torch.zeros_like(p, memory_format=torch.preserve_format) for p in params])
+        nu=[torch.zeros_like(p, dtype=torch.float32, memory_format=torch.preserve_format)
+            for p in params])
 
 
 @torch.no_grad()
 def rmsprop_apply(
     params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor | None],
     state: RMSpropState, lr: float, decay: float = 0.9, eps: float = 1e-7,
+    group=None,
 ) -> None:
     """One RMSprop step, in place, in the float operations of optax's
     scale_by_rms(eps_in_sqrt=True) then scale_by_learning_rate:
@@ -100,7 +165,11 @@ def rmsprop_apply(
 
     A None gradient is a zero one (the frozen leaves of a masked update):
     its nu decays, nu = decay * nu, which is what the formula gives exactly
-    for g = 0, and its parameter keeps every bit (p + (-lr * 0) = p)."""
+    for g = 0, and its parameter keeps every bit (p + (-lr * 0) = p). With a
+    group, the gradients are first averaged over the ranks."""
+    grads = reduce_grads(grads, group)
+    if params and params[0].dtype == torch.float64:
+        return _float32_apply(rmsprop_apply, params, grads, state, lr, decay, eps)
     live = [i for i, g in enumerate(grads) if g is not None]
     frozen = [state.nu[i] for i, g in enumerate(grads) if g is None]
     if frozen:

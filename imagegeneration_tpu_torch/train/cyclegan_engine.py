@@ -1,7 +1,8 @@
 """CycleGAN training engine: paired loader, auto-resume, loss history.
 
 The counterpart of imagegeneration_tpu/train/cyclegan_engine.py (itself the
-reference class `CycleGAN`, cyclegan/CycleGAN.py:211-425), on one device:
+reference class `CycleGAN`, cyclegan/CycleGAN.py:211-425), on one device or
+on the ranks of a data-parallel group:
 
 - the directory scaffold (`path`, `checkpoints/`, `models/generator_{f,g}/`)
   is created and never wiped;
@@ -26,6 +27,15 @@ machine) the engine prints one line when it is built and draws neither.
 The data path is `train/feed.EpochFeed`: both domains resident on the
 device when together they fit, streamed from the host otherwise, each in
 the order of its own permutation.
+
+Data parallelism (`mesh`, a core.mesh.DataGroup): as in the SNDCGAN
+engine, `batch_size` is global, rank 0 alone makes the scaffold (a barrier
+follows) and writes every artifact, every rank restores, the state is
+broadcast from rank 0 and its digest checked after every epoch, and the
+epoch's metrics are averaged over the ranks with one all-reduce.
+`host_sharded_data=True` with folders: each rank decodes only its shard of
+each domain's files; rank 0 prints once per epoch how many rows the epoch
+leaves out.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import preview as previewlib
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import cyclegan as modellib
+from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.train import cyclegan_step as steplib
 from imagegeneration_tpu_torch.train import feed as feedlib
 
@@ -69,22 +80,28 @@ class CycleGANEngine:
         n_res_blocks: int = 9,
         dtype: torch.dtype = torch.float32,
         seed: int = rnglib.DEFAULT_MODEL_SEED,
+        mesh=None,
+        host_sharded_data: bool = False,
     ) -> None:
-        for d in ("", path.join("models", "generator_f"), path.join("models", "generator_g")):
-            os.makedirs(path.join(path_like, d), exist_ok=True)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        if self.is_main:
+            for d in ("", path.join("models", "generator_f"), path.join("models", "generator_g")):
+                os.makedirs(path.join(path_like, d), exist_ok=True)
+        dp.barrier(mesh)  # no rank touches the directory before rank 0 has made it
         self.path = path_like
         self.preview_output = path.join(path_like, "preview")
         self.device = torch.device(device)
         w, h = image_size
+        shard = (mesh.rank, mesh.world) if host_sharded_data and mesh else None
         if isinstance(dataset1_path, (str, os.PathLike)):
-            dataset1_path = datalib.ImageFolderDataset(dataset1_path, (h, w), labeled=False)
+            dataset1_path = datalib.ImageFolderDataset(dataset1_path, (h, w), labeled=False,
+                                                       shard=shard)
         if isinstance(dataset2_path, (str, os.PathLike)):
-            dataset2_path = datalib.ImageFolderDataset(dataset2_path, (h, w), labeled=False)
+            dataset2_path = datalib.ImageFolderDataset(dataset2_path, (h, w), labeled=False,
+                                                       shard=shard)
         self.loader = datalib.PairedDataset(dataset1_path, dataset2_path)
         self.batch_size = batch_size
-        self.num_batches = self.loader.num_batches(batch_size)
-        if self.num_batches < 1:
-            raise ValueError(f"the two domains have no common full batch of {batch_size}")
         self.cfg = steplib.CycleGANTrainConfig(
             model=modellib.CycleGANConfig(
                 image_size=(h, w, 3), base_width=base_width,
@@ -95,12 +112,15 @@ class CycleGANEngine:
         )
         self.state = steplib.init_state(self.cfg, self.device)
         self.feed = feedlib.EpochFeed(
-            [self.loader.ds_x, self.loader.ds_y], self.cfg, self.device, steplib)
+            [self.loader.ds_x, self.loader.ds_y], self.cfg, self.device, steplib, mesh)
         self.resident = self.feed.resident
+        self.num_batches = self.feed.num_batches
+        if self.num_batches < 1:
+            raise ValueError(f"the two domains have no common full batch of {batch_size}")
         self.translate_g, self.translate_f = steplib.make_translators()
         self.last_epoch_metrics: dict[str, float] | None = None
 
-        self.plots = previewlib.matplotlib_available(
+        self.plots = self.is_main and previewlib.matplotlib_available(
             f"the preview sheet {self.preview_output}.pdf or plot_line_plot_loss.png")
         self.losses = metricslib.LossHistory(path.join(path_like, "losses.pickle"), LOSS_KEYS)
         self.ckpt_manager = ckptlib.CheckpointManager(
@@ -110,11 +130,16 @@ class CycleGANEngine:
         if latest is not None:
             self.state.load_state_dict(self.ckpt_manager.restore())
             self.epoch = latest
-            print("Latest checkpoint restored!!")
         else:
             self.epoch = 0
-            print("No checkpoints were restored!!")
-        print("Initialized CycleGAN SUCCESS!")
+        self.last_digest = dp.replicate_state(self.state, mesh)
+        self._say("Latest checkpoint restored!!" if latest is not None
+                  else "No checkpoints were restored!!")
+        self._say("Initialized CycleGAN SUCCESS!")
+
+    def _say(self, text: str) -> None:
+        if self.is_main:
+            print(text, flush=True)
 
     # ------------------------------------------------------------- preview
     def plot_history(self) -> None:
@@ -122,15 +147,28 @@ class CycleGANEngine:
 
     def _preview(self, perms, epoch: int) -> None:
         """The first two images of the epoch's last X and Y batches; the X
-        pair goes through both generators (CycleGAN.py:408-409)."""
-        nb, bs = self.num_batches, self.batch_size
-        bx01, by01 = (ds.images[p[(nb - 1) * bs:nb * bs][:2]].astype(np.float32) / 127.5 - 1.0
+        pair goes through both generators (CycleGAN.py:408-409); under data
+        parallelism, rank 0's rows of those batches."""
+        last = self.num_batches - 1
+        bx01, by01 = (ds.images[self.feed.rows_of(p, last)[:2]].astype(np.float32) / 127.5 - 1.0
                       for ds, p in zip(self.feed.datasets, perms))
         x = torch.from_numpy(bx01).to(self.device)
         out_g = self.translate_g(self.state, x).cpu().numpy()
         out_f = self.translate_f(self.state, x).cpu().numpy()
         previewlib.translation_sheet(bx01, by01, out_g, out_f, epoch,
                                      self.preview_output + ".pdf")
+
+    def _save_artifacts(self, perms, epoch: int, checkpoint_frequency: int) -> None:
+        self.ckpt_manager.save(self.epoch, self.state.state_dict())
+        if self.plots:
+            self._preview(perms, epoch)
+        if epoch % checkpoint_frequency == 0:
+            models = path.join(self.path, "models")
+            for name, gen in (("f", self.state.gen_f), ("g", self.state.gen_g)):
+                ckptlib.export_params(
+                    path.join(models, f"generator_{name}", f"gen_weights_{name}-{epoch}.msgpack"),
+                    bridge.export_variables(gen))
+        self.losses.save()
 
     # --------------------------------------------------------------- train
     def train(self, epochs: int, checkpoint_frequency: int = 5) -> None:
@@ -141,19 +179,25 @@ class CycleGANEngine:
         for _ in range(epochs):
             watch.epoch_start()
             epoch = self.epoch
-            print("####### Epoch", epoch, "#######")
+            self._say(f"####### Epoch {epoch} #######")
             perms = [ds.permutation(epoch) for ds in self.feed.datasets]
             self.state, metrics = self.feed.run(self.state, perms)
+            metrics = dp.reduce_metrics(metrics, self.mesh)
             # The epoch's one host sync: the device finishes its steps here.
             agg = {k: float(v.float().mean()) for k, v in metrics.items()}
             n_steps = self.num_batches
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
-            metricslib.write_metrics_jsonl(
-                path.join(self.path, "perf.jsonl"),
-                {"epoch": epoch, "device": platform.device_name(self.device), **perf})
+            self.last_digest = dp.check_replicated(self.state, self.mesh)
+            if self.feed.dropped:
+                self._say(f"host-sharded data: {self.feed.dropped} rows left out this epoch")
+            if self.is_main:
+                metricslib.write_metrics_jsonl(
+                    path.join(self.path, "perf.jsonl"),
+                    {"epoch": epoch, "device": platform.device_name(self.device),
+                     "ranks": 1 if self.mesh is None else self.mesh.world, **perf})
             self.losses.extend({k: [agg[k]] for k in LOSS_KEYS})
             self.last_epoch_metrics = agg
-            print(
+            self._say(
                 f">Gen losses (g/f): {agg['gen_g_loss']:.4f}/{agg['gen_f_loss']:.4f},"
                 f" identity: {agg['identity_loss_g']:.4f}/{agg['identity_loss_f']:.4f},"
                 f" cycle: {agg['total_cycle_loss']:.4f},"
@@ -161,15 +205,8 @@ class CycleGANEngine:
                 f" {perf['steps_per_sec']:.2f} steps/s,"
                 f" passed time: {strftime('%H:%M:%S', gmtime(perf_counter() - start_time))}")
             self.epoch = epoch + 1
-            self.ckpt_manager.save(self.epoch, self.state.state_dict())
-            if self.plots:
-                self._preview(perms, epoch)
-            if epoch % checkpoint_frequency == 0:
-                models = path.join(self.path, "models")
-                for name, gen in (("f", self.state.gen_f), ("g", self.state.gen_g)):
-                    ckptlib.export_params(
-                        path.join(models, f"generator_{name}", f"gen_weights_{name}-{epoch}.msgpack"),
-                        bridge.export_variables(gen))
-            self.losses.save()
+            if self.is_main:
+                self._save_artifacts(perms, epoch, checkpoint_frequency)
+            dp.barrier(self.mesh)  # a resume on any rank finds the checkpoint
         if self.plots:
             self.plot_history()

@@ -25,6 +25,13 @@ graph, through the Adam kernel on a card.
 Parameters and moments are updated in place (PyTorch idiom; the JAX step
 returns new arrays). No host sync happens inside a step: the step counter,
 Adam's alpha and the metrics stay on the device.
+
+Data parallelism (`group`, a core.mesh.DataGroup; parallel/dp.py): each
+rank takes its block of rows of both global batches, and the gradients are
+averaged over the ranks before each of the four Adam applies. InstanceNorm
+normalizes each sample alone, so the forward needs no collective; its dγ
+and dβ are summed over the rank's own samples and then averaged with the
+other gradients.
 """
 
 from __future__ import annotations
@@ -91,7 +98,7 @@ def init_state(cfg: CycleGANTrainConfig, device: torch.device | str) -> CycleGAN
     models = cyclegan.make_models(
         cfg.model, [chain.generator("params", step=i) for i in range(4)])
     for m in models:
-        m.to(device)
+        common.place(m, device, cfg.model.dtype)
     gen_g, gen_f, disc_x, disc_y = models
     return CycleGANState(
         step=torch.zeros((), dtype=torch.int64, device=device),
@@ -131,10 +138,11 @@ def generator_adv_loss(logits_fake: torch.Tensor) -> torch.Tensor:
     return common.bce_logits_mean(torch.ones_like(logits_fake), logits_fake)
 
 
-def make_train_step(cfg: CycleGANTrainConfig):
+def make_train_step(cfg: CycleGANTrainConfig, group=None):
     """Build `train_step(state, batch_x_u8, batch_y_u8) -> (state, metrics)`.
-    Batches: (B, H, W, C) uint8 on the state's device. Metrics are 0-d
-    float32 device tensors, keyed by METRIC_KEYS."""
+    Batches: (B, H, W, C) uint8 on the state's device (with a group, this
+    rank's rows of the global batches). Metrics are 0-d float32 device
+    tensors, keyed by METRIC_KEYS."""
     dt = cfg.model.dtype
 
     def train_step(state: CycleGANState, batch_x_u8: torch.Tensor,
@@ -172,10 +180,10 @@ def make_train_step(cfg: CycleGANTrainConfig):
         d_grads = torch.autograd.grad(disc_x_loss + disc_y_loss, dx + dy)
 
         lr, b1 = cfg.learning_rate, cfg.beta1
-        common.adam_apply(gg, gg_grads, state.gg_opt, lr, b1=b1)
-        common.adam_apply(gf, gf_grads, state.gf_opt, lr, b1=b1)
-        common.adam_apply(dx, d_grads[:len(dx)], state.dx_opt, lr, b1=b1)
-        common.adam_apply(dy, d_grads[len(dx):], state.dy_opt, lr, b1=b1)
+        common.adam_apply(gg, gg_grads, state.gg_opt, lr, b1=b1, group=group)
+        common.adam_apply(gf, gf_grads, state.gf_opt, lr, b1=b1, group=group)
+        common.adam_apply(dx, d_grads[:len(dx)], state.dx_opt, lr, b1=b1, group=group)
+        common.adam_apply(dy, d_grads[len(dx):], state.dy_opt, lr, b1=b1, group=group)
 
         with torch.no_grad():
             state.step.add_(1)
@@ -200,12 +208,13 @@ def make_translators():
     return translator("gen_g"), translator("gen_f")
 
 
-def make_epoch_runner(cfg: CycleGANTrainConfig):
+def make_epoch_runner(cfg: CycleGANTrainConfig, group=None):
     """`run_epoch(state, images_x_u8, images_y_u8, perm_x, perm_y) -> (state,
     metrics)` over two device-resident uint8 datasets (N, H, W, C) and two
-    (nb, B) device index tables; metrics come back stacked per batch, still
-    on the device."""
-    step_fn = make_train_step(cfg)
+    (nb, B) device index tables (with a group, this rank's columns of the
+    global tables); metrics come back stacked per batch, still on the
+    device."""
+    step_fn = make_train_step(cfg, group)
 
     def run_epoch(state: CycleGANState, images_x_u8: torch.Tensor,
                   images_y_u8: torch.Tensor, perm_x: torch.Tensor,

@@ -1,7 +1,8 @@
 """SNDCGAN training engine: epoch loop, checkpoint/resume, loss history.
 
 The counterpart of imagegeneration_tpu/train/sndcgan_engine.py (itself the
-reference class `SNDCGAN`, sndcgan/SNDCGAN.py:148-335), on one device:
+reference class `SNDCGAN`, sndcgan/SNDCGAN.py:148-335), on one device or
+on the ranks of a data-parallel group:
 
 - the constructor wipes the output directory unless continuing, loads
   `losses.pickle`, keeps `max_to_keep=2` checkpoints and restores the
@@ -23,7 +24,18 @@ dataset fits, streamed from the host otherwise. As in the JAX engine, a
 resident epoch takes its order from the engine's "data" stream and a
 streamed one from the dataset's own.
 
-Not here yet: multi-device training.
+Data parallelism (`mesh`, a core.mesh.DataGroup; the JAX engine's `mesh=`):
+every rank builds the engine; `batch_size` is the global batch and each
+rank trains on its rows (train/feed.py, parallel/dp.py). Rank 0 alone
+wipes the directory (the others wait at a barrier before they touch it)
+and writes every artifact: checkpoints, exports, losses.pickle,
+perf.jsonl (global images/s) and figures. Every rank restores on
+`continue_`; the state is then broadcast from rank 0, and after every
+epoch the ranks' state digests are checked equal (`last_digest`). The
+epoch's metrics are averaged over the ranks with one all-reduce.
+`host_sharded_data=True` with a folder: each rank decodes only its shard
+of the files (core/data.py), and rank 0 prints once per epoch how many
+rows the epoch leaves out.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import preview as previewlib
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import sndcgan as modellib
+from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.train import feed as feedlib
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 
@@ -74,21 +87,24 @@ class SNDCGANEngine:
         dtype: torch.dtype = torch.float32,
         seed: int = rnglib.DEFAULT_MODEL_SEED,
         live_output: str = "live",
+        mesh=None,
+        host_sharded_data: bool = False,
     ) -> None:
-        if not continue_ and os.path.exists(dir_path):
-            shutil.rmtree(dir_path)
-        os.makedirs(dir_path, exist_ok=True)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        if self.is_main:
+            if not continue_ and os.path.exists(dir_path):
+                shutil.rmtree(dir_path)
+            os.makedirs(dir_path, exist_ok=True)
+        dp.barrier(mesh)  # no rank touches the directory before rank 0 has made it
         self.dir_path = dir_path
         self.device = torch.device(device)
         if isinstance(dataset, (str, os.PathLike)):
-            dataset = datalib.ImageFolderDataset(dataset, image_size[:2], labeled=True)
+            shard = (mesh.rank, mesh.world) if host_sharded_data and mesh else None
+            dataset = datalib.ImageFolderDataset(dataset, image_size[:2], labeled=True,
+                                                 shard=shard)
         self.dataset = dataset
         self.batch_size = batch_size
-        if len(dataset.images) < batch_size:
-            raise ValueError(
-                f"dataset of {len(dataset.images)} images has no full batch "
-                f"of {batch_size}"
-            )
         self.cfg = steplib.SNDCGANTrainConfig(
             model=modellib.SNDCGANConfig(
                 image_size=image_size, z_size=z_size, dropout_rate=dropout,
@@ -104,14 +120,17 @@ class SNDCGANEngine:
         )
         self.chain = rnglib.KeyChain(seed)
         self.state = steplib.init_state(self.cfg, self.device)
-        self.feed = feedlib.EpochFeed([dataset], self.cfg, self.device, steplib)
+        self.feed = feedlib.EpochFeed([dataset], self.cfg, self.device, steplib, mesh)
         self.resident = self.feed.resident
         self.num_batches = self.feed.num_batches
+        if self.num_batches < 1:
+            raise ValueError(f"dataset of {len(dataset.images)} images has no full batch "
+                             f"of {batch_size}")
         self._sample = steplib.make_sampler(self.cfg)
         self.last_epoch_metrics: dict[str, float] | None = None
 
         self.live_preview_file = live_output + ".pdf"
-        self.plots = previewlib.matplotlib_available(
+        self.plots = self.is_main and previewlib.matplotlib_available(
             f"the live preview {self.live_preview_file} or plot_line_plot_loss.png")
         self.losses = metricslib.LossHistory(
             path.join(dir_path, "losses.pickle"), LOSS_KEYS
@@ -119,18 +138,23 @@ class SNDCGANEngine:
         self.ckpt_manager = ckptlib.CheckpointManager(
             path.join(dir_path, "checkpoints"), max_to_keep=2
         )
-        if continue_ and self.ckpt_manager.latest_epoch() is not None:
+        restored = continue_ and self.ckpt_manager.latest_epoch() is not None
+        if restored:
             self.state.load_state_dict(self.ckpt_manager.restore())
             self.start_epoch = self.ckpt_manager.latest_epoch() + 1
-            print("Latest checkpoint restored!!")
         else:
             self.start_epoch = 0
-            print("No checkpoints were restored!!")
+        self.last_digest = dp.replicate_state(self.state, mesh)
+        self._say("Latest checkpoint restored!!" if restored else "No checkpoints were restored!!")
 
         n_g = sum(p.numel() for p in self.state.gen.parameters())
         n_d = sum(p.numel() for p in self.state.disc.parameters())
-        print(f"Generator params: {n_g:,} | Discriminator params: {n_d:,}")
-        print("\nInitialized SNDCGAN successfully!\n")
+        self._say(f"Generator params: {n_g:,} | Discriminator params: {n_d:,}")
+        self._say("\nInitialized SNDCGAN successfully!\n")
+
+    def _say(self, text: str) -> None:
+        if self.is_main:
+            print(text, flush=True)
 
     def sample(self, z: torch.Tensor) -> np.ndarray:
         """G(z) in [0, 1], (B, H, W, C) (generator_output semantics)."""
@@ -165,14 +189,20 @@ class SNDCGANEngine:
             else:
                 perm = self.dataset.permutation(epoch)
             self.state, metrics = self.feed.run(self.state, [perm])
+            metrics = dp.reduce_metrics(metrics, self.mesh)
             n_steps = self.num_batches
             # The epoch's one host sync: the device finishes its steps here.
             agg = {k: float(v.float().mean()) for k, v in metrics.items()}
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
-            metricslib.write_metrics_jsonl(
-                path.join(self.dir_path, "perf.jsonl"),
-                {"epoch": epoch, "device": platform.device_name(self.device), **perf},
-            )
+            self.last_digest = dp.check_replicated(self.state, self.mesh)
+            if self.feed.dropped:
+                self._say(f"host-sharded data: {self.feed.dropped} rows left out this epoch")
+            if self.is_main:
+                metricslib.write_metrics_jsonl(
+                    path.join(self.dir_path, "perf.jsonl"),
+                    {"epoch": epoch, "device": platform.device_name(self.device),
+                     "ranks": 1 if self.mesh is None else self.mesh.world, **perf},
+                )
             local["epoch"].append(epoch)
             local["avg_g_loss"].append(agg["g_loss"])
             local["avg_d_loss"].append(agg["d_loss"])
@@ -189,7 +219,7 @@ class SNDCGANEngine:
                     agg["d_loss_fake"], perf["steps_per_sec"],
                 )
             )
-            print(info_text)
+            self._say(info_text)
             if self.plots:  # the per-epoch preview (SNDCGAN.py:311-314)
                 gen = self.chain.generator("preview", self.device, step=epoch)
                 z = rnglib.uniform_z(gen, 3, self.cfg.model.z_size, self.device)
@@ -197,4 +227,6 @@ class SNDCGANEngine:
             if epoch % checkpoint_frequency == 0:
                 self.losses.extend(local)
                 local = {k: [] for k in LOSS_KEYS}
-                self._save_artifacts(epoch)
+                if self.is_main:
+                    self._save_artifacts(epoch)
+                dp.barrier(self.mesh)  # a resume on any rank finds the checkpoint

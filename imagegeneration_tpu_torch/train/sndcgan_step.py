@@ -22,6 +22,17 @@ returns new arrays); `train_step` returns the same state object.
 
 No host sync happens inside a step: the step counter, the key words, Adam's
 alpha and the metrics all stay on the device.
+
+Data parallelism (`group`, a core.mesh.DataGroup; parallel/dp.py): each
+rank takes its block of rows of the global batch. `z` is drawn for the
+global batch from `z_gen`, seeded alike on every rank, and each rank keeps
+its rows; the dropout key words are the same on every rank and each site's
+mask is the global batch's at the rank's rows; the generator's BatchNorm
+takes global statistics; the gradients are averaged over the ranks before
+each of the three Adam applies, and the Adam kernel then runs on every
+rank over the same gradients, so the replicated state stays bit-equal.
+The metrics are the rank's own means: the engine averages them over the
+ranks once per epoch.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import sndcgan
+from imagegeneration_tpu_torch.nn.layers import sync_batch_norm
 from imagegeneration_tpu_torch.train import common
 
 N_SITES = 3 * sndcgan.N_DROPOUT_SITES
@@ -100,8 +112,8 @@ def init_state(cfg: SNDCGANTrainConfig, device: torch.device | str) -> SNDCGANSt
     chain = rnglib.KeyChain(cfg.seed)
     gen = sndcgan.Generator(cfg.model, chain.generator("params", step=0))
     disc = sndcgan.Discriminator(cfg.model, chain.generator("params", step=1))
-    gen.to(device)
-    disc.to(device)
+    common.place(gen, device, cfg.model.dtype)
+    common.place(disc, device, cfg.model.dtype)
     return SNDCGANState(
         step=torch.zeros((), dtype=torch.int64, device=device),
         gen=gen,
@@ -112,11 +124,12 @@ def init_state(cfg: SNDCGANTrainConfig, device: torch.device | str) -> SNDCGANSt
     )
 
 
-def make_train_step(cfg: SNDCGANTrainConfig):
+def make_train_step(cfg: SNDCGANTrainConfig, group=None):
     """Build `train_step(state, batch_u8, z=None, kw=None) -> (state,
     metrics)`. batch_u8: (B, H, W, C) uint8 on the state's device; z: (B,
     z_size) float32; kw: (21, 2) int64 dropout key words. Metrics are 0-d
-    float32 device tensors."""
+    float32 device tensors. With a group, batch_u8 is this rank's rows of
+    the global batch and z (drawn or passed) covers the global batch."""
     chain = rnglib.KeyChain(cfg.seed)
     mcfg = cfg.model
     hinge = cfg.loss == "hinge"
@@ -137,43 +150,51 @@ def make_train_step(cfg: SNDCGANTrainConfig):
         gen, disc, device = state.gen, state.disc, state.device
         g_params = list(gen.parameters())
         d_params = list(disc.parameters())
+        local = batch_u8.shape[0]
+        first, global_batch = common.shard_rows(group, local)
+        rows = None if group is None else (first, global_batch)
+        sync_batch_norm(gen, group)
         x_real = normalize(batch_u8, mcfg.dtype).permute(0, 3, 1, 2)
         if kw is None:
             kw = chain.dropout_kw(state.step, N_SITES)
         if z is None:
-            z = rnglib.uniform_z(state.z_gen, batch_u8.shape[0], mcfg.z_size, device)
+            z = rnglib.uniform_z(state.z_gen, global_batch, mcfg.z_size, device)
+        z = common.global_draw(z, (first, global_batch), local)
         n = sndcgan.N_DROPOUT_SITES
         kw_g, kw_real, kw_fake = kw[:n], kw[n:2 * n], kw[2 * n:3 * n]
 
+        def apply(params, grads, opt, lr):
+            common.adam_apply(params, grads, opt, lr, group=group)
+
         # ---- Generator update (D at the old `u`, not written).
         fake = gen(z, train=True)
-        logits_g = disc(fake, kw_g, update_sn=False)
+        logits_g = disc(fake, kw_g, update_sn=False, rows=rows)
         if hinge:
             g_loss = common.hinge_g_loss(logits_g)
         else:
             g_loss = common.bce_logits_mean(torch.ones_like(logits_g), logits_g)
         g_grads = torch.autograd.grad(g_loss, g_params)
-        common.adam_apply(g_params, g_grads, state.g_opt, cfg.lr_gen)
+        apply(g_params, g_grads, state.g_opt, cfg.lr_gen)
         fake = fake.detach()  # the PRE-update generator's batch
 
         if cfg.d_updates == 1:
-            logits_real = disc(x_real, kw_real, update_sn=True)
-            logits_fake = disc(fake, kw_fake, update_sn=False)
+            logits_real = disc(x_real, kw_real, update_sn=True, rows=rows)
+            logits_fake = disc(fake, kw_fake, update_sn=False, rows=rows)
             d_loss_real = loss_real(logits_real)
             d_loss_fake = loss_fake(logits_fake)
             d_grads = torch.autograd.grad(d_loss_real + d_loss_fake, d_params)
-            common.adam_apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
+            apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
         else:
             # ---- D update #1: real batch, writes the new `u`.
-            logits_real = disc(x_real, kw_real, update_sn=True)
+            logits_real = disc(x_real, kw_real, update_sn=True, rows=rows)
             d_loss_real = loss_real(logits_real)
             d_grads = torch.autograd.grad(d_loss_real, d_params)
-            common.adam_apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
+            apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
             # ---- D update #2: stale fake batch on the real-updated D.
-            logits_fake = disc(fake, kw_fake, update_sn=False)
+            logits_fake = disc(fake, kw_fake, update_sn=False, rows=rows)
             d_loss_fake = loss_fake(logits_fake)
             d_grads = torch.autograd.grad(d_loss_fake, d_params)
-            common.adam_apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
+            apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
 
         with torch.no_grad():
             state.step.add_(1)
@@ -202,11 +223,12 @@ def make_sampler(cfg: SNDCGANTrainConfig):
     return sample
 
 
-def make_epoch_runner(cfg: SNDCGANTrainConfig):
+def make_epoch_runner(cfg: SNDCGANTrainConfig, group=None):
     """`run_epoch(state, images_u8, perm) -> (state, metrics)` over a
     device-resident uint8 dataset (N, H, W, C) and a (nb, B) device index
-    table; metrics come back stacked per batch, still on the device."""
-    step_fn = make_train_step(cfg)
+    table (with a group, this rank's columns of the global table); metrics
+    come back stacked per batch, still on the device."""
+    step_fn = make_train_step(cfg, group)
 
     def run_epoch(state: SNDCGANState, images_u8: torch.Tensor, perm: torch.Tensor):
         per_step = []

@@ -1,7 +1,8 @@
 """WGAN training engine: epoch loop, n_critic history windows, checkpoints.
 
 The counterpart of imagegeneration_tpu/train/wgan_engine.py (itself the
-reference class `WGAN`, wasserstein_gan/WGAN.py:155-326), on one device:
+reference class `WGAN`, wasserstein_gan/WGAN.py:155-326), on one device or
+on the ranks of a data-parallel group:
 
 - the directory scaffold `g_models/`, `c_models/`, `samples/` is wiped
   unless `load` (WGAN.py:161-167);
@@ -31,6 +32,14 @@ machine) the engine prints one line when it is built and draws neither.
 The data path is `train/feed.EpochFeed`: resident on the device when the
 dataset fits, streamed from the host otherwise, both in the order of the
 dataset's own permutation, so they train alike.
+
+Data parallelism (`mesh`, a core.mesh.DataGroup): as in the SNDCGAN
+engine, `batch_size` is global, rank 0 alone wipes the scaffold (a barrier
+follows) and writes every artifact, every rank restores on `load`, the
+state is broadcast from rank 0 and its digest checked after every epoch,
+and the epoch's metrics are averaged over the ranks with one all-reduce.
+`host_sharded_data=True` with a folder: each rank decodes only its shard of
+the files; rank 0 prints once per epoch how many rows the epoch leaves out.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import preview as previewlib
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.models import wgan as modellib
+from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.train import feed as feedlib
 from imagegeneration_tpu_torch.train import wgan_step as steplib
 
@@ -73,22 +83,26 @@ class WGANEngine:
         base_width: int = 512,
         dtype: torch.dtype = torch.float32,
         seed: int = rnglib.DEFAULT_MODEL_SEED,
+        mesh=None,
+        host_sharded_data: bool = False,
     ) -> None:
         self.path = path_like
         self.save_interval = save_interval
-        if not load and path.exists(path_like):
-            shutil.rmtree(path_like)
-        for sub in ("g_models", "c_models", "samples"):
-            os.makedirs(path.join(path_like, sub), exist_ok=True)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        if self.is_main:
+            if not load and path.exists(path_like):
+                shutil.rmtree(path_like)
+            for sub in ("g_models", "c_models", "samples"):
+                os.makedirs(path.join(path_like, sub), exist_ok=True)
+        dp.barrier(mesh)  # no rank touches the directory before rank 0 has made it
         self.device = torch.device(device)
         if isinstance(dataset, (str, os.PathLike)):
+            shard = (mesh.rank, mesh.world) if host_sharded_data and mesh else None
             dataset = datalib.ImageFolderDataset(
-                dataset, image_size[:2], labeled=False, follow_links=True)
+                dataset, image_size[:2], labeled=False, follow_links=True, shard=shard)
         self.dataset = dataset
         self.batch_size = batch_size
-        if dataset.num_batches(batch_size) < 1:
-            raise ValueError(
-                f"dataset of {len(dataset)} images has no full batch of {batch_size}")
         self.cfg = steplib.WGANTrainConfig(
             model=modellib.WGANConfig(image_size=image_size, base_width=base_width,
                                       dtype=dtype),
@@ -100,15 +114,18 @@ class WGANEngine:
         self.chain = rnglib.KeyChain(seed)
         self.state = steplib.init_state(self.cfg, self.device)
         self.latent_dim = self.cfg.model.z_size
-        self.feed = feedlib.EpochFeed([dataset], self.cfg, self.device, steplib)
+        self.feed = feedlib.EpochFeed([dataset], self.cfg, self.device, steplib, mesh)
         self.resident = self.feed.resident
         self.num_batches = self.feed.num_batches
+        if self.num_batches < 1:
+            raise ValueError(
+                f"dataset of {len(dataset)} images has no full batch of {batch_size}")
         self._sample = steplib.make_sampler(self.cfg)
         self.last_epoch_metrics: dict[str, float] | None = None
         self._c1_tmp: list[float] = []
         self._c2_tmp: list[float] = []
 
-        self.plots = previewlib.matplotlib_available(
+        self.plots = self.is_main and previewlib.matplotlib_available(
             "samples/generated_plot_<epoch>.jpg or plot_line_plot_loss_<epoch>.png")
         self.loss_hist = metricslib.LossHistory(path.join(path_like, "stats.pickle"), HIST_KEYS)
         self.ckpt_manager = ckptlib.CheckpointManager(
@@ -117,10 +134,15 @@ class WGANEngine:
         if load and latest is not None:
             self.state.load_state_dict(self.ckpt_manager.restore())
             self.epoch = latest
-            print("Restored WGAN state at epoch", self.epoch)
+            self._say(f"Restored WGAN state at epoch {self.epoch}")
         else:
             self.epoch = 0
-        print("Initialized WGAN SUCCESS!")
+        self.last_digest = dp.replicate_state(self.state, mesh)
+        self._say("Initialized WGAN SUCCESS!")
+
+    def _say(self, text: str) -> None:
+        if self.is_main:
+            print(text, flush=True)
 
     # ------------------------------------------------------------- sampling
     def generate_fake_samples(self, n_samples: int) -> np.ndarray:
@@ -189,19 +211,25 @@ class WGANEngine:
         for _ in range(epochs - self.epoch):
             self.epoch += 1
             watch.epoch_start()
-            print(f"####### Epoch {self.epoch} "
-                  f"Time: {strftime('%H:%M:%S', gmtime(perf_counter() - start_time))} #######")
+            self._say(f"####### Epoch {self.epoch} "
+                      f"Time: {strftime('%H:%M:%S', gmtime(perf_counter() - start_time))} #######")
             self.state, metrics = self.feed.run(
                 self.state, [self.dataset.permutation(self.epoch)])
+            metrics = dp.reduce_metrics(metrics, self.mesh)
             # The epoch's one host sync: the device finishes its steps here.
             c1, c2, g, did = torch.stack(
                 [metrics[k].float() for k in steplib.METRIC_KEYS]).cpu().numpy()
             self._fold_metrics(c1, c2, g, did)
             n_steps = len(c1)
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
-            metricslib.write_metrics_jsonl(
-                path.join(self.path, "perf.jsonl"),
-                {"epoch": self.epoch, "device": platform.device_name(self.device), **perf})
+            self.last_digest = dp.check_replicated(self.state, self.mesh)
+            if self.feed.dropped:
+                self._say(f"host-sharded data: {self.feed.dropped} rows left out this epoch")
+            if self.is_main:
+                metricslib.write_metrics_jsonl(
+                    path.join(self.path, "perf.jsonl"),
+                    {"epoch": self.epoch, "device": platform.device_name(self.device),
+                     "ranks": 1 if self.mesh is None else self.mesh.world, **perf})
             first_step = int(self.state.step) - n_steps + 1
             self.last_epoch_metrics = {
                 "c_loss_real": float(c1.mean()), "c_loss_fake": float(c2.mean()),
@@ -211,9 +239,11 @@ class WGANEngine:
                 "gan_update_steps": [first_step + int(i) for i in np.flatnonzero(did > 0.5)],
             }
             if self.loss_hist.data["c1_hist"]:
-                print(">RealLoss=%.3f, FakeLoss=%.3f GeneratorLoss=%.3f | %.2f steps/s" % (
+                self._say(">RealLoss=%.3f, FakeLoss=%.3f GeneratorLoss=%.3f | %.2f steps/s" % (
                     self.loss_hist.data["c1_hist"][-1], self.loss_hist.data["c2_hist"][-1],
                     self.loss_hist.data["g_hist"][-1], perf["steps_per_sec"]))
-            self.summarize_performance(self.epoch)
+            if self.is_main:
+                self.summarize_performance(self.epoch)
+            dp.barrier(self.mesh)  # a resume on any rank finds the checkpoint
         if self.plots:
             self.plot_history()

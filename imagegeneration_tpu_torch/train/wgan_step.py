@@ -35,6 +35,15 @@ No host sync happens inside a step. The cadence is deterministic, so
 branches with lax.cond); the step counter, the losses and
 `did_gan_update` are device tensors, and `g_loss` is float32 0 on steps
 without a gan update.
+
+Data parallelism (`group`, a core.mesh.DataGroup; parallel/dp.py): each
+rank takes its block of rows of the global batch; z_fake, the gp
+interpolation weights and z_gan are drawn for the global batch, in the
+one-device order, from `z_gen`, seeded alike on every rank, and each rank
+keeps its rows; both models' BatchNorms take global statistics in train
+mode; the gradients are averaged over the ranks before every RMSprop
+apply; the weight clip stays elementwise on each rank's replica, and the
+n_critic cadence is a host integer that is the same on every rank.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import wgan
+from imagegeneration_tpu_torch.nn.layers import sync_batch_norm
 from imagegeneration_tpu_torch.train import common
 
 METRIC_KEYS = ("c_loss_real", "c_loss_fake", "g_loss", "did_gan_update")
@@ -104,8 +114,8 @@ def init_state(cfg: WGANTrainConfig, device: torch.device | str) -> WGANState:
     chain = rnglib.KeyChain(cfg.seed)
     gen, critic = wgan.make_models(
         cfg.model, (chain.generator("params", step=0), chain.generator("params", step=1)))
-    gen.to(device)
-    critic.to(device)
+    common.place(gen, device, cfg.model.dtype)
+    common.place(critic, device, cfg.model.dtype)
     c_params = list(critic.parameters())
     return WGANState(
         step=torch.zeros((), dtype=torch.int64, device=device),
@@ -130,12 +140,14 @@ def gradient_penalty(critic: wgan.Critic, x_real: torch.Tensor, x_fake: torch.Te
     return torch.mean((norms - 1.0) ** 2)
 
 
-def make_train_step(cfg: WGANTrainConfig):
+def make_train_step(cfg: WGANTrainConfig, group=None):
     """Build `train_step(state, batch_u8, z_fake=None, z_gan=None,
     gp_eps=None) -> (state, metrics)`. batch_u8: (B, H, W, C) uint8 on the
     state's device; z_fake, z_gan: (B, z_size); gp_eps: (B, 1, 1, 1), used
     with gp_lambda > 0. Metrics are 0-d device tensors keyed by
-    METRIC_KEYS."""
+    METRIC_KEYS. With a group, batch_u8 is this rank's rows of the global
+    batch and z_fake, z_gan and gp_eps (drawn or passed) cover the global
+    batch."""
     mcfg = cfg.model
     lr = cfg.learning_rate
     use_gp = cfg.gp_lambda > 0.0
@@ -152,7 +164,7 @@ def make_train_step(cfg: WGANTrainConfig):
         if penalty is not None:
             loss = loss + cfg.gp_lambda * penalty
         grads = torch.autograd.grad(loss, params)
-        common.rmsprop_apply(params, grads, state.c_opt, lr)
+        common.rmsprop_apply(params, grads, state.c_opt, lr, group=group)
         if not use_gp:
             wgan.clip_critic_kernels_(critic)
         return loss.detach()
@@ -169,7 +181,7 @@ def make_train_step(cfg: WGANTrainConfig):
         common.rmsprop_apply(
             g_params + c_params,
             list(grads[:len(g_params)]) + [bn_grads.get(id(p)) for p in c_params],
-            state.gan_opt, lr)
+            state.gan_opt, lr, group=group)
         return loss.detach().float()
 
     def train_step(state: WGANState, batch_u8: torch.Tensor,
@@ -177,17 +189,20 @@ def make_train_step(cfg: WGANTrainConfig):
                    z_gan: torch.Tensor | None = None,
                    gp_eps: torch.Tensor | None = None):
         device, bsz = state.device, batch_u8.shape[0]
+        rows = common.shard_rows(group, bsz)
+        sync_batch_norm(state.gen, group)
+        sync_batch_norm(state.critic, group)
         x_real = normalize(batch_u8, mcfg.dtype).permute(0, 3, 1, 2)
         if z_fake is None:
-            z_fake = rnglib.normal_z(state.z_gen, bsz, mcfg.z_size, device)
+            z_fake = rnglib.normal_z(state.z_gen, rows[1], mcfg.z_size, device)
         with torch.no_grad():
-            x_fake = state.gen(z_fake, train=False)
+            x_fake = state.gen(common.global_draw(z_fake, rows, bsz), train=False)
 
         gp_inputs = None
         if use_gp:
             if gp_eps is None:
-                gp_eps = torch.rand((bsz, 1, 1, 1), generator=state.z_gen, device=device)
-            gp_inputs = (x_fake, gp_eps)
+                gp_eps = torch.rand((rows[1], 1, 1, 1), generator=state.z_gen, device=device)
+            gp_inputs = (x_fake, common.global_draw(gp_eps, rows, bsz))
         c_loss_real = critic_update(state, x_real, -1.0, gp_inputs)
         c_loss_fake = critic_update(state, x_fake, 1.0)
 
@@ -195,8 +210,8 @@ def make_train_step(cfg: WGANTrainConfig):
         did_gan = state.critic_count >= cfg.n_critic
         if did_gan:
             if z_gan is None:
-                z_gan = rnglib.normal_z(state.z_gen, bsz, mcfg.z_size, device)
-            g_loss = gan_update(state, z_gan)
+                z_gan = rnglib.normal_z(state.z_gen, rows[1], mcfg.z_size, device)
+            g_loss = gan_update(state, common.global_draw(z_gan, rows, bsz))
             state.critic_count = 0
         else:
             g_loss = torch.zeros((), dtype=torch.float32, device=device)
@@ -225,11 +240,12 @@ def make_sampler(cfg: WGANTrainConfig):
     return sample
 
 
-def make_epoch_runner(cfg: WGANTrainConfig):
+def make_epoch_runner(cfg: WGANTrainConfig, group=None):
     """`run_epoch(state, images_u8, perm) -> (state, metrics)` over a
     device-resident uint8 dataset (N, H, W, C) and a (nb, B) device index
-    table; metrics come back stacked per batch, still on the device."""
-    step_fn = make_train_step(cfg)
+    table (with a group, this rank's columns of the global table); metrics
+    come back stacked per batch, still on the device."""
+    step_fn = make_train_step(cfg, group)
 
     def run_epoch(state: WGANState, images_u8: torch.Tensor, perm: torch.Tensor):
         per_step = []

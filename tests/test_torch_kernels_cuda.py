@@ -71,6 +71,34 @@ def test_dropout_kernels_equal_plain(cuda, dtype, shape, rate):
         rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 3, 5, 7), (6, 64, 17, 33)])
+def test_dropout_kernels_with_a_row_base_equal_the_full_batch_rows(cuda, dtype, shape):
+    """A data-parallel rank's rows, with the element-index base of its
+    first row: bit-equal to those rows of the full batch, through the
+    autograd wrapper, and to the plain version with that base."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = g.contiguous(memory_format=torch.channels_last)
+    kw = torch.tensor([0x9E3779B9, 0x7F4A7C15], device=cuda)
+    cut = dropout.dropout_cut(0.5)
+    full_y, full_dx = dropout.fwd_kernel(x, kw, cut), dropout.bwd_kernel(x, g, kw, cut)
+    b = shape[0] // 2
+    for first in (0, b):
+        rows = slice(first, first + b)
+        xr = x[rows].detach().requires_grad_(True)
+        y = dropout.leaky_relu_dropout(xr, kw, 0.5, rows=(first, shape[0]))
+        y.backward(g[rows])
+        base = dropout.rows_base(x, first)
+        assert torch.equal(y, full_y[rows]) and torch.equal(xr.grad, full_dx[rows])
+        assert torch.equal(y, dropout.fwd_plain(x[rows], kw, cut, base))
+        assert torch.equal(xr.grad, dropout.bwd_plain(x[rows], g[rows], kw, cut, base))
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        dropout.fwd_kernel(x, kw, cut, base=0, total=2**32)
+
+
 def test_dropout_kernel_refuses_nchw_and_bad_keys(cuda):
     x = torch.randn(2, 8, 3, 5, device=cuda)
     kw = torch.tensor([1, 2], device=cuda)

@@ -476,11 +476,17 @@ def test_engine_resident_and_streaming_agree(tmp_path, monkeypatch):
 
 # --------------------------------------------------------------------- CLI
 def test_cli_refuses_mesh_and_profile_flags(tmp_path, capsys):
-    for flags in (["--mesh-data", "2"], ["--mesh-spatial", "2"], ["--host-sharded-data"],
-                  ["--profile"]):
+    # data parallelism is ported (tests/test_torch_dp.py); what stays refused:
+    # the spatial axis and --profile (not ported), host sharding without
+    # ranks, and more ranks than visible cards, which is never shrunk
+    for flags, says in ((["--mesh-spatial", "2"], "not ported"), (["--profile"], "not ported"),
+                        (["--host-sharded-data"], "needs --mesh-data")):
         with pytest.raises(SystemExit):
             wgan_trainer.main(["1", "1", "-d", str(tmp_path), *flags])
-        assert "not ported" in capsys.readouterr().err
+        assert says in capsys.readouterr().err
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="need 2 cards"):
+            wgan_trainer.main(["1", "1", "-d", str(tmp_path), "--mesh-data", "2"])
     args = wgan_trainer.build_parser().parse_args(["4", "2", "-ct", "--gp", "10"])
     assert args.continue_ and args.gp_lambda == 10.0 and args.data == "bilderNeuro"
     assert (args.height, args.width, args.n_critic, args.device) == (144, 256, 5, "cuda")

@@ -127,6 +127,46 @@ Phases (any failure raises, and the exit code is non-zero):
       the engine either way.
    Rank 0's launches in (b) are every kernel's `launches_by_path`
    ["data_parallel"].
+9. Spatial H-partitioning (parallel/halo.py, core/mesh.py), config 5
+   (bench.py:360-411: 512x288, batch 16, base 512, SN, hinge, bf16,
+   dropout 0.5):
+   a. the dropout kernels on H-shards: at each of the four config-5 site
+      shapes, bf16 and f32, forward and backward, the kernel on image rows
+      [s*H/2, (s+1)*H/2) (and on batch rows [B/2, B) of image rows [H/2,
+      H)) with the row-block index mapping is bit-equal to the plain
+      version with the same mapping and to those elements of the whole
+      array's call; timed on image rows [H/2, H) of the largest site, L2
+      flushed and warm, beside the contiguous call of as many elements;
+   b. two spatial ranks (data 1 x spatial 2) sharing this card over gloo,
+      through SNDCGANEngine, for a 4-step epoch and a resumed one, against
+      the one-card engine on the same batches: each epoch's metrics within
+      SP_BOUND; per rank and step 21 + 21 dropout launches, 3 Adam
+      launches, 3 gradient all-reduces, 48 halo exchanges and 3 spatial
+      sums; digests equal; artifacts from rank 0 only; the ranks' and the
+      one card's peak device memory. Then, on the same ranks, the config-5
+      steps of SP_REPLAYS (bf16 from the states of seeds 0 and 1, float32
+      from seed 0's), each from the one card's seeded state (saved to a
+      file) against the one card's state after that step, per collection:
+      bf16 within SP_BOUND["state"] (a free run of bf16 steps drifts apart
+      by rounding alone), float32 within SP_BOUND["state_f32"], the
+      witness that the bf16 gap is rounding and the tighter hold on the
+      halo; the one card's own bf16 step against its float32 step is
+      printed beside them;
+   c. on the same ranks, small float32 WGAN steps (clip and penalty, 32x32,
+      base 16, n_critic 2) against one process on the card, each step from
+      the one-process state before it, within DP_STEP_BOUND["wgan"];
+   d. NCCL data 2 x spatial 2 on four cards where the machine has them
+      (else a line says it was skipped): epoch metrics against the
+      one-card run within SP_BOUND, steps/s and global images/s beside
+      the one card's.
+   Rank 0's launches in (b) are every kernel's `launches_by_path`
+   ["spatial"]. `--only-phase 9` runs the build and phase 9 alone
+   (`--only-phase 9d`: 9d and the one-card run it is held to, on a 4-card
+   machine);
+   `--plant {world_divisor,summing_head,no_halo,one_sided_halo}` runs 9b
+   and 9c with that
+   fault planted in the ranks and passes when it moves them past SP_BOUND
+   (how the bound was shown to catch them).
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -155,6 +195,7 @@ from imagegeneration_tpu_torch.cli import (
     generator_output,
 )
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
+from imagegeneration_tpu_torch.core import mesh as meshlib
 from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core.checkpoint import load_params
@@ -244,6 +285,34 @@ DP_WORLD = 2
 DP_EPOCH_BATCHES = 4
 DP_RANKS_TIMEOUT_S = 400  # each spawn of phase 8 ends its ranks past this
 DP_STEP_BOUND = {"sndcgan": (1e-3, 1e-3), "cyclegan": (1e-3, 1e-3), "wgan": (1e-2, 0.15)}
+# Spatial phase: config 5 (bench.py:360-411: 512x288, batch 16, SN, hinge,
+# bf16) on 2 spatial ranks, 4 batches an epoch; the halo exchanges per
+# step (G 4 convs, D 7: the G pass 22, each D pass 13); and the bound of
+# the ranks against the one-card run (spatial_errors: each epoch's metric
+# error relative to max(1, |v|); each replayed step's state error per
+# collection over its largest |v|, bf16 and float32 apart). Set from runs
+# on an H100 80GB HBM3 at 700 W. Sound: metric 1.76e-3-1.85e-3; bf16 state
+# 9.76e-2 and 9.14e-2 (seeds 0 and 1), float32 state 5.15e-3; the one
+# card's own bf16 step is 0.170 from its float32 step, so the bf16 gap is
+# within bf16's rounding. Planted faults (plant_fault), metric / bf16 /
+# float32 state: world divisor 1.24e-3 / 0.762 / 0.750, a summing head
+# backward 3.28e-3 / 3.24 / 3.00, no halo 2.78e-2 / 0.363 / 0.385, a
+# one-sided halo 1.42e-2 / 0.359 / 0.425. Only the states catch the first
+# two, as in phase 8. The float32 bound is 3.9x its sound reading and 19x
+# under the least fault; the bf16 bound 1.8x the sound and the size of
+# bf16's own rounding; the metric bound 2.7x the sound.
+C5_HEIGHT, C5_WIDTH, C5_BATCH = 288, 512, 16
+SP_SPATIAL = 2
+SP_EPOCH_BATCHES = 4
+SP_HALOS_PER_STEP = 48
+SP_RANKS_TIMEOUT_S = 400
+SP_BOUND = {"metric": 5e-3, "state": 0.175, "state_f32": 2e-2}
+SP_FAULTS = ("world_divisor", "summing_head", "no_halo", "one_sided_halo")
+# The replayed config-5 steps of phase 9b: (label, compute dtype, seed of
+# the state and of the batch). bf16 is config 5's own; the float32 step is
+# the witness that the bf16 gap is rounding, and is held to its own bound.
+SP_REPLAYS = (("bf16", torch.bfloat16, 0), ("bf16_seed1", torch.bfloat16, 1),
+              ("f32", torch.float32, 0))
 
 
 def log(msg: str) -> None:
@@ -1600,7 +1669,8 @@ def check_dp_engine_ranks(ranks: list[dict], label: str, card: str, ecfg: dict) 
     rate = perf["steps_per_sec"]
     log(f"{label}: backend {ranks[0]['backend']}, {len(ranks)} rank(s) on "
         f"{sorted({r['device'] for r in ranks})}, {ecfg['width']}x{ecfg['height']} global "
-        f"batch {ecfg['batch']} ({ecfg['batch'] // len(ranks)} per rank) base {ecfg['base']} "
+        f"batch {ecfg['batch']} ({ecfg['batch'] * ecfg.get('spatial', 1) // len(ranks)} rows "
+        f"and 1/{ecfg.get('spatial', 1)} of the image rows per rank) base {ecfg['base']} "
         f"SN hinge {ecfg['dtype']}; per rank and step: "
         f"dropout {steplib.N_SITES}+{steplib.N_SITES}, adam 3, 3 gradient all-reduces, "
         f"0 gradient copies; digests equal after each epoch; artifacts from rank 0 only "
@@ -1680,7 +1750,449 @@ def run_data_parallel(card: str, work: str, dev: torch.device) -> dict:
             "launches": shared["launches_rank0"]}
 
 
-def main() -> int:
+# ------------------------------------------------------------------ phase 9
+def config5_site_shapes() -> list[tuple[int, int, int, int]]:
+    """The distinct (B, C, H, W) dropout-site shapes of the config-5 D."""
+    shapes, h, w = [], C5_HEIGHT, C5_WIDTH
+    for filters, _, (sh, sw) in DISC_TRUNK:
+        h, w = -(-h // sh), -(-w // sw)
+        if (C5_BATCH, filters, h, w) not in shapes:
+            shapes.append((C5_BATCH, filters, h, w))
+    return shapes
+
+
+def check_dropout_spatial(dev: torch.device, card: str) -> dict:
+    """Phase 9a: at every distinct config-5 D site shape, bf16 and f32,
+    forward and backward, the kernel on an H-shard (image rows [s*H/2,
+    (s+1)*H/2) of the whole batch, s = 0, 1; and batch rows [B/2, B) of
+    image rows [H/2, H), data 2 x spatial 2) is bit-equal to the plain
+    version with the same row-block mapping and to those elements of the
+    whole array's kernel call. Timed at the largest site (bf16) on rows
+    [H/2, H), L2 flushed and warm, beside the contiguous call of as many
+    elements (batch rows [B/2, B) at full height, with their base)."""
+    kw = KeyChain(7).dropout_kw(torch.zeros((), dtype=torch.int64, device=dev), 1)[0]
+    cut = dropout.dropout_cut(0.5)
+    n_checked = 0
+    for shape in config5_site_shapes():
+        b, c, h, w = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(sum(shape) + 2)
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            g = g.contiguous(memory_format=torch.channels_last)
+            full_y = dropout.fwd_kernel(x, kw, cut)
+            full_dx = dropout.bwd_kernel(x, g, kw, cut)
+            hh = h // SP_SPATIAL
+            for first, s in ((0, 0), (0, 1), (b // 2, 1)):
+                rows, hrows = slice(first, b), slice(s * hh, (s + 1) * hh)
+                xs = x[rows, :, hrows].contiguous(memory_format=torch.channels_last)
+                gs = g[rows, :, hrows].contiguous(memory_format=torch.channels_last)
+                base, hblock = dropout.rows_base(xs, first, h), (s * hh, h)
+                at = f"{shape} {dtype} rows [{first}, {b}) image rows [{s * hh}, {(s + 1) * hh})"
+                y = dropout.fwd_kernel(xs, kw, cut, base, x.numel(), hblock)
+                dx = dropout.bwd_kernel(xs, gs, kw, cut, base, x.numel(), hblock)
+                require(torch.equal(y, full_y[rows, :, hrows]),
+                        f"dropout fwd on an H-shard {at}: differs from the whole array's")
+                require(torch.equal(dx, full_dx[rows, :, hrows]),
+                        f"dropout bwd on an H-shard {at}: differs from the whole array's")
+                require(torch.equal(y, dropout.fwd_plain(xs, kw, cut, base, hblock)),
+                        f"dropout fwd on an H-shard {at}: differs from plain")
+                require(torch.equal(dx, dropout.bwd_plain(xs, gs, kw, cut, base, hblock)),
+                        f"dropout bwd on an H-shard {at}: differs from plain")
+                n_checked += 4
+            del x, g, full_y, full_dx
+    torch.cuda.empty_cache()
+    shape = config5_site_shapes()[0]
+    b, c, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    g = g.contiguous(memory_format=torch.channels_last)
+    hh, total = h // SP_SPATIAL, x.numel()
+    xs = x[:, :, hh:].contiguous(memory_format=torch.channels_last)
+    gs = g[:, :, hh:].contiguous(memory_format=torch.channels_last)
+    xr, gr = x[b // 2:], g[b // 2:]
+    hblock, base_r = (hh, h), dropout.rows_base(x, b // 2)
+    flush = L2Flush(dev)
+    out = {}
+    for name, shard, plain, contiguous, n_tensors in (
+        ("leaky_relu_dropout_fwd", lambda: dropout.fwd_kernel(xs, kw, cut, 0, total, hblock),
+         lambda: dropout.fwd_plain(xs, kw, cut, 0, hblock),
+         lambda: dropout.fwd_kernel(xr, kw, cut, base_r, total), 2),
+        ("leaky_relu_dropout_bwd", lambda: dropout.bwd_kernel(xs, gs, kw, cut, 0, total, hblock),
+         lambda: dropout.bwd_plain(xs, gs, kw, cut, 0, hblock),
+         lambda: dropout.bwd_kernel(xr, gr, kw, cut, base_r, total), 3),
+    ):
+        times = timing(shard, plain, flush=flush)
+        times["contiguous_ms"] = device_ms(contiguous, 20, flush=flush)
+        times["contiguous_warm_ms"] = device_ms(contiguous, 20)
+        out[name] = {"shape_nchw": list(xs.shape), "image_rows": [hh, h], **times,
+                     **bound(n_tensors * xs.numel() * xs.element_size(), 20 * xs.numel())}
+        log(f"phase 9a: {name} on image rows [{hh}, {h}) of {shape} bf16: "
+            f"{times['ms']:.4f} ms flushed, {times['warm_ms']:.4f} warm; contiguous "
+            f"call of as many elements {times['contiguous_ms']:.4f} / "
+            f"{times['contiguous_warm_ms']:.4f}; plain {times['plain_ms']:.4f} ms; bound "
+            f"{out[name]['bound_ms']:.4f} ms ({card})")
+    del flush
+    log(f"phase 9a: dropout kernels on H-shards: {n_checked} shard calls at "
+        f"{len(config5_site_shapes())} config-5 site shapes, bf16 and f32, bit-equal to the "
+        "plain version with the same row-block mapping and to the whole array's call")
+    return {"checked": n_checked, **out}
+
+
+def spatial_engine_config() -> dict:
+    """Config 5 (bench.py:360-411): 288x512, batch 16, base 512, SN, hinge,
+    bf16, dropout 0.5, on SP_SPATIAL spatial ranks."""
+    return dict(height=C5_HEIGHT, width=C5_WIDTH, batch=C5_BATCH, base=BASE,
+                dtype=torch.bfloat16, epoch_batches=SP_EPOCH_BATCHES, spatial=SP_SPATIAL)
+
+
+def plant_fault(fault: str | None) -> None:
+    """A planted fault of the spatial layer, in this process: the gradients
+    divided by the world instead of the data size; a summing backward on
+    the spatial sum (the head's logits, the penalty's norms); no halo (each
+    shard convolved as if its edges were the map's); a one-sided halo (the
+    rows from below replaced by zeros, the rows from above exchanged)."""
+    from imagegeneration_tpu_torch.nn import layers
+
+    if fault == "world_divisor":
+        mean = dp.all_reduce_mean_
+
+        def world_mean(grads, group):
+            out = mean(grads, group)
+            torch._foreach_mul_([g for g in out if g is not None], group.data / group.world)
+            return out
+
+        dp.all_reduce_mean_ = world_mean
+    elif fault == "summing_head":
+        dp.spatial_sum = lambda x, group: dp.all_reduce_sum(x, group, "spatial")
+    elif fault == "no_halo":
+        layers.halo = lambda x, lo, hi, group: F.pad(x, (0, 0, lo, hi)).contiguous(
+            memory_format=torch.channels_last)
+    elif fault == "one_sided_halo":
+        halo = layers.halo
+        layers.halo = lambda x, lo, hi, group: F.pad(halo(x, lo, 0, group), (0, 0, 0, hi)
+                                                     ).contiguous(memory_format=torch.channels_last)
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    if fault is not None:  # unequal ranks still report
+        dp.check_replicated = lambda state, group: dp.state_digest(state)
+
+
+def spatial_rank(group, out: str, phases, small_jobs, ecfg: dict, fault: str | None,
+                 replay: dict | None = None) -> dict:
+    """One rank of phase 9b/9d: dp_engine_rank at config 5 on a data x
+    spatial mesh, with this process's peak device memory; then, with
+    `replay` (replayed_steps), each replayed step's distance from the one
+    card's."""
+    platform.configure_numerics()
+    plant_fault(fault)
+    torch.cuda.reset_peak_memory_stats(group.device)
+    res = dp_engine_rank(group, out, phases, small_jobs, ecfg)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(group.device)
+    if replay is not None:
+        res["replay"] = replay_steps(group, ecfg, replay)
+    return res
+
+
+def spatial_step_config(ecfg: dict, dtype: torch.dtype, seed: int
+                        ) -> steplib.SNDCGANTrainConfig:
+    return steplib.SNDCGANTrainConfig(
+        model=SNDCGANConfig(image_size=(ecfg["height"], ecfg["width"], 3),
+                            base_width=ecfg["base"], spectral_norm=True, dtype=dtype),
+        batch_size=ecfg["batch"], loss="hinge", seed=seed)
+
+
+def state_sums(state) -> torch.Tensor:
+    """A fingerprint of a seeded state: for each floating tensor of
+    `state.state_dict()`, the integer sum of its bit patterns (exact, in
+    any order of summation), on its device."""
+    sums = []
+    for _, v in dp._leaves(state.state_dict()):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            bits = torch.int16 if v.element_size() == 2 else torch.int32
+            sums.append(v.detach().contiguous().view(bits).long().sum())
+    return torch.stack(sums)
+
+
+def replayed_steps(work: str, ecfg: dict, dev: torch.device) -> dict:
+    """The one-card side of phase 9b's replayed steps: for each of
+    SP_REPLAYS, from the seeded state of its seed (its fingerprint kept:
+    the ranks seed the same state), one SNDCGAN step on a synthetic batch of
+    that seed, the state after it saved under `work` (the ranks load it).
+    Also two floors (state_errors): the one card's bf16 step against its own
+    float32 step from the same state (the rounding of bf16 alone), and its
+    float32 step against the same step run again (cuDNN's run to run)."""
+    out, rerun = {}, None
+    for label, dtype, seed in SP_REPLAYS:
+        cfg = spatial_step_config(ecfg, dtype, seed)
+        batch = SyntheticImageDataset(ecfg["batch"], (ecfg["height"], ecfg["width"]),
+                                      seed=9 + seed).images
+        step = steplib.make_train_step(cfg)
+        state = steplib.init_state(cfg, dev)
+        sums0 = state_sums(state).cpu()
+        state, _ = step(state, torch.from_numpy(batch).to(dev))
+        path = f"{work}/replay_{label}.pt"
+        torch.save(state.state_dict(), path)
+        out[label] = {"dtype": dtype, "seed": seed, "sums0": sums0, "path": path,
+                      "batch": batch}
+        if label == "f32":
+            again, _ = step(steplib.init_state(cfg, dev), torch.from_numpy(batch).to(dev))
+            rerun = state_errors(again.state_dict(), state.state_dict())
+            del again
+        del state
+        torch.cuda.empty_cache()
+    floor = state_errors(torch.load(out["bf16"]["path"], map_location=dev),
+                         torch.load(out["f32"]["path"], map_location=dev))
+    torch.cuda.empty_cache()
+    return {"steps": out, "bf16_vs_f32_one_card": floor, "f32_rerun_one_card": rerun}
+
+
+def replay_steps(group, ecfg: dict, replay: dict) -> dict:
+    """Each step of `replay` on this rank's rows and image rows, from the
+    seeded state the one card started from, against the one card's state
+    after it (state_errors), by SP_REPLAYS label."""
+    dev = group.device
+    rows = slice(*meshlib.process_row_range(group, ecfg["batch"]))
+    image_rows = slice(*meshlib.spatial_row_range(group, ecfg["height"]))
+    out = {}
+    for label, r in replay["steps"].items():
+        cfg = spatial_step_config(ecfg, r["dtype"], r["seed"])
+        state = steplib.init_state(cfg, dev)
+        require(torch.equal(state_sums(state).cpu(), r["sums0"]),
+                f"replay {label}: rank {group.rank}'s seeded state is not the one card's")
+        step = steplib.make_train_step(cfg, group)
+        local = np.ascontiguousarray(r["batch"][rows, image_rows])
+        state, _ = step(state, torch.from_numpy(local).to(dev))
+        want = torch.load(r["path"], map_location=dev)
+        out[label] = state_errors(state.state_dict(), want)
+        del want, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_reference(out: str, phases, ecfg: dict, dev: torch.device) -> dict:
+    """The one-card SNDCGANEngine run of phase 9b: the same configuration,
+    data and phases, no group; its metrics per phase, its resumed epoch's
+    perf.jsonl line and its peak memory above what the process held
+    before."""
+    dataset = SyntheticImageDataset(ecfg["epoch_batches"] * ecfg["batch"],
+                                    (ecfg["height"], ecfg["width"]))
+    kwargs = dict(image_size=(ecfg["height"], ecfg["width"], 3), device=dev,
+                  spectral_norm=True, loss="hinge", dtype=ecfg["dtype"],
+                  base_width=ecfg["base"], live_output=f"{out}/live")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = []
+    for epochs, cont in phases:
+        engine = SNDCGANEngine(f"{out}/sndcgan", dataset, ecfg["batch"], continue_=cont,
+                               **kwargs)
+        engine.train(epochs, 1)
+        metrics.append(engine.last_epoch_metrics)
+        del engine
+    torch.cuda.synchronize()
+    with open(f"{out}/sndcgan/perf.jsonl") as f:
+        perf = json.loads(f.read().splitlines()[-1])
+    return {"metrics": metrics, "perf": perf,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - held}
+
+
+def state_errors(got: dict, want: dict) -> dict:
+    """A state dict against another, per collection (a model's parameters
+    and buffers, each optimizer moment): the worst collection's largest
+    error over its largest |v| (as small_dp_errors), and where."""
+    leaves_got = dict(dp._leaves(got))
+    diff: dict[str, float] = {}
+    scale: dict[str, float] = {}
+    for path, b in dp._leaves(want):
+        if not isinstance(b, torch.Tensor) or not b.is_floating_point():
+            continue
+        parts = path.strip("/").split("/")
+        coll = "/".join(parts[:2] if parts[0].endswith("_opt") else parts[:1])
+        a, b = leaves_got[path].double(), b.to(leaves_got[path].device).double()
+        d = float((a - b).abs().max()) if bool(torch.isfinite(a).all()) else math.inf
+        diff[coll] = max(diff.get(coll, 0.0), d)
+        scale[coll] = max(scale.get(coll, 0.0), float(b.abs().max()))
+    out = {"state": 0.0, "state_at": None}
+    for coll, d in diff.items():
+        rel = d / scale[coll] if scale[coll] else (math.inf if d else 0.0)
+        if rel >= out["state"]:
+            out["state"], out["state_at"] = rel, coll
+    return out
+
+
+def spatial_errors(ranks: list[dict], ref: dict) -> dict:
+    """Phase 9b's distance of the spatial ranks from the one-card run: each
+    epoch's engine metrics relative to max(1, |v|), and the state after
+    each replayed step, from the one card's state before it, per
+    collection (state_errors): "state" over the bf16 steps, "state_f32"
+    over the float32 one; the worst over epochs, steps and ranks, with
+    where."""
+    out = {"metric": 0.0, "metric_at": None, "state": 0.0, "state_at": None,
+           "state_f32": 0.0, "state_f32_at": None}
+    for p, (ph, want) in enumerate(zip(ranks[0]["phases"], ref["metrics"])):
+        for k, v in want.items():
+            got = ph["metrics"][k]
+            d = abs(got - v) / max(1.0, abs(v)) if math.isfinite(got) else math.inf
+            if d >= out["metric"]:
+                out["metric"], out["metric_at"] = d, f"epoch {p} {k}"
+    for r in ranks:
+        for label, errs in r.get("replay", {}).items():
+            key = "state_f32" if label == "f32" else "state"
+            if errs["state"] >= out[key]:
+                out[key] = errs["state"]
+                out[f"{key}_at"] = f"rank {r['rank']} {label} /{errs['state_at']}"
+    return out
+
+
+def within(err: dict, limits: dict) -> bool:
+    return all(err[k] <= v for k, v in limits.items())
+
+
+def small_spatial_jobs() -> list[tuple]:
+    """Phase 9c: WGAN with the clip and with the penalty (32x32, base 16,
+    batch 4, n_critic 2, float32, 4 steps), replayed step by step from the
+    one-process states (filled in later)."""
+    gen = np.random.default_rng(9)
+    im = (32, 32, 3)
+    wgan_in = {"batches": gen.integers(0, 256, (4, 4, *im), np.uint8),
+               "z_fake": gen.normal(size=(4, 4, 128)).astype(np.float32),
+               "z_gan": gen.normal(size=(4, 4, 128)).astype(np.float32)}
+    jobs = []
+    for name, gp in (("wgan_clip", 0.0), ("wgan_gp", 10.0)):
+        cfg = wgan_step.WGANTrainConfig(model=WGANConfig(image_size=im, base_width=16),
+                                        batch_size=4, n_critic=2, gp_lambda=gp)
+        inputs = dict(wgan_in)
+        if gp:
+            inputs["gp_eps"] = gen.uniform(size=(4, 4, 1, 1, 1)).astype(np.float32)
+        jobs.append((name, "wgan", cfg, inputs, None))
+    return jobs
+
+
+def run_spatial(card: str, work: str, dev: torch.device, fault: str | None = None) -> dict:
+    """Phase 9: (a) the dropout kernels on H-shards; (b) config 5 on 2
+    spatial ranks sharing this card over gloo through SNDCGANEngine, held to
+    the one-card run within SP_BOUND, then (c) small WGAN steps on the same
+    ranks held to one process on the card; (d) NCCL data 2 x spatial 2 on
+    four cards where the machine has them. With `fault`, the ranks carry a
+    planted fault and the phase requires their distance to exceed SP_BOUND
+    (9a and 9d are skipped)."""
+    t0 = time.perf_counter()
+    ecfg = spatial_engine_config()
+    torch.cuda.empty_cache()
+    kernels = None if fault else check_dropout_spatial(dev, card)
+    t_a = time.perf_counter()
+    jobs = small_spatial_jobs()
+    one = {}
+    for i, (name, family, cfg, inputs, _) in enumerate(jobs):
+        one[name] = dp_parity.run_steps(None, family, cfg, inputs, device=str(dev))
+        replay = [one[name]["state0"]] + one[name]["states"][:-1]
+        jobs[i] = (name, family, cfg, inputs, replay)
+    phases = [(1, False), (2, True)]
+    ref = spatial_reference(f"{work}/one", phases, ecfg, dev)
+    replay = replayed_steps(work, ecfg, dev)
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter()
+    ranks = dp.spawn_local(spatial_rank, SP_SPATIAL, backend="gloo",
+                           devices=[str(dev)] * SP_SPATIAL, timeout=SP_RANKS_TIMEOUT_S,
+                           spatial=SP_SPATIAL,
+                           args=(f"{work}/spatial", phases, jobs, ecfg, fault, replay))
+    log(f"phase 9 times: 9a {t_a - t0:.1f} s, one-process runs {t_one - t_a:.1f} s, the "
+        f"spatial ranks {time.perf_counter() - t_one:.1f} s")
+    err = spatial_errors(ranks, ref)
+    small = {name: small_dp_errors(ranks[0]["small"][name], want) for name, want in one.items()}
+    label = f"phase 9b (config 5 on {SP_SPATIAL} spatial ranks sharing one card, gloo)"
+    replays = {"ranks": [r["replay"] for r in ranks],
+               "bf16_vs_f32_one_card": replay["bf16_vs_f32_one_card"],
+               "f32_rerun_one_card": replay["f32_rerun_one_card"]}
+    log(f"{label}: each replayed step against the one card's, per rank: {replays['ranks']}; "
+        f"the one card's bf16 step against its own float32 step: "
+        f"{replays['bf16_vs_f32_one_card']}; its float32 step against the same step run "
+        f"again: {replays['f32_rerun_one_card']} ({card})")
+    if fault is not None:
+        shows = not within(err, SP_BOUND)
+        log(f"{label}, planted fault {fault}: {err}; small WGAN {small}; exceeds the bound "
+            f"{SP_BOUND}: {shows} ({card})")
+        require(shows, f"planted fault {fault} stays within the bound {SP_BOUND}: {err}")
+        return {"fault": fault, "errors": err, "replays": replays, "small_errors": small}
+    shared = check_dp_engine_ranks(ranks, label, card, ecfg)
+    for r in ranks:
+        for p, ph in enumerate(r["phases"]):
+            want_halo = SP_HALOS_PER_STEP * ph["steps"]
+            require(ph["collectives"]["halo"] == want_halo and
+                    ph["collectives"]["spatial_sum"] == 3 * ph["steps"],
+                    f"{label} rank {r['rank']} phase {p}: {ph['collectives']}, expected "
+                    f"{want_halo} halo exchanges and {3 * ph['steps']} spatial sums")
+    require(within(err, SP_BOUND), f"{label}: {err} past the bound {SP_BOUND}")
+    for name, e in small.items():
+        got = [r["small"][name] for r in ranks]
+        require(got[0]["digest"] == got[1]["digest"], f"phase 9c {name}: digests differ")
+        for what, bound_rel in zip(("metric", "leaf"), DP_STEP_BOUND["wgan"]):
+            require(e[what] <= bound_rel, f"phase 9c {name}: {what} error {e[what]} at "
+                    f"{e[what + '_at']} past {bound_rel}")
+    peaks = [r["peak_bytes"] for r in ranks]
+    log(f"{label}: against the one-card run on the same batches: {err} (bound "
+        f"{SP_BOUND}); per rank and step {SP_HALOS_PER_STEP} halo exchanges and 3 "
+        f"spatial sums; peak device memory per rank {[p / 2**30 for p in peaks]} GiB, one "
+        f"card {ref['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    log(f"phase 9c: small float32 WGAN steps (clip, penalty; 32x32 base 16 n_critic 2) on "
+        f"{SP_SPATIAL} spatial ranks against one process on the card, each step from its "
+        f"state: {small} (bounds (metric, leaf) {DP_STEP_BOUND['wgan']}); digests equal")
+    four = run_four_cards(card, work, ecfg, phases, ref)
+    seconds = time.perf_counter() - t0
+    log(f"phase 9: {seconds:.1f} s ({card})")
+    return {"dropout_shard": kernels, "shared_card_gloo": shared, "errors": err,
+            "replays": replays, "bound": SP_BOUND, "small_errors": small, "peak_bytes_per_rank": peaks,
+            "peak_bytes_one_card": ref["peak_bytes"], "four_cards_nccl": four,
+            "seconds": seconds, "launches": shared["launches_rank0"]}
+
+
+def run_four_cards(card: str, work: str, ecfg: dict, phases, ref: dict) -> dict | None:
+    """Phase 9d: config 5 over NCCL on four cards as data 2 x spatial 2
+    (each rank 8 rows and 144 image rows), through SNDCGANEngine, its
+    epoch metrics against the one-card run's (`ref`) within SP_BOUND;
+    steps/s and global images/s of the resumed epoch beside the one card's.
+    None, with a line, on fewer cards."""
+    if torch.cuda.device_count() < 4:
+        log(f"phase 9d: {torch.cuda.device_count()} card(s) visible: the 4-card NCCL data 2 x "
+            "spatial 2 run is skipped for want of cards")
+        return None
+    label = "phase 9d (NCCL data 2 x spatial 2, 4 cards)"
+    ranks = dp.spawn_local(spatial_rank, 4, "cuda", backend="nccl", spatial=SP_SPATIAL,
+                           timeout=SP_RANKS_TIMEOUT_S,
+                           args=(f"{work}/spatial4", phases, [], ecfg, None))
+    four = check_dp_engine_ranks(ranks, label, card, ecfg)
+    err = spatial_errors(ranks, ref)
+    require(err["metric"] <= SP_BOUND["metric"], f"{label}: metrics {err} past {SP_BOUND}")
+    one = ref["perf"]
+    log(f"{label}: epoch metrics against the one-card run {err['metric']} at "
+        f"{err['metric_at']}; peak device memory per rank "
+        f"{[r['peak_bytes'] / 2**30 for r in ranks]} GiB; resumed epoch "
+        f"{four['last_epoch_steps_per_sec']:.3f} steps/s, "
+        f"{four['last_epoch_images_per_sec']:.1f} global images/s; one card "
+        f"{one['steps_per_sec']:.3f} steps/s, {one['images_per_sec']:.1f} images/s ({card})")
+    return {**four, "metric_error": err["metric"], "one_card": one,
+            "peak_bytes": [r["peak_bytes"] for r in ranks]}
+
+
+def parse_args(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    parser.add_argument("--only-phase", choices=["9", "9d"], default=None,
+                        help="build the kernels and run phase 9 (spatial) alone, or its "
+                        "4-card part 9d with the one-card run it is held to")
+    parser.add_argument("--plant", choices=SP_FAULTS, default=None,
+                        help="phase 9b/9c with this fault planted in the spatial ranks; "
+                        "passes when it moves them past SP_BOUND")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     dev = platform.require_cuda()
     numerics = platform.configure_numerics()
     card = platform.card_description()
@@ -1696,6 +2208,17 @@ def main() -> int:
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         log(f"built {name}.cu in {info['seconds']:.2f} s: {regs}")
     log(f"kernel build total {time.perf_counter() - t0:.2f} s (parallel)")
+    if args.only_phase is not None or args.plant is not None:
+        with tempfile.TemporaryDirectory() as work:
+            if args.only_phase == "9d":
+                require(torch.cuda.device_count() >= 4, "--only-phase 9d needs 4 cards")
+                ecfg, phases = spatial_engine_config(), [(1, False), (2, True)]
+                spatial = run_four_cards(card, work, ecfg, phases,
+                                         spatial_reference(f"{work}/one", phases, ecfg, dev))
+            else:
+                spatial = run_spatial(card, work, dev, args.plant)
+        print(json.dumps({"spatial": spatial, "card": card}))
+        return 0
     kernels = check_dropout(dev, card)
     kernels.append(check_adam(dev, card))
     kernels += check_instance_norm(card)
@@ -1709,6 +2232,7 @@ def main() -> int:
         offline = run_sampling_and_fid(card, work, dev)
         evaluation = run_evaluation(card, work, dev, kernels)
         data_parallel = run_data_parallel(card, work, dev)
+        spatial = run_spatial(card, work, dev)
     names = {k["name"] for k in kernels}
     for p, r in slices.items():
         require(set(r["launches"]) == names, f"{p}: counters {sorted(r['launches'])} "
@@ -1719,11 +2243,13 @@ def main() -> int:
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in slices.items()}
         k["launches_by_path"]["evaluation"] = evaluation["launches"][k["name"]]
         k["launches_by_path"]["data_parallel"] = data_parallel["launches"][k["name"]]
+        k["launches_by_path"]["spatial"] = spatial["launches"][k["name"]]
         if k["name"].startswith("leaky"):  # phase 8a: rank 1's rows, with their base
             base = data_parallel["dropout_base"]
             k["at_rank_rows_with_base"] = {
                 "shape_nchw": base["timed_shape_nchw"],
                 **base["fwd" if k["name"].endswith("fwd") else "bwd"]}
+            k["at_spatial_shard"] = spatial["dropout_shard"][k["name"]]  # phase 9a
         # The path that runs it; Adam runs on both, and its record's times
         # are the CycleGAN apply's, as are its launches.
         k["launches"] = k["launches_by_path"][
@@ -1735,7 +2261,7 @@ def main() -> int:
             "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"],
             "adam_grad_copies": r["grad_copies"]}
         for p, r in slices.items()}, "sampling_and_fid": offline, "evaluation": evaluation,
-        "data_parallel": data_parallel,
+        "data_parallel": data_parallel, "spatial": spatial,
         "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)

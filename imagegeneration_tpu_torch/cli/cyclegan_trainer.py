@@ -15,7 +15,9 @@ training resumes from the latest checkpoint in the output directory
 whether or not `-ct` is given (the flag is parsed and has no effect).
 `-c` paces the generator exports `gen_weights_{f,g}-<epoch>.msgpack`:
 every epoch that is a multiple of it writes them. `--mesh-spatial` > 1
-(spatial partitioning) and `--profile` are refused: they are not ported.
+and `--profile` are refused: the CycleGAN spatial slice (InstanceNorm
+statistics over the spatial group, reflect padding at the global edges)
+and the profiler are not ported.
 """
 
 from __future__ import annotations

@@ -3,13 +3,14 @@
   python -m imagegeneration_tpu_torch.cli.sndcgan_trainer <bSize> <epochs>
       [-cf N] [-d DIR] [-x DATA] [-r RATE] [-ld LR] [-lg LR] [-lo NAME] [-ct]
       [--spectral-norm] [--loss {bce,hinge}] [--d-updates {1,2}] [--bf16]
-      [--mesh-data N] [--host-sharded-data]
+      [--mesh-data N] [--mesh-spatial K] [--host-sharded-data]
       [--height H] [--width W] [--z Z] [--seed S] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.sndcgan_trainer. Training
-runs on one CUDA device, or with `--mesh-data N` on N data-parallel ranks,
-one card each, over a global batch of bSize (cli/launch.py; `--mesh-spatial`
-> 1 is refused: spatial partitioning is not ported yet). `--device cpu`
+runs on one CUDA device, or with `--mesh-data N [--mesh-spatial K]` on N x K
+ranks, one card each, over a global batch of bSize: N data-parallel blocks
+of rows, each split into K blocks of image rows (cli/launch.py; the guard
+refuses fewer than 2 rows per shard at H/8, as the JAX trainer does). `--device cpu`
 runs the same code on the CPU with the plain versions of the kernels
 (tests, debugging; with `--mesh-data`, gloo ranks). `-lo` names the
 live-preview PDF (`<name>.pdf`, drawn every epoch when matplotlib is
@@ -85,7 +86,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    launch.run(parser, args, _train)
+    launch.run(parser, args, _train, _spatial_check)
+
+
+def _spatial_check(args: argparse.Namespace) -> None:
+    from imagegeneration_tpu_torch.core.mesh import check_spatial_partition
+    from imagegeneration_tpu_torch.models.sndcgan import SNDCGANConfig, min_sharded_height
+
+    cfg = SNDCGANConfig(image_size=(args.height, args.width, 3))
+    check_spatial_partition(min_sharded_height(cfg), args.mesh_spatial, "sndcgan", args.height)
 
 
 def _train(args: argparse.Namespace, mesh) -> None:

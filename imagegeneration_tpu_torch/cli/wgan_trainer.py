@@ -2,22 +2,22 @@
 
   python -m imagegeneration_tpu_torch.cli.wgan_trainer <bSize> <epochs>
       [-d DIR] [-c INTERVAL] [-ct] [-x DATA] [--n-critic N] [--gp LAMBDA]
-      [--bf16] [--mesh-data N] [--host-sharded-data]
+      [--bf16] [--mesh-data N] [--mesh-spatial K] [--host-sharded-data]
       [--height H] [--width W] [--seed S] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.wgan_trainer: the dataset
 directory defaults to the reference's hardcoded "bilderNeuro", n_critic to
 5, the image size to 144x256, and `--gp` > 0 replaces the weight clip by
 the WGAN-GP penalty. Training runs on one CUDA device, or with
-`--mesh-data N` on N data-parallel ranks, one card each, over a global
-batch of bSize (`--host-sharded-data`: each rank decodes only its shard of
-the files; cli/launch.py). `--device cpu` runs the same code on the CPU
+`--mesh-data N [--mesh-spatial K]` on N x K ranks, one card each, over a
+global batch of bSize: N data-parallel blocks of rows, each split into K
+blocks of image rows (`--host-sharded-data`: each data block decodes only
+its shard of the files; cli/launch.py). `--device cpu` runs the same code on the CPU
 (tests, debugging; with `--mesh-data`, gloo ranks). `-c` paces the msgpack
 exports as in the reference: each epoch writes `model_%04d.msgpack` under
 g_models/ and c_models/ and removes the previous epoch's unless that
 epoch is a multiple of `-c`; the train state is checkpointed every epoch.
-`--mesh-spatial` > 1 (spatial partitioning) and `--profile` are refused:
-they are not ported.
+`--profile` is refused: it is not ported.
 """
 
 from __future__ import annotations
@@ -74,7 +74,15 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if args.profile:
         parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
-    launch.run(parser, args, _train)
+    launch.run(parser, args, _train, _spatial_check)
+
+
+def _spatial_check(args: argparse.Namespace) -> None:
+    from imagegeneration_tpu_torch.core.mesh import check_spatial_partition
+    from imagegeneration_tpu_torch.models.wgan import WGANConfig, min_sharded_height
+
+    cfg = WGANConfig(image_size=(args.height, args.width, 3))
+    check_spatial_partition(min_sharded_height(cfg), args.mesh_spatial, "wgan", args.height)
 
 
 def _train(args: argparse.Namespace, mesh) -> None:

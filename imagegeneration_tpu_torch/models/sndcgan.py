@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagegeneration_tpu_torch.core.mesh import spatial_row_range
 from imagegeneration_tpu_torch.nn.layers import (
     BatchNorm,
     Conv,
@@ -88,11 +89,14 @@ class Generator(nn.Module):
             feats = out
         self.to_rgb = Conv(feats, c, (3, 3), (1, 1), "SAME", use_bias=False,
                            dtype=dt, generator=generator)
+        self.group = None  # a spatial partition: images are the rank's rows
 
     def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
         bn_inference = (not train) or self.cfg.quirk_eval_bn
         x = torch.relu(self.stem_bn(self.stem(z), bn_inference))
         x = x.view(x.shape[0], *self.hw8, -1).permute(0, 3, 1, 2)
+        lo, hi = spatial_row_range(self.group, self.hw8[0])
+        x = x[:, :, lo:hi]
         for i in range(3):
             up = getattr(self, f"up{i}")
             bn = getattr(self, f"up{i}_bn")
@@ -111,6 +115,13 @@ DISC_TRUNK = (
     (512, (3, 3), (1, 1)),
 )
 N_DROPOUT_SITES = len(DISC_TRUNK)
+
+
+def min_sharded_height(cfg: SNDCGANConfig) -> int:
+    """Smallest spatially partitioned feature height: the discriminator's
+    three 4x4 s2 convs (and the generator's H/8 stem map) bottom out at H/8.
+    Input to core/mesh.check_spatial_partition."""
+    return cfg.image_size[0] // 8
 
 
 def trunk_hw(image_hw: tuple[int, int]) -> tuple[int, int]:
@@ -136,7 +147,9 @@ class Discriminator(nn.Module):
             feats = out
         th, tw = trunk_hw((h, w))
         head = SpectralNormDense if cfg.spectral_norm else Dense
-        self.head = head(feats * th * tw, 1, dtype=cfg.dtype, generator=generator)
+        self.head = head(feats * th * tw, 1, dtype=cfg.dtype, generator=generator,
+                         sharded_input=True)
+        self.group = None  # a spatial partition: images are the rank's rows
 
     def forward(
         self,
@@ -149,8 +162,11 @@ class Discriminator(nn.Module):
         """kw: (7, 2) dropout key words, one row per conv; None runs the
         trunk without dropout (inference). update_sn writes the spectral
         norm estimates `u`. rows: (first row, global batch) of this shard
-        of a data-parallel batch; None for a whole batch."""
+        of a data-parallel batch; None for a whole batch. Under a spatial
+        partition x is the rank's block of image rows."""
         sn = self.cfg.spectral_norm
+        g = self.group
+        sharded = g is not None and g.sharded
         x = x.to(self.cfg.dtype)
         for i in range(N_DROPOUT_SITES):
             conv = getattr(self, f"conv{i}")
@@ -159,7 +175,9 @@ class Discriminator(nn.Module):
             if kw is None:
                 x = F.leaky_relu(x, NEGATIVE_SLOPE)
             else:
-                x = leaky_relu_dropout(x, kw[i], self.cfg.dropout_rate, rows)
+                h = x.shape[2]
+                hblock = (g.s * h, g.spatial * h) if sharded else None
+                x = leaky_relu_dropout(x, kw[i], self.cfg.dropout_rate, rows, hblock)
 
         if features:
             if min(x.shape[2], x.shape[3]) < 8:

@@ -23,6 +23,14 @@ update trains the critic's BatchNorm scale and bias only
 Image tensors are NCHW logical and channels_last in memory, so the NHWC
 reshape and flatten are views. float64 is accepted as a compute dtype for
 the parity tests against the JAX package's float64 step.
+
+Under a spatial partition (`nn.layers.partition` with a core.mesh.DataGroup
+of spatial > 1) every image map is the rank's block of rows: the
+generator's Dense stem computes the whole H/8 map and keeps the rank's
+rows, the convs exchange halos, the critic's BatchNorms sum their
+statistics over the world, and the head sums its partial products over
+the spatial peers. `min_sharded_height` is the guard's input, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagegeneration_tpu_torch.core.mesh import spatial_row_range
 from imagegeneration_tpu_torch.nn.layers import BatchNorm, Conv, ConvTranspose, Dense
 
 CLIP_VALUE = 0.01  # wasserstein_gan/WGAN.py:57
@@ -62,6 +71,13 @@ CRITIC_TRUNK = (
 )
 
 
+def min_sharded_height(cfg: WGANConfig) -> int:
+    """Smallest spatially partitioned feature height: the critic's three
+    4x4 s2 convs (and the generator's H/8 stem map) bottom out at H/8.
+    Input to core/mesh.check_spatial_partition."""
+    return cfg.image_size[0] // 8
+
+
 class Critic(nn.Module):
     """Wasserstein critic: images (B, C, H, W) -> scores (B, 1) float32."""
 
@@ -77,7 +93,8 @@ class Critic(nn.Module):
             self.add_module(f"conv{i}_bn", BatchNorm(out, dtype=cfg.dtype))
             feats = out
             h, w = -(-h // s[0]), -(-w // s[1])
-        self.head = Dense(feats * h * w, 1, dtype=cfg.dtype, generator=generator)
+        self.head = Dense(feats * h * w, 1, dtype=cfg.dtype, generator=generator,
+                          sharded_input=True)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         """train=True: batch statistics, and the BN running statistics are
@@ -111,10 +128,13 @@ class Generator(nn.Module):
             feats = out
         self.to_rgb = Conv(feats, c, (3, 3), (1, 1), "SAME", use_bias=False, dtype=dt,
                            generator=generator, kernel_init="normal_002")
+        self.group = None  # a spatial partition: images are the rank's rows
 
     def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
         x = F.leaky_relu(self.stem(z), 0.2)
         x = x.view(x.shape[0], *self.hw8, -1).permute(0, 3, 1, 2)
+        lo, hi = spatial_row_range(self.group, self.hw8[0])
+        x = x[:, :, lo:hi]
         for i in range(3):
             up, bn = getattr(self, f"up{i}"), getattr(self, f"up{i}_bn")
             x = F.leaky_relu(bn(up(x), not train), 0.2)

@@ -28,6 +28,27 @@ path). Image tensors are NCHW logical and channels_last in memory, so that
 their memory order is the JAX package's NHWC; 4-D conv weights are
 channels_last too (`conv_weight`).
 
+Under a (data, spatial) mesh (`partition` sets a core.mesh.DataGroup on
+every layer of a model) an image tensor is this rank's block of rows of
+the whole map (parallel/dp.py):
+
+- a SAME conv takes the global SAME pads, split at the shard's edges: the
+  top `lo` and bottom `hi` rows of same_pads(H, k, s) come from the spatial
+  neighbours (parallel/halo.py), zeros at the global edges; a stride keeps
+  its phase because every shard's height is a multiple of it (the guard,
+  core/mesh.check_spatial_partition, keeps >= 2 rows at the deepest map);
+- a transposed conv exchanges the input rows its outputs read across the
+  edge (`conv_transpose_halo`), runs on the padded block and keeps the
+  rows of its own output block;
+- BatchNorm over an image map sums its statistics over the world (N, H
+  and W are all split); over a (B, features) input, which spatial peers
+  hold whole, over the data group only;
+- a Dense layer built with `sharded_input=True` (a head over the NHWC
+  flatten of an H-partitioned map) multiplies this rank's block of the
+  input features by its block of the weight's columns and sums the
+  partial products over the spatial peers (`dp.spatial_sum`), with the
+  bias added once, on spatial rank 0.
+
 Not ported: the phase/hybrid/packed/swapdw ConvTranspose lowerings of the
 JAX package, which work around TPU XLA; cuDNN lowers the transposed conv
 (the swapdw lowering's forward is lax.conv_transpose, which this matches).
@@ -43,6 +64,7 @@ from torch import nn
 
 from imagegeneration_tpu_torch.ops.instance_norm import instance_norm
 from imagegeneration_tpu_torch.parallel import dp
+from imagegeneration_tpu_torch.parallel.halo import halo
 
 
 def glorot_uniform_(
@@ -110,17 +132,33 @@ def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _spatial(group) -> bool:
+    return group is not None and group.sharded
+
+
 def conv2d_same(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-    stride: tuple[int, int], padding: str,
+    stride: tuple[int, int], padding: str, group=None,
 ) -> torch.Tensor:
-    """conv2d with TF-SAME or VALID padding (w is OIHW)."""
+    """conv2d with TF-SAME or VALID padding (w is OIHW). With a spatially
+    partitioned `group`, x is this rank's block of rows and the H pads are
+    the whole map's, filled from the neighbours."""
     if padding == "VALID":
+        if _spatial(group):
+            raise NotImplementedError("a VALID conv over an H-partitioned map is not ported")
         return F.conv2d(x, w, b, stride)
     if padding != "SAME":
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-    (hl, hh) = same_pads(x.shape[2], w.shape[2], stride[0])
     (wl, wh) = same_pads(x.shape[3], w.shape[3], stride[1])
+    if _spatial(group):
+        h = x.shape[2]
+        if h % stride[0]:
+            raise ValueError(f"a shard of {h} rows breaks the stride-{stride[0]} phase")
+        (hl, hh) = same_pads(h * group.spatial, w.shape[2], stride[0])
+        x = halo(x, hl, hh, group)
+        hl = hh = 0
+    else:
+        (hl, hh) = same_pads(x.shape[2], w.shape[2], stride[0])
     if hl == hh and wl == wh:
         return F.conv2d(x, w, b, stride, padding=(hl, wl))
     return F.conv2d(F.pad(x, (wl, wh, hl, hh)), w, b, stride)
@@ -134,24 +172,55 @@ def conv_transpose_same_pads(k: int, s: int) -> tuple[int, int]:
     return low, pad_len - low
 
 
+def conv_transpose_halo(k: int, s: int) -> tuple[int, int]:
+    """Input rows above and below a block that the block's SAME transposed
+    conv outputs read: output row o reads the dilated input rows o - low
+    ... o - low + k - 1, of which the multiples of s are input rows."""
+    low, _ = conv_transpose_same_pads(k, s)
+    return low // s, max(0, (k - 2 - low) // s + 1)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, group=None) -> torch.Tensor:
+    """x @ w^T + b. With a spatially partitioned `group`, x is this rank's
+    block of the input features (the NHWC flatten of its rows of a map):
+    its block of w's columns, the partial products summed over the spatial
+    peers, the bias added on spatial rank 0 only. The partial products and
+    their sum are kept in at least float32 and rounded to x's dtype once,
+    as the whole product accumulates in float32 and rounds once."""
+    if not _spatial(group):
+        return F.linear(x, w, b)
+    n = x.shape[1]
+    if n * group.spatial != w.shape[1]:
+        raise ValueError(f"{n} input features x {group.spatial} shards != {w.shape[1]}")
+    ct = torch.promote_types(x.dtype, torch.float32)
+    if b is not None:  # times 0 elsewhere: every rank has a (zero) bias gradient to reduce
+        b = b.to(ct) * float(group.s == 0)
+    part = F.linear(x.to(ct), w[:, group.s * n:(group.s + 1) * n].to(ct), b)
+    return dp.spatial_sum(part, group).to(x.dtype)
+
+
 class Dense(nn.Module):
-    """y = x @ W^T + b; weight (out, in)."""
+    """y = x @ W^T + b; weight (out, in). `sharded_input=True`: under a
+    spatial partition, x is this rank's block of the features (`dense`)."""
 
     def __init__(
         self, in_features: int, features: int, use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, sharded_input: bool = False,
     ) -> None:
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         glorot_uniform_(self.weight, in_features, features, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.sharded_input = sharded_input
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return dense(x.to(dt), self.weight.to(dt), b,
+                     self.group if self.sharded_input else None)
 
 
 class Conv(nn.Module):
@@ -170,12 +239,13 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.weight = conv_weight((features, in_features, kh, kw), generator, kernel_init)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         return conv2d_same(x.to(dt), self.weight.to(dt), b, self.strides,
-                           self.padding)
+                           self.padding, self.group)
 
 
 class ConvTranspose(nn.Module):
@@ -201,18 +271,25 @@ class ConvTranspose(nn.Module):
         self.out_pad = tuple(max(hi - lo, 0) for lo, hi in pads)
         self.crop = any(hi < lo for lo, hi in pads)
         self.strides = tuple(strides)
+        self.halo_rows = conv_transpose_halo(kh, strides[0])
         self.dtype = dtype
         self.weight = conv_weight((in_features, features, kh, kw), generator, kernel_init)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
+        h, s = x.shape[2], self.strides[0]
+        if _spatial(self.group):
+            x = halo(x, *self.halo_rows, self.group)
         y = F.conv_transpose2d(
             x.to(dt), self.weight.to(dt), b, self.strides, self.tpad, self.out_pad
         )
         if self.crop:
-            y = y[:, :, : x.shape[2] * self.strides[0], : x.shape[3] * self.strides[1]]
+            y = y[:, :, : x.shape[2] * s, : x.shape[3] * self.strides[1]]
+        if _spatial(self.group):  # this rank's block of output rows
+            y = y[:, :, self.halo_rows[0] * s:(self.halo_rows[0] + h) * s]
         return y
 
 
@@ -224,14 +301,16 @@ class BatchNorm(nn.Module):
     float32, as flax computes them: mean = E[x], var = max(E[x^2] - E[x]^2,
     0) (flax's fast variance); the running variance takes this biased var.
 
-    Under data parallelism (`group` set by `sync_batch_norm`) the
-    train-mode statistics are those of the GLOBAL batch, as the JAX step
-    computes them over a mesh: one differentiable all-reduce sums the
-    per-channel [sum x, sum x^2] over the ranks, and N counts every rank's
-    elements (the ranks' shards are equal). Its backward sums the
-    cotangents over the ranks; each rank's loss is the mean over its own
-    rows and the gradients are then averaged (parallel/dp.py), which gives
-    the global-batch gradient."""
+    Under data parallelism (`group` set by `partition`) the train-mode
+    statistics are those of the GLOBAL batch, as the JAX step computes them
+    over a mesh: one differentiable all-reduce sums the per-channel [sum x,
+    sum x^2] over the ranks, and N counts every rank's elements (the ranks'
+    shards are equal): over the world for an image map (split on N, and on
+    H over the spatial peers), over the data group for a (B, features)
+    input, which spatial peers hold whole. Its backward sums the cotangents
+    over the same ranks; each rank's loss is the mean over its own rows and
+    the gradients are then averaged (parallel/dp.py), which gives the
+    global-batch gradient."""
 
     def __init__(
         self, features: int, momentum: float = 0.99, epsilon: float = 1e-3,
@@ -253,8 +332,10 @@ class BatchNorm(nn.Module):
         dims = [d for d in range(xf.dim()) if d != 1]
         if self.group is None:
             return xf.mean(dims), (xf * xf).mean(dims)
-        sums = dp.all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), self.group)
-        n = xf.numel() // xf.shape[1] * self.group.world
+        over = "world" if xf.dim() > 2 else "data"
+        sums = dp.all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), self.group,
+                                 over)
+        n = xf.numel() // xf.shape[1] * self.group.size_of(over)
         return sums[0] / n, sums[1] / n
 
     def forward(self, x: torch.Tensor, use_running_average: bool) -> torch.Tensor:
@@ -275,11 +356,14 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype or ct)
 
 
-def sync_batch_norm(module: nn.Module, group) -> None:
-    """Make every BatchNorm in `module` take global batch statistics over
-    `group` (a core.mesh.DataGroup; None: this process's batch)."""
+def partition(module: nn.Module, group) -> None:
+    """Set `group` (a core.mesh.DataGroup; None: this process's whole batch
+    and maps) on every layer of `module` that takes one: BatchNorms take
+    global statistics, and under a spatial partition the convs exchange
+    halos, the sharded-input Dense heads sum over the spatial peers and the
+    models cut their maps to the rank's rows."""
     for m in module.modules():
-        if isinstance(m, BatchNorm):
+        if hasattr(m, "group"):
             m.group = group
 
 

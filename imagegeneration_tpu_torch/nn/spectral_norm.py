@@ -16,15 +16,19 @@ W here is the PyTorch weight flattened to (out, rest) in OIHW order (for
 the channels_last conv weight, `flatten` copies), the JAX package's
 (kh*kw*in, out) matrix transposed with its rows permuted. sigma and new_u
 do not depend on the order of those rows.
+
+Under a (data, spatial) mesh the weights are replicated, so the power step
+is the same on every rank; the layers take the spatial partition of their
+plain counterparts (nn/layers.py: halo exchanges in the conv, a partial
+product summed over the spatial peers in a `sharded_input` Dense).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from imagegeneration_tpu_torch.nn.layers import conv2d_same, conv_weight, glorot_uniform_
+from imagegeneration_tpu_torch.nn.layers import conv2d_same, conv_weight, dense, glorot_uniform_
 
 _EPS = 1e-12
 
@@ -79,12 +83,13 @@ class SpectralNormConv(_SpectralNorm):
         self.weight = conv_weight((features, in_features, kh, kw), generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self._init_u(features, generator)
+        self.group = None
 
     def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         dt = self.dtype
         w = self.normalized_weight(update_sn).to(dt)
         b = None if self.bias is None else self.bias.to(dt)
-        return conv2d_same(x.to(dt), w, b, self.strides, self.padding)
+        return conv2d_same(x.to(dt), w, b, self.strides, self.padding, self.group)
 
 
 class SpectralNormDense(_SpectralNorm):
@@ -93,7 +98,7 @@ class SpectralNormDense(_SpectralNorm):
     def __init__(
         self, in_features: int, features: int, use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, sharded_input: bool = False,
     ) -> None:
         super().__init__()
         self.dtype = dtype
@@ -101,9 +106,11 @@ class SpectralNormDense(_SpectralNorm):
         glorot_uniform_(self.weight, in_features, features, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self._init_u(features, generator)
+        self.sharded_input = sharded_input
+        self.group = None
 
     def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         dt = self.dtype
         w = self.normalized_weight(update_sn).to(dt)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), w, b)
+        return dense(x.to(dt), w, b, self.group if self.sharded_input else None)

@@ -23,8 +23,16 @@ Under data parallelism a rank holds rows [r*b, (r+1)*b) of a global batch
 of B; the JAX package keys the mask by the GLOBAL NHWC index of the
 (B, H, W, C) array, so rank r passes `base = r*b*H*W*C` (`rows_base`) and
 the global element count `total = B*H*W*C`, which must stay below 2**32
-(the index is uint32). The base is a launch argument (a host int), so a
-launch still never syncs the host.
+(the index is uint32). Under a spatial partition a rank holds only image
+rows [h0, h0 + h) of H as well (`hblock=(h0, H)`): its rows are then not
+one block of the global index, and local offset i = b*h*W*C + r*W*C +
+rest maps to
+
+    base + b*H*W*C + (h0 + r)*W*C + rest = base + h0*W*C + i + (i // (h*W*C)) * (H - h)*W*C
+
+(`global_index`), in the kernel and in the plain version alike. The base
+and the row block are launch arguments (host ints), so a launch still
+never syncs the host.
 
 On the H100 both passes are bound by device-memory bandwidth (forward reads
 x and writes y; backward reads x and g and writes dx); the kernel
@@ -66,17 +74,47 @@ def keep_scale(cut: int) -> float:
 
 
 # ------------------------------------------------------------ plain version
-def hash_keep_mask(kw: torch.Tensor, numel: int, cut: int, base: int = 0) -> torch.Tensor:
-    """Keep mask over linear indices base..base+numel-1 (bool, flat)."""
-    idx = torch.arange(base, base + numel, device=kw.device, dtype=torch.int64) & _U32
+def global_index(numel: int, base: int = 0, rowmap: tuple[int, int, int, int] | None = None,
+                 device=None) -> torch.Tensor:
+    """The global element index of local offsets 0..numel-1 (int64): base +
+    i, or for a row block `rowmap` = (h_local, h_global, h0, wc) of image
+    rows [h0, h0 + h_local) of h_global, each wc = W*C elements,
+    base + h0*wc + i + (i // (h_local*wc)) * (h_global - h_local)*wc."""
+    i = torch.arange(numel, device=device, dtype=torch.int64)
+    if rowmap is None:
+        return base + i
+    h_local, h_global, h0, wc = rowmap
+    return base + h0 * wc + i + torch.div(i, h_local * wc, rounding_mode="floor") \
+        * ((h_global - h_local) * wc)
+
+
+def hash_keep_mask(kw: torch.Tensor, numel: int, cut: int, base: int = 0,
+                   rowmap: tuple[int, int, int, int] | None = None) -> torch.Tensor:
+    """Keep mask of local offsets 0..numel-1 at their global indices
+    (`global_index`; default base..base+numel-1): bool, flat."""
+    idx = global_index(numel, base, rowmap, kw.device) & _U32
     h = (fmix32(idx ^ kw[0]) + kw[1]) & _U32
     return (h & 0xFF) >= cut
 
 
-def rows_base(x: torch.Tensor, first_row: int) -> int:
-    """The element-index base of a shard of rows that starts at global row
-    `first_row`: rows before it times the elements of one row."""
-    return first_row * (x.numel() // x.shape[0])
+def rows_base(x: torch.Tensor, first_row: int, h_global: int | None = None) -> int:
+    """The element-index base of a shard of batch rows that starts at global
+    row `first_row`: rows before it times the elements of one global row
+    (x's own, or of `h_global` image rows of x's width and channels)."""
+    _, c, h, w = x.shape
+    return first_row * c * w * (h if h_global is None else h_global)
+
+
+def row_map(x: torch.Tensor, hblock: tuple[int, int] | None) -> tuple[int, int, int, int] | None:
+    """(h_local, h_global, h0, wc) of x holding image rows [h0, h0 + h) of
+    h_global, for `hblock` = (h0, h_global); None for whole maps."""
+    if hblock is None:
+        return None
+    h0, h_global = hblock
+    _, c, h, w = x.shape
+    if h0 < 0 or h0 + h > h_global:
+        raise ValueError(f"image rows [{h0}, {h0 + h}) outside the {h_global} rows of the map")
+    return h, h_global, h0, w * c
 
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
@@ -93,19 +131,21 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def fwd_plain(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0) -> torch.Tensor:
+def fwd_plain(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
+              hblock: tuple[int, int] | None = None) -> torch.Tensor:
     xn = _nhwc(x).to(_compute_dtype(x))
-    keep = hash_keep_mask(kw, x.numel(), cut, base).view(xn.shape)
+    keep = hash_keep_mask(kw, x.numel(), cut, base, row_map(x, hblock)).view(xn.shape)
     leaky = torch.where(xn >= 0, xn, xn * NEGATIVE_SLOPE)
     y = torch.where(keep, leaky * keep_scale(cut), torch.zeros((), device=x.device))
     return _nchw(y.to(x.dtype))
 
 
 def bwd_plain(
-    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0
+    x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
+    hblock: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     xn = _nhwc(x).to(_compute_dtype(x))
-    keep = hash_keep_mask(kw, x.numel(), cut, base).view(xn.shape)
+    keep = hash_keep_mask(kw, x.numel(), cut, base, row_map(x, hblock)).view(xn.shape)
     gs = _nhwc(g).to(xn.dtype) * keep_scale(cut)
     d = torch.where(xn >= 0, gs, gs * NEGATIVE_SLOPE)
     dx = torch.where(keep, d, torch.zeros((), device=x.device))
@@ -114,8 +154,9 @@ def bwd_plain(
 
 # ------------------------------------------------------------------- kernel
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGS_TAIL = [ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-              ctypes.c_float, ctypes.c_void_p]
+# n, base, h_local, h_global, h0, wc, cut, scale, slope, stream
+_ARGS_TAIL = [ctypes.c_int64] + [ctypes.c_uint32] * 6 + [ctypes.c_float, ctypes.c_float,
+                                                          ctypes.c_void_p]
 
 
 @functools.cache
@@ -132,10 +173,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def index_extent(x: torch.Tensor, hblock: tuple[int, int] | None) -> int:
+    """The global indices a shard spans from its base: its element count, or
+    for a row block up to the end of its last image row."""
+    rowmap = row_map(x, hblock)
+    if rowmap is None:
+        return x.numel()
+    h, h_global, h0, wc = rowmap
+    return (x.shape[0] - 1) * h_global * wc + (h0 + h) * wc
+
+
 def check_index_range(numel: int, base: int, total: int | None) -> int:
     """The global element count (`total`, default base + numel), checked:
-    the shard [base, base + numel) lies inside it, and it is below 2**32,
-    since the mask's index is uint32."""
+    the shard's span [base, base + numel) lies inside it, and it is below
+    2**32, since the mask's index is uint32."""
     total = base + numel if total is None else total
     if base < 0 or base + numel > total:
         raise ValueError(f"shard [{base}, {base + numel}) outside the {total} elements")
@@ -147,28 +198,31 @@ def check_index_range(numel: int, base: int, total: int | None) -> int:
 
 
 def _check_kernel_args(x: torch.Tensor, kw: torch.Tensor, base: int,
-                       total: int | None) -> None:
+                       total: int | None, hblock: tuple[int, int] | None) -> tuple:
+    """The kernel's (base, h_local, h_global, h0, wc), checked."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     _check_channels_last(x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
-    check_index_range(x.numel(), base, total)
+    check_index_range(index_extent(x, hblock), base, total)
     if (kw.device != x.device or kw.dtype != torch.int64
             or kw.shape != (2,) or not kw.is_contiguous()):
         raise ValueError(
             f"kw must be a contiguous int64 (2,) tensor on {x.device}, got "
             f"{kw.dtype} {tuple(kw.shape)} on {kw.device}"
         )
+    _, c, h, w = x.shape
+    return (base, *(row_map(x, hblock) or (h, h, 0, w * c)))
 
 
 def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
-               total: int | None = None) -> torch.Tensor:
-    _check_kernel_args(x, kw, base, total)
+               total: int | None = None, hblock: tuple[int, int] | None = None) -> torch.Tensor:
+    index = _check_kernel_args(x, kw, base, total, hblock)
     lib = _lib()
     y = torch.empty_like(x, memory_format=torch.channels_last)
     rc = getattr(lib, f"lrd_fwd_{_DTYPES[x.dtype]}")(
-        x.data_ptr(), y.data_ptr(), kw.data_ptr(), x.numel(), base, cut,
+        x.data_ptr(), y.data_ptr(), kw.data_ptr(), x.numel(), *index, cut,
         keep_scale(cut), NEGATIVE_SLOPE, torch.cuda.current_stream(x.device).cuda_stream,
     )
     native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout forward")
@@ -178,9 +232,9 @@ def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
 
 def bwd_kernel(
     x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
-    total: int | None = None,
+    total: int | None = None, hblock: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    _check_kernel_args(x, kw, base, total)
+    index = _check_kernel_args(x, kw, base, total, hblock)
     if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
         raise ValueError("gradient must match x in dtype, shape and device")
     _check_channels_last(g)
@@ -188,7 +242,7 @@ def bwd_kernel(
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     rc = getattr(lib, f"lrd_bwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), kw.data_ptr(), x.numel(),
-        base, cut, keep_scale(cut), NEGATIVE_SLOPE,
+        *index, cut, keep_scale(cut), NEGATIVE_SLOPE,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout backward")
@@ -210,52 +264,55 @@ def _check_channels_last(x: torch.Tensor) -> None:
 
 
 def fwd(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
-        total: int | None = None) -> torch.Tensor:
+        total: int | None = None, hblock: tuple[int, int] | None = None) -> torch.Tensor:
     """Forward: the plain version for a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
-        check_index_range(x.numel(), base, total)
-        return fwd_plain(x, kw, cut, base)
-    return fwd_kernel(x, kw, cut, base, total)
+        check_index_range(index_extent(x, hblock), base, total)
+        return fwd_plain(x, kw, cut, base, hblock)
+    return fwd_kernel(x, kw, cut, base, total, hblock)
 
 
 def bwd(x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
-        total: int | None = None) -> torch.Tensor:
+        total: int | None = None, hblock: tuple[int, int] | None = None) -> torch.Tensor:
     """Backward: the plain version for a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
-        check_index_range(x.numel(), base, total)
-        return bwd_plain(x, g, kw, cut, base)
-    return bwd_kernel(x, g, kw, cut, base, total)
+        check_index_range(index_extent(x, hblock), base, total)
+        return bwd_plain(x, g, kw, cut, base, hblock)
+    return bwd_kernel(x, g, kw, cut, base, total, hblock)
 
 
 class _LeakyReluDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kw, cut, base, total):
+    def forward(ctx, x, kw, cut, base, total, hblock):
         ctx.save_for_backward(x, kw)
-        ctx.cut, ctx.base, ctx.total = cut, base, total
-        return fwd(x, kw, cut, base, total)
+        ctx.cut, ctx.base, ctx.total, ctx.hblock = cut, base, total, hblock
+        return fwd(x, kw, cut, base, total, hblock)
 
     @staticmethod
     def backward(ctx, g):
         x, kw = ctx.saved_tensors
         g = g.contiguous(memory_format=torch.channels_last)
-        return bwd(x, g, kw, ctx.cut, ctx.base, ctx.total), None, None, None, None
+        dx = bwd(x, g, kw, ctx.cut, ctx.base, ctx.total, ctx.hblock)
+        return dx, None, None, None, None, None
 
 
 def leaky_relu_dropout(
     x: torch.Tensor, kw: torch.Tensor, rate: float,
-    rows: tuple[int, int] | None = None,
+    rows: tuple[int, int] | None = None, hblock: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """dropout(leaky_relu(x, 0.1)) with the hash1 mask of key words `kw`.
 
     x: (B, C, H, W) channels_last, float32 or bfloat16 (float64 on the CPU).
     kw: (2,) int64 holding two uint32 words, on x's device. rows: (first
     row, global batch) when x holds rows [first, first + B) of a larger
-    batch (a data-parallel rank); the mask is then that batch's, at these
-    rows' global indices."""
+    batch (a data-parallel rank); hblock: (h0, global height) when x holds
+    image rows [h0, h0 + H) of a taller map (a spatial shard). The mask is
+    then the whole array's, at x's global indices."""
     _check_channels_last(x)
     base, total = 0, None
-    if rows is not None:
-        first, global_rows = rows
-        base = rows_base(x, first)
-        total = rows_base(x, global_rows)
-    return _LeakyReluDropout.apply(x, kw, dropout_cut(rate), base, total)
+    if rows is not None or hblock is not None:
+        first, global_rows = rows or (0, x.shape[0])
+        h_global = None if hblock is None else hblock[1]
+        base = rows_base(x, first, h_global)
+        total = rows_base(x, global_rows, h_global)
+    return _LeakyReluDropout.apply(x, kw, dropout_cut(rate), base, total, hblock)

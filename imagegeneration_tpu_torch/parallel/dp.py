@@ -1,41 +1,58 @@
-"""Data-parallel training by hand: one process per card, two collectives.
+"""Data x spatial training by hand: one process per card, explicit collectives.
 
 The counterpart of imagegeneration_tpu/parallel/dp.py. The JAX package
-jits its steps over a mesh with the state replicated and the batch sharded
-on N, and XLA's partitioner inserts the all-reduces. The port runs one
-process per card and writes them: `all_reduce` and `broadcast` only, the
-two collectives gloo also runs on CUDA tensors (through the host), so that
-the same code runs over NCCL across cards, over gloo on one card and over
-gloo on the CPU.
+jits its steps over a (data, spatial) mesh with the state replicated, the
+batch sharded on N over "data" and (optionally) on H over "spatial", and
+XLA's partitioner inserts the collectives. The port runs one process per
+card and writes them: `all_reduce` and `broadcast` here and
+`all_gather_into_tensor` for the halo (parallel/halo.py), collectives that
+gloo also runs on CUDA tensors (through the host; its send/recv fail
+there), so that the same code runs over NCCL across cards, over gloo on
+one card and over gloo on the CPU.
 
-Semantics: those of the JAX package's TESTS, not of its docstring. A
-data-parallel step over a global batch of B equals the one-device step on
-that batch (tests/test_parallel.py, the float64 multi-step tests, compare
-the final state leaf by leaf). So:
+Semantics: those of the JAX package's TESTS, not of its docstring. A step
+over a global batch of B on data x spatial ranks equals the one-device step
+on that batch (tests/test_parallel.py, the float64 multi-step tests,
+compare the final state leaf by leaf). So:
 
 - every rank holds the same state (`replicate_state` broadcasts it from
   rank 0 and checks a digest of every byte);
-- a rank's batch is its block of B / world rows (core/mesh.process_row_range);
-  random draws (the latents, WGAN-GP's interpolation weights) are made for
-  the global batch from a stream seeded alike on every rank, and each rank
-  keeps its rows; the dropout mask is keyed by the global element index;
-- BatchNorm takes GLOBAL batch statistics (`all_reduce_sum`, differentiable;
-  nn/layers.BatchNorm), where the JAX docstring says "non-sync": under jit
-  over a global array flax's mean is over the global batch, and the mesh
-  tests hold the batch statistics to the one-device run;
-- each rank's loss is the mean over its own rows, and the gradients are
-  AVERAGED over the ranks (`all_reduce_mean_`) before each optimizer apply,
-  so the mean of the local means is the global mean and the update is the
-  one-device update. The backward of the statistics' summing all-reduce is
-  again a summing all-reduce; with local-mean losses and averaged
-  gradients it gives exactly the global-batch gradient (the sum over ranks
-  of each rank's cotangent, averaged with the rest). A factor of world
-  size lost here would not show in the losses or, through Adam's and
-  RMSprop's scale invariance, much in the weights, only in the optimizer
-  moments: the JAX package's own sum-for-mean class of fault
+- a rank's batch is its block d of B / data rows (core/mesh.
+  process_row_range) and, under a spatial partition, its block s of H /
+  spatial image rows (core/mesh.spatial_row_range); random draws (the
+  latents, WGAN-GP's interpolation weights) are made for the global batch
+  from a stream seeded alike on every rank, and each rank keeps its rows;
+  the dropout mask is keyed by the global element index;
+- convs exchange the rows their kernels read across a shard's edge with
+  the spatial neighbours (parallel/halo.py);
+- BatchNorm takes GLOBAL batch statistics (`all_reduce_sum`,
+  differentiable; nn/layers.BatchNorm), where the JAX docstring says
+  "non-sync": under jit over a global array flax's mean is over the global
+  batch. Statistics of an H-partitioned map sum over the world; those of
+  a map with no H axis (the generator's Dense stem, held whole by every
+  spatial peer) over the data group only;
+- a value whose terms are spread over the spatial peers and that every
+  peer then holds whole (the head's logits from the peers' blocks of the
+  flattened map; WGAN-GP's per-image squared gradient norm) is summed over
+  the spatial group by `spatial_sum`, whose backward is the identity: each
+  peer's term takes the whole value's cotangent once;
+- each rank's loss is the mean over its own rows (spatial peers hold the
+  same loss), and the gradients are SUMMED over the world and divided by
+  the DATA size (`all_reduce_mean_`) before each optimizer apply. Each
+  rank's gradient is the part of its data block's gradient that flows
+  through its own shard, so the spatial peers' parts sum to the block's
+  gradient and the data blocks average to the global one. The backward of
+  a statistics' summing all-reduce is again a summing all-reduce; with
+  local-mean losses it carries each statistic's cotangent summed over the
+  data blocks, which the divisor then averages with the rest. A divisor of
+  world, or a backward of `spatial_sum` that sums too, would put the
+  gradients off by the spatial size (the trap tests/test_parallel.py
+  records for GSPMD), which would not show in the losses or, through Adam's
+  and RMSprop's scale invariance, much in the weights, only in the
+  optimizer moments: the JAX package's own sum-for-mean class of fault
   (train/common.py:211-231), which the tests catch by comparing them;
 - metrics come back stacked per step on the device and are averaged over
-  the ranks once per epoch (`reduce_metrics`): one all-reduce, at the
+  the data group once per epoch (`reduce_metrics`): one all-reduce, at the
   epoch's one host sync.
 
 `spawn_local` starts the ranks of one host with the spawn start method
@@ -66,26 +83,50 @@ COLLECTIVE_TIMEOUT_S = 600
 
 # ------------------------------------------------------------- collectives
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; its backward sums the cotangents over the ranks
-    (and is differentiable again, for the gradient penalty's double
-    backward)."""
+    """Sum over the ranks of a group; its backward sums the cotangents over
+    the same ranks (and is differentiable again, for the gradient
+    penalty's double backward)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group: DataGroup) -> torch.Tensor:
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor, group: DataGroup, over: str) -> torch.Tensor:
+        ctx.group, ctx.over = group, over
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group.pg)
+        dist.all_reduce(y, group=group.pg_of(over))
         group.counts["stat_all_reduce"] += 1
         return y
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return _AllReduceSum.apply(g, ctx.group), None
+        return _AllReduceSum.apply(g, ctx.group, ctx.over), None, None
 
 
-def all_reduce_sum(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
-    """Differentiable sum of `x` over the ranks (BatchNorm's statistics)."""
-    return _AllReduceSum.apply(x, group)
+def all_reduce_sum(x: torch.Tensor, group: DataGroup, over: str = "world") -> torch.Tensor:
+    """Differentiable sum of `x` over the ranks of `over` ("world", "data"
+    or "spatial"; BatchNorm's statistics)."""
+    return _AllReduceSum.apply(x, group, over)
+
+
+class _SpatialSum(torch.autograd.Function):
+    """Sum over the spatial peers; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group.pg_of("spatial"))
+        group.counts["spatial_sum"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+def spatial_sum(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """The sum over the spatial peers of their terms `x` of a value that
+    every peer then holds whole; the backward hands each term the whole
+    value's cotangent (the identity), so that summing the peers' gradients
+    counts it once."""
+    return _SpatialSum.apply(x, group)
 
 
 def memory_order_flat(t: torch.Tensor) -> torch.Tensor | None:
@@ -118,8 +159,10 @@ def _unbucket(flats: list[torch.Tensor], bucket: torch.Tensor) -> None:
 
 @torch.no_grad()
 def all_reduce_mean_(grads: Sequence[torch.Tensor | None], group: DataGroup) -> list:
-    """Average gradients over the ranks in place: ONE all-reduce over one
-    flat bucket, built from and written back through memory-order views, so
+    """Average gradients over the data blocks in place: ONE all-reduce over
+    one flat bucket, summed over the world and divided by the data size
+    (spatial peers hold parts of one block's gradient), built from and
+    written back through memory-order views, so
     every gradient keeps its parameter's layout (the Adam kernel then
     copies none: adam.GRAD_COPIES). None entries (frozen leaves) stay None.
     A gradient that is not dense is first made contiguous. Returns the
@@ -132,14 +175,15 @@ def all_reduce_mean_(grads: Sequence[torch.Tensor | None], group: DataGroup) -> 
     flats, bucket = _bucket(live, "gradients")
     dist.all_reduce(bucket, group=group.pg)
     group.counts["grad_all_reduce"] += 1
-    bucket.div_(group.world)
+    bucket.div_(group.data)
     _unbucket(flats, bucket)
     return out
 
 
 @torch.no_grad()
 def reduce_metrics(metrics: dict[str, torch.Tensor], group: DataGroup | None) -> dict:
-    """The ranks' mean of each stacked per-step metric: one all-reduce."""
+    """The data blocks' mean of each stacked per-step metric (spatial peers
+    hold the same values): one all-reduce over the data group."""
     if group is None or not metrics:
         return metrics
     keys = list(metrics)
@@ -147,9 +191,9 @@ def reduce_metrics(metrics: dict[str, torch.Tensor], group: DataGroup | None) ->
     for k in keys:
         dt = torch.promote_types(dt, metrics[k].dtype)
     stacked = torch.stack([metrics[k].to(dt) for k in keys])
-    dist.all_reduce(stacked, group=group.pg)
+    dist.all_reduce(stacked, group=group.pg_of("data"))
     group.counts["metric_all_reduce"] += 1
-    stacked.div_(group.world)
+    stacked.div_(group.data)
     return dict(zip(keys, stacked.unbind(0)))
 
 
@@ -264,7 +308,7 @@ def local_devices(world: int, device_type: str) -> list[torch.device]:
     return [torch.device("cuda", r) for r in range(world)]
 
 
-def _run_rank(rank: int, world: int, port: int, backend: str, device: str,
+def _run_rank(rank: int, world: int, spatial: int, port: int, backend: str, device: str,
               num_threads: int | None, fn: Callable, args: tuple, results) -> None:
     dev = torch.device(device)
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
@@ -281,7 +325,8 @@ def _run_rank(rank: int, world: int, port: int, backend: str, device: str,
             backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         try:
-            group = meshlib.make_mesh(meshlib.MeshConfig(data=world), dev)
+            group = meshlib.make_mesh(
+                meshlib.MeshConfig(data=world // spatial, spatial=spatial), dev)
             out = fn(group, *args)
         finally:
             dist.destroy_process_group()
@@ -293,10 +338,11 @@ def _run_rank(rank: int, world: int, port: int, backend: str, device: str,
 def spawn_local(fn: Callable, world: int, device_type: str = "cpu",
                 backend: str | None = None, devices: Sequence[str] | None = None,
                 args: tuple = (), num_threads: int | None = None,
-                timeout: float | None = None) -> list:
+                timeout: float | None = None, spatial: int = 1) -> list:
     """Run `fn(group, *args)` on `world` ranks of this host, one spawned
     process each, and return their results by rank. `fn` and its
-    arguments and results must pickle (a module-level function).
+    arguments and results must pickle (a module-level function). The ranks
+    form a (world / spatial) x spatial mesh (core/mesh.make_mesh).
 
     devices: one device per rank (default `local_devices`); two ranks may
     share a card only over gloo, which is then named explicitly. backend:
@@ -308,6 +354,8 @@ def spawn_local(fn: Callable, world: int, device_type: str = "cpu",
     devs = [torch.device(d) for d in devices] if devices else local_devices(world, device_type)
     if len(devs) != world:
         raise ValueError(f"{len(devs)} devices for {world} ranks")
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"{world} ranks do not split into spatial groups of {spatial}")
     backend = backend or meshlib.default_backend(devs[0].type)
     if backend == "nccl" and len(set(devs)) < world:
         raise ValueError("NCCL runs one rank per card; name backend='gloo' to share a card")
@@ -315,7 +363,7 @@ def spawn_local(fn: Callable, world: int, device_type: str = "cpu",
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_run_rank, daemon=True, args=(
-        r, world, port, backend, str(devs[r]), num_threads, fn, args, results))
+        r, world, spatial, port, backend, str(devs[r]), num_threads, fn, args, results))
         for r in range(world)]
     for p in procs:
         p.start()

@@ -11,7 +11,8 @@ and the hand-kernel launches this rank made. With `group=None` it is the
 one-process run of the same steps on `device`. The state before the
 first step and after every step come back too (`state0`, `states`), and
 `init` may be such a list of states, one per step: each step then starts
-from its own state (a trajectory replayed step by step).
+from its own state (a trajectory replayed step by step). Under a spatial
+partition each rank's batches are also cut to its block of image rows.
 
 The inputs are global numpy arrays, one entry per step:
 - sndcgan: `batches` (S, B, H, W, C) uint8, `z` (S, B, z_size), `kw`
@@ -49,10 +50,12 @@ def launches() -> dict[str, int]:
     return {k: v for counts in LAUNCH_COUNTERS for k, v in counts.items()}
 
 
-def _step_args(family: str, inputs: dict, i: int, rows: slice, device) -> tuple:
+def _step_args(family: str, inputs: dict, i: int, rows: slice, image_rows: slice,
+               device) -> tuple:
     def t(key, local=False):
         a = inputs[key][i]
-        return torch.from_numpy(np.ascontiguousarray(a[rows] if local else a)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(
+            a[rows, image_rows] if local else a)).to(device)
 
     if family == "sndcgan":
         return t("batches", True), t("z"), torch.from_numpy(inputs["kw"]).to(device)
@@ -75,15 +78,16 @@ def run_steps(group, family: str, cfg, inputs: dict, init: dict | None = None,
     step = steplib.make_train_step(cfg, group)
     first = next(iter(inputs.values()))
     n_steps = first.shape[0]
-    global_batch = (inputs["batches"] if "batches" in inputs else inputs["batches_x"]).shape[1]
-    lo, hi = meshlib.process_row_range(group, global_batch)
+    images = inputs["batches"] if "batches" in inputs else inputs["batches_x"]
+    lo, hi = meshlib.process_row_range(group, images.shape[1])
+    image_rows = slice(*meshlib.spatial_row_range(group, images.shape[2]))
     before = launches()
     counts = {} if group is None else dict(group.counts)
     per_step, states = [], []
     for i in range(n_steps):
         if replay is not None:
             load(state, replay[i])
-        state, m = step(state, *_step_args(family, inputs, i, slice(lo, hi), dev))
+        state, m = step(state, *_step_args(family, inputs, i, slice(lo, hi), image_rows, dev))
         per_step.append(m)
         states.append(dump(state))
     stacked = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}

@@ -12,9 +12,10 @@ least float32.
 
 Data parallelism (a core.mesh.DataGroup passed as `group`): each rank's
 loss is the mean over its own rows of the global batch, and both applies
-average the gradients over the ranks first (parallel/dp.all_reduce_mean_,
-one all-reduce per apply), so every rank applies the global-batch gradient
-to its replica of the state. `shard_rows` gives a step its rows, and
+average the gradients over the data blocks first (parallel/dp.
+all_reduce_mean_, one all-reduce per apply: a sum over the world divided by
+the data size), so every rank applies the global-batch gradient to its
+replica of the state. `shard_rows` gives a step its rows, and
 `global_draw` keeps a rank's rows of a draw made for the global batch.
 
 float64 compute (the CPU parity tests against the JAX package's float64
@@ -58,11 +59,12 @@ def _float32_apply(apply, params, grads, *args, **kwargs) -> None:
 
 
 def shard_rows(group, local_batch: int) -> tuple[int, int]:
-    """(first global row, global batch) of this rank's `local_batch` rows;
-    (0, local_batch) without a group."""
+    """(first global row, global batch) of this rank's `local_batch` rows
+    (its data block; spatial peers hold the same rows); (0, local_batch)
+    without a group."""
     if group is None:
         return 0, local_batch
-    return group.rank * local_batch, group.world * local_batch
+    return group.d * local_batch, group.data * local_batch
 
 
 def global_draw(t: torch.Tensor, rows: tuple[int, int], local_batch: int) -> torch.Tensor:

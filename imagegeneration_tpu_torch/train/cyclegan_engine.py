@@ -50,6 +50,7 @@ import torch
 from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import mesh as meshlib
 from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import preview as previewlib
@@ -83,6 +84,8 @@ class CycleGANEngine:
         mesh=None,
         host_sharded_data: bool = False,
     ) -> None:
+        if mesh is not None:
+            meshlib.refuse_spatial(mesh.spatial)
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
         if self.is_main:

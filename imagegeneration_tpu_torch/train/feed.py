@@ -11,16 +11,18 @@ on the device, for the epoch's one host sync.
 
 Data parallelism (`group`, a core.mesh.DataGroup): the batch size is the
 global one, and each rank takes its block of rows of every global batch
-(core/mesh.process_row_range). Resident: the whole uint8 dataset sits on
-each rank's card (as the JAX package replicates it) and each rank gathers
-only its rows of the shared permutation. Streamed: each rank gathers and
-copies up only its rows. The ranks agree on resident or streamed (one
-all-reduce at set-up), since the two take their orders from different
-streams in the engines. Host-sharded (datasets built with
-`shard=(rank, world)`): each rank holds only its shard of the files and
-takes its B / world rows per batch from its own shuffle of it; every rank
-reaches the same batch count, the smallest shard's, and `dropped` counts
-the rows of every shard that an epoch leaves out.
+(core/mesh.process_row_range) and, under a spatial partition, its block
+of image rows (core/mesh.spatial_row_range). Resident: the uint8 dataset
+sits on each rank's card (as the JAX package replicates it), cut to the
+rank's image rows, and each rank gathers only its rows of the shared
+permutation. Streamed: each rank gathers, cuts and copies up only its
+rows. The ranks agree on resident or streamed (one all-reduce at set-up),
+since the two take their orders from different streams in the engines.
+Host-sharded (datasets built with `shard=(d, data)`, the data block's):
+each rank holds only its shard of the files and takes its B / data rows
+per batch from its own shuffle of it; every rank reaches the same batch
+count, the smallest shard's, and `dropped` counts the rows of every shard
+that an epoch leaves out.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ class EpochFeed:
         self.batch_size = cfg.batch_size
         self.device = device
         self.rows = meshlib.process_row_range(group, self.batch_size)
+        height = self.datasets[0].images.shape[1]
+        self.image_rows = slice(*meshlib.spatial_row_range(group, height))
         local = self.rows[1] - self.rows[0]
         shards = [getattr(ds, "shard", None) for ds in self.datasets]
         self.host_sharded = any(shards)
@@ -59,7 +63,7 @@ class EpochFeed:
         else:
             self.num_batches = min(len(ds.images) for ds in self.datasets) // self.batch_size
             self.dropped = 0
-        nbytes = sum(ds.images.nbytes for ds in self.datasets)
+        nbytes = sum(ds.images[:, self.image_rows].nbytes for ds in self.datasets)
         self.resident = dp.all_ranks(nbytes <= datalib.resident_budget(device), group)
         self.step = steplib.make_train_step(cfg, group)
         self._runner = steplib.make_epoch_runner(cfg, group) if self.resident else None
@@ -79,13 +83,14 @@ class EpochFeed:
         nb = self.num_batches
         if self.resident:
             if self._images is None:
-                self._images = [torch.from_numpy(ds.images).to(self.device)
-                                for ds in self.datasets]
+                self._images = [
+                    torch.from_numpy(np.ascontiguousarray(ds.images[:, self.image_rows]))
+                    .to(self.device) for ds in self.datasets]
             tables = [torch.from_numpy(np.stack([self.rows_of(p, b) for b in range(nb)]))
                       .to(self.device) for p in perms]
             return self._runner(state, *self._images, *tables)
-        host = ([ds.images[self.rows_of(p, b)] for ds, p in zip(self.datasets, perms)]
-                for b in range(nb))
+        host = ([np.ascontiguousarray(ds.images[self.rows_of(p, b)][:, self.image_rows])
+                 for ds, p in zip(self.datasets, perms)] for b in range(nb))
         pinned = self.device.type == "cuda"
         per_step = []
         for batches in datalib.prefetch(host, depth=2):

@@ -33,9 +33,12 @@ perf.jsonl (global images/s) and figures. Every rank restores on
 `continue_`; the state is then broadcast from rank 0, and after every
 epoch the ranks' state digests are checked equal (`last_digest`). The
 epoch's metrics are averaged over the ranks with one all-reduce.
-`host_sharded_data=True` with a folder: each rank decodes only its shard
-of the files (core/data.py), and rank 0 prints once per epoch how many
-rows the epoch leaves out.
+`host_sharded_data=True` with a folder: each data block decodes only its
+shard of the files (core/data.py), and rank 0 prints once per epoch how
+many rows the epoch leaves out. A group with a spatial factor > 1 trains
+H-partitioned (the JAX engine's `spatial=True`; `spatial=None` follows the
+group): the request is first held to core/mesh.check_spatial_partition at
+the model's `min_sharded_height`, as the JAX engine holds it.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch
 from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import mesh as meshlib
 from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import preview as previewlib
@@ -89,22 +93,8 @@ class SNDCGANEngine:
         live_output: str = "live",
         mesh=None,
         host_sharded_data: bool = False,
+        spatial: bool | None = None,
     ) -> None:
-        self.mesh = mesh
-        self.is_main = mesh is None or mesh.is_main
-        if self.is_main:
-            if not continue_ and os.path.exists(dir_path):
-                shutil.rmtree(dir_path)
-            os.makedirs(dir_path, exist_ok=True)
-        dp.barrier(mesh)  # no rank touches the directory before rank 0 has made it
-        self.dir_path = dir_path
-        self.device = torch.device(device)
-        if isinstance(dataset, (str, os.PathLike)):
-            shard = (mesh.rank, mesh.world) if host_sharded_data and mesh else None
-            dataset = datalib.ImageFolderDataset(dataset, image_size[:2], labeled=True,
-                                                 shard=shard)
-        self.dataset = dataset
-        self.batch_size = batch_size
         self.cfg = steplib.SNDCGANTrainConfig(
             model=modellib.SNDCGANConfig(
                 image_size=image_size, z_size=z_size, dropout_rate=dropout,
@@ -118,6 +108,23 @@ class SNDCGANEngine:
             d_updates=d_updates,
             seed=seed,
         )
+        meshlib.check_engine_spatial(mesh, spatial, modellib.min_sharded_height(self.cfg.model),
+                                     "sndcgan", image_size[0])
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        if self.is_main:
+            if not continue_ and os.path.exists(dir_path):
+                shutil.rmtree(dir_path)
+            os.makedirs(dir_path, exist_ok=True)
+        dp.barrier(mesh)  # no rank touches the directory before rank 0 has made it
+        self.dir_path = dir_path
+        self.device = torch.device(device)
+        if isinstance(dataset, (str, os.PathLike)):
+            shard = (mesh.d, mesh.data) if host_sharded_data and mesh else None
+            dataset = datalib.ImageFolderDataset(dataset, image_size[:2], labeled=True,
+                                                 shard=shard)
+        self.dataset = dataset
+        self.batch_size = batch_size
         self.chain = rnglib.KeyChain(seed)
         self.state = steplib.init_state(self.cfg, self.device)
         self.feed = feedlib.EpochFeed([dataset], self.cfg, self.device, steplib, mesh)

@@ -33,6 +33,13 @@ each of the three Adam applies, and the Adam kernel then runs on every
 rank over the same gradients, so the replicated state stays bit-equal.
 The metrics are the rank's own means: the engine averages them over the
 ranks once per epoch.
+
+Spatial partitioning (a group with spatial > 1): `batch_u8` is the rank's
+block of image rows too (core/mesh.spatial_row_range; the feed cuts it),
+the models are partitioned (nn/layers.partition: halo exchanges, the
+stem's rows, the head's sum over the spatial peers), each dropout site's
+mask is the whole map's at the rank's rows and image rows, and the
+gradients are summed over the world and divided by the data size.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import sndcgan
-from imagegeneration_tpu_torch.nn.layers import sync_batch_norm
+from imagegeneration_tpu_torch.nn.layers import partition
 from imagegeneration_tpu_torch.train import common
 
 N_SITES = 3 * sndcgan.N_DROPOUT_SITES
@@ -128,8 +135,9 @@ def make_train_step(cfg: SNDCGANTrainConfig, group=None):
     """Build `train_step(state, batch_u8, z=None, kw=None) -> (state,
     metrics)`. batch_u8: (B, H, W, C) uint8 on the state's device; z: (B,
     z_size) float32; kw: (21, 2) int64 dropout key words. Metrics are 0-d
-    float32 device tensors. With a group, batch_u8 is this rank's rows of
-    the global batch and z (drawn or passed) covers the global batch."""
+    float32 device tensors. With a group, batch_u8 is this rank's rows (and
+    under a spatial partition its image rows) of the global batch and z
+    (drawn or passed) covers the global batch."""
     chain = rnglib.KeyChain(cfg.seed)
     mcfg = cfg.model
     hinge = cfg.loss == "hinge"
@@ -153,7 +161,8 @@ def make_train_step(cfg: SNDCGANTrainConfig, group=None):
         local = batch_u8.shape[0]
         first, global_batch = common.shard_rows(group, local)
         rows = None if group is None else (first, global_batch)
-        sync_batch_norm(gen, group)
+        partition(gen, group)
+        partition(disc, group)
         x_real = normalize(batch_u8, mcfg.dtype).permute(0, 3, 1, 2)
         if kw is None:
             kw = chain.dropout_kw(state.step, N_SITES)
@@ -217,6 +226,7 @@ def make_sampler(cfg: SNDCGANTrainConfig):
 
     @torch.no_grad()
     def sample(state: SNDCGANState, z: torch.Tensor) -> torch.Tensor:
+        partition(state.gen, None)  # whole images on this process alone
         imgs = state.gen(z, train=False)
         return ((imgs + 1.0) / 2.0).permute(0, 2, 3, 1)
 

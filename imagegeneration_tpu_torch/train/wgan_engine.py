@@ -38,8 +38,10 @@ engine, `batch_size` is global, rank 0 alone wipes the scaffold (a barrier
 follows) and writes every artifact, every rank restores on `load`, the
 state is broadcast from rank 0 and its digest checked after every epoch,
 and the epoch's metrics are averaged over the ranks with one all-reduce.
-`host_sharded_data=True` with a folder: each rank decodes only its shard of
-the files; rank 0 prints once per epoch how many rows the epoch leaves out.
+`host_sharded_data=True` with a folder: each data block decodes only its
+shard of the files; rank 0 prints once per epoch how many rows the epoch
+leaves out. A group with a spatial factor > 1 trains H-partitioned (as the
+SNDCGAN engine: `spatial=`, and the guard at construction).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch
 from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.core import checkpoint as ckptlib
 from imagegeneration_tpu_torch.core import data as datalib
+from imagegeneration_tpu_torch.core import mesh as meshlib
 from imagegeneration_tpu_torch.core import metrics as metricslib
 from imagegeneration_tpu_torch.core import platform
 from imagegeneration_tpu_torch.core import preview as previewlib
@@ -85,7 +88,18 @@ class WGANEngine:
         seed: int = rnglib.DEFAULT_MODEL_SEED,
         mesh=None,
         host_sharded_data: bool = False,
+        spatial: bool | None = None,
     ) -> None:
+        self.cfg = steplib.WGANTrainConfig(
+            model=modellib.WGANConfig(image_size=image_size, base_width=base_width,
+                                      dtype=dtype),
+            batch_size=batch_size,
+            n_critic=critic_learn_iterations,
+            gp_lambda=gp_lambda,
+            seed=seed,
+        )
+        meshlib.check_engine_spatial(mesh, spatial, modellib.min_sharded_height(self.cfg.model),
+                                     "wgan", image_size[0])
         self.path = path_like
         self.save_interval = save_interval
         self.mesh = mesh
@@ -98,19 +112,11 @@ class WGANEngine:
         dp.barrier(mesh)  # no rank touches the directory before rank 0 has made it
         self.device = torch.device(device)
         if isinstance(dataset, (str, os.PathLike)):
-            shard = (mesh.rank, mesh.world) if host_sharded_data and mesh else None
+            shard = (mesh.d, mesh.data) if host_sharded_data and mesh else None
             dataset = datalib.ImageFolderDataset(
                 dataset, image_size[:2], labeled=False, follow_links=True, shard=shard)
         self.dataset = dataset
         self.batch_size = batch_size
-        self.cfg = steplib.WGANTrainConfig(
-            model=modellib.WGANConfig(image_size=image_size, base_width=base_width,
-                                      dtype=dtype),
-            batch_size=batch_size,
-            n_critic=critic_learn_iterations,
-            gp_lambda=gp_lambda,
-            seed=seed,
-        )
         self.chain = rnglib.KeyChain(seed)
         self.state = steplib.init_state(self.cfg, self.device)
         self.latent_dim = self.cfg.model.z_size

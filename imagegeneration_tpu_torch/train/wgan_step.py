@@ -44,6 +44,12 @@ keeps its rows; both models' BatchNorms take global statistics in train
 mode; the gradients are averaged over the ranks before every RMSprop
 apply; the weight clip stays elementwise on each rank's replica, and the
 n_critic cadence is a host integer that is the same on every rank.
+
+Spatial partitioning (a group with spatial > 1): `batch_u8` is the rank's
+block of image rows too (the feed cuts it), the models are partitioned
+(nn/layers.partition), and the gradient penalty's per-image squared norm
+of grad D(x_hat) is summed over the spatial peers (`dp.spatial_sum`)
+before its square root.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ import torch
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import wgan
-from imagegeneration_tpu_torch.nn.layers import sync_batch_norm
+from imagegeneration_tpu_torch.nn.layers import partition
+from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.train import common
 
 METRIC_KEYS = ("c_loss_real", "c_loss_fake", "g_loss", "did_gan_update")
@@ -129,14 +136,19 @@ def init_state(cfg: WGANTrainConfig, device: torch.device | str) -> WGANState:
 
 
 def gradient_penalty(critic: wgan.Critic, x_real: torch.Tensor, x_fake: torch.Tensor,
-                     eps: torch.Tensor) -> torch.Tensor:
+                     eps: torch.Tensor, group=None) -> torch.Tensor:
     """mean((sqrt(sum(g^2) + 1e-12) - 1)^2) with g = d sum(D(x_hat)) / d x_hat
     through an inference-mode critic; the graph is kept, so the penalty's
-    gradient reaches the critic's parameters (double backward)."""
+    gradient reaches the critic's parameters (double backward). Under a
+    spatial partition each rank holds its image rows of g, and sum(g^2) is
+    summed over the spatial peers."""
     x_hat = (eps * x_real + (1.0 - eps) * x_fake).detach().requires_grad_(True)
     (g,) = torch.autograd.grad(critic(x_hat, train=False).sum(), x_hat, create_graph=True)
     g = g.float()
-    norms = torch.sqrt(torch.sum(g * g, dim=(1, 2, 3)) + 1e-12)
+    sq = torch.sum(g * g, dim=(1, 2, 3))
+    if group is not None and group.sharded:
+        sq = dp.spatial_sum(sq, group)
+    norms = torch.sqrt(sq + 1e-12)
     return torch.mean((norms - 1.0) ** 2)
 
 
@@ -145,9 +157,9 @@ def make_train_step(cfg: WGANTrainConfig, group=None):
     gp_eps=None) -> (state, metrics)`. batch_u8: (B, H, W, C) uint8 on the
     state's device; z_fake, z_gan: (B, z_size); gp_eps: (B, 1, 1, 1), used
     with gp_lambda > 0. Metrics are 0-d device tensors keyed by
-    METRIC_KEYS. With a group, batch_u8 is this rank's rows of the global
-    batch and z_fake, z_gan and gp_eps (drawn or passed) cover the global
-    batch."""
+    METRIC_KEYS. With a group, batch_u8 is this rank's rows (and under a
+    spatial partition its image rows) of the global batch and z_fake, z_gan
+    and gp_eps (drawn or passed) cover the global batch."""
     mcfg = cfg.model
     lr = cfg.learning_rate
     use_gp = cfg.gp_lambda > 0.0
@@ -158,7 +170,7 @@ def make_train_step(cfg: WGANTrainConfig, group=None):
         params = list(critic.parameters())
         penalty = None
         if gp_inputs is not None:
-            penalty = gradient_penalty(critic, x, *gp_inputs)
+            penalty = gradient_penalty(critic, x, *gp_inputs, group=group)
         scores = critic(x, train=True)
         loss = common.wasserstein_loss(torch.full_like(scores, label), scores)
         if penalty is not None:
@@ -190,8 +202,8 @@ def make_train_step(cfg: WGANTrainConfig, group=None):
                    gp_eps: torch.Tensor | None = None):
         device, bsz = state.device, batch_u8.shape[0]
         rows = common.shard_rows(group, bsz)
-        sync_batch_norm(state.gen, group)
-        sync_batch_norm(state.critic, group)
+        partition(state.gen, group)
+        partition(state.critic, group)
         x_real = normalize(batch_u8, mcfg.dtype).permute(0, 3, 1, 2)
         if z_fake is None:
             z_fake = rnglib.normal_z(state.z_gen, rows[1], mcfg.z_size, device)
@@ -234,6 +246,7 @@ def make_sampler(cfg: WGANTrainConfig):
 
     @torch.no_grad()
     def sample(state: WGANState, z: torch.Tensor) -> torch.Tensor:
+        partition(state.gen, None)  # whole images on this process alone
         imgs = state.gen(z, train=False)
         return ((imgs + 1.0) / 2.0).permute(0, 2, 3, 1)
 

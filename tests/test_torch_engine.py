@@ -102,11 +102,12 @@ def test_streaming_engine_and_sampler(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_mesh_flags(tmp_path, capsys):
-    # data parallelism is ported (tests/test_torch_dp.py); the spatial axis
-    # is not, and more ranks than visible cards are refused, not shrunk
+    # data and spatial parallelism are ported (tests/test_torch_dp.py,
+    # tests/test_torch_spatial.py); a spatial axis without a data axis is
+    # refused, and more ranks than visible cards are refused, not shrunk
     with pytest.raises(SystemExit):
         sndcgan_trainer.main(["2", "1", "-d", str(tmp_path), "--mesh-spatial", "2"])
-    assert "not ported" in capsys.readouterr().err
+    assert "needs --mesh-data >= 1" in capsys.readouterr().err
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="need 2 cards"):
             sndcgan_trainer.main(["2", "1", "-d", str(tmp_path), "--mesh-data", "2"])

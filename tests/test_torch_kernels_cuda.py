@@ -99,6 +99,38 @@ def test_dropout_kernels_with_a_row_base_equal_the_full_batch_rows(cuda, dtype, 
         dropout.fwd_kernel(x, kw, cut, base=0, total=2**32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 3, 10, 7), (6, 64, 18, 33)])
+def test_dropout_kernels_on_an_h_shard_equal_the_whole_array(cuda, dtype, shape):
+    """A spatial rank's image rows (and a data x spatial rank's batch rows
+    and image rows), with the row-block index mapping: bit-equal to those
+    elements of the whole array's call, through the autograd wrapper, and
+    to the plain version with the same mapping."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = g.contiguous(memory_format=torch.channels_last)
+    kw = torch.tensor([0x9E3779B9, 0x7F4A7C15], device=cuda)
+    cut = dropout.dropout_cut(0.5)
+    full_y, full_dx = dropout.fwd_kernel(x, kw, cut), dropout.bwd_kernel(x, g, kw, cut)
+    b, h = shape[0] // 2, shape[2] // 2
+    for first, h0, nb in ((0, 0, shape[0]), (0, h, shape[0]), (b, h, b)):
+        rows, hrows = slice(first, first + nb), slice(h0, h0 + h)
+        xs = x[rows, :, hrows].contiguous(memory_format=torch.channels_last)
+        gs = g[rows, :, hrows].contiguous(memory_format=torch.channels_last)
+        xs.requires_grad_(True)
+        y = dropout.leaky_relu_dropout(xs, kw, 0.5, rows=(first, shape[0]),
+                                       hblock=(h0, shape[2]))
+        y.backward(gs)
+        assert torch.equal(y, full_y[rows, :, hrows])
+        assert torch.equal(xs.grad, full_dx[rows, :, hrows])
+        base = dropout.rows_base(xs, first, shape[2])
+        assert torch.equal(y, dropout.fwd_plain(xs.detach(), kw, cut, base, (h0, shape[2])))
+        assert torch.equal(xs.grad, dropout.bwd_plain(xs.detach(), gs, kw, cut, base,
+                                                      (h0, shape[2])))
+
+
 def test_dropout_kernel_refuses_nchw_and_bad_keys(cuda):
     x = torch.randn(2, 8, 3, 5, device=cuda)
     kw = torch.tensor([1, 2], device=cuda)

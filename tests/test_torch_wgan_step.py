@@ -476,10 +476,12 @@ def test_engine_resident_and_streaming_agree(tmp_path, monkeypatch):
 
 # --------------------------------------------------------------------- CLI
 def test_cli_refuses_mesh_and_profile_flags(tmp_path, capsys):
-    # data parallelism is ported (tests/test_torch_dp.py); what stays refused:
-    # the spatial axis and --profile (not ported), host sharding without
+    # data and spatial parallelism are ported (tests/test_torch_dp.py,
+    # tests/test_torch_spatial.py); what stays refused: a spatial axis
+    # without a data axis, --profile (not ported), host sharding without
     # ranks, and more ranks than visible cards, which is never shrunk
-    for flags, says in ((["--mesh-spatial", "2"], "not ported"), (["--profile"], "not ported"),
+    for flags, says in ((["--mesh-spatial", "2"], "needs --mesh-data >= 1"),
+                        (["--profile"], "not ported"),
                         (["--host-sharded-data"], "needs --mesh-data")):
         with pytest.raises(SystemExit):
             wgan_trainer.main(["1", "1", "-d", str(tmp_path), *flags])

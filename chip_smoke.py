@@ -32,7 +32,16 @@ Phases (any failure raises, and the exit code is non-zero):
      most frequent shape (4, 256, 32, 32) and the largest (4, 64, 128, 128)
      against the plain version, F.instance_norm and the library's backward;
      each record carries the launch plan (CTAs, cluster size, shared
-     memory) at every norm shape.
+     memory) at every norm shape;
+   - the split InstanceNorm kernels of an H-partitioned map (forward
+     partial and apply, backward partial and apply) at the generator's
+     norm maps as half-height shards of 2 spatial ranks (IN_SPLIT_SHAPES),
+     float32 and bfloat16, with and without ReLU, each against its plain
+     version on the same inputs; the two shards together against the
+     single-pass kernels on the whole map; one shard (the whole map)
+     against the single-pass kernels bit for bit; timed in float32 at the
+     largest and the most frequent shard, beside torch.var_mean for the
+     forward partial.
 4. A small float32 step of each model on the card against the same step on
    the CPU (the plain kernel versions), from the same weights and inputs.
    WGAN (32x48, base 16, batch 4, n_critic 2): four steps, two of them with
@@ -159,14 +168,29 @@ Phases (any failure raises, and the exit code is non-zero):
       (else a line says it was skipped): epoch metrics against the
       one-card run within SP_BOUND, steps/s and global images/s beside
       the one card's.
+   e. the headline CycleGAN (128x128, batch 4, base 64, 9 res blocks,
+      float32) on two spatial ranks sharing this card over gloo, through
+      CycleGANEngine for a 4-step epoch and an auto-resumed one, against
+      the one-card engine on the same batches (epoch metrics), then a
+      float32 step replayed from the one card's seeded state (its state
+      per collection), both within CG_SP_BOUND; per rank and step the
+      split InstanceNorm launches on the generators' norms, the
+      single-pass ones on the PatchGANs', 4 Adam, and the collectives
+      (halo exchanges, norm all_gathers and all_reduces, row gathers,
+      spatial sums, gradient all-reduces) of cyclegan_spatial_per_step;
+      digests equal; artifacts from rank 0 only; peak device memory per
+      rank beside the one card's;
+   f. the same over NCCL as data 2 x spatial 2 on four cards where the
+      machine has them (else a line says it was skipped).
    Rank 0's launches in (b) are every kernel's `launches_by_path`
-   ["spatial"]. `--only-phase 9` runs the build and phase 9 alone
-   (`--only-phase 9d`: 9d and the one-card run it is held to, on a 4-card
-   machine);
+   ["spatial"], in (e) ["cyclegan_spatial"]. `--only-phase 9` runs the
+   build and phase 9a-9d alone, `--only-phase 9e` the build and 9e
+   (`--only-phase 9d` / `9f`: 9d / 9f and the one-card run it is held to,
+   on a 4-card machine);
    `--plant {world_divisor,summing_head,no_halo,one_sided_halo}` runs 9b
-   and 9c with that
-   fault planted in the ranks and passes when it moves them past SP_BOUND
-   (how the bound was shown to catch them).
+   and 9c, `--plant {local_in_stats,d_grad_every_peer,inner_reflect}` 9e,
+   with that fault planted in the ranks, and passes when it moves them
+   past SP_BOUND or CG_SP_BOUND (how the bounds were shown to catch them).
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -243,6 +267,10 @@ CG_SIZE, CG_BATCH, CG_BASE, CG_RES = 128, 4, 64, 9
 IN_SHAPES = [(4, 64, 128, 128), (4, 128, 64, 64), (4, 256, 32, 32), (4, 3, 128, 128),
              (4, 128, 30, 30), (4, 256, 14, 14), (4, 512, 6, 6)]
 IN_FREQUENT, IN_LARGEST = IN_SHAPES[2], IN_SHAPES[0]
+# The generator's norm maps as half-height shards (2 spatial ranks): stem
+# and up1, down0 and up0, down1 and the 18 res-block norms, to_rgb.
+IN_SPLIT_SHAPES = [(4, 64, 64, 128), (4, 128, 32, 64), (4, 256, 16, 32), (4, 3, 64, 128)]
+IN_SPLIT_FREQUENT = IN_SPLIT_SHAPES[2]
 EPS = 1e-3  # tfa InstanceNormalization's epsilon, the models' value
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
@@ -255,7 +283,7 @@ GRAD_COPIES_PER_STEP = {"sndcgan": 0, "cyclegan": 0}
 WGAN_N_CRITIC = 5
 # Every launch counter of the hand kernels: zeroed and read as one set, so
 # that no path can launch a kernel that goes uncounted.
-LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES)
+LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES, inorm.SPLIT_LAUNCHES)
 # FID phase: MAX_BATCHES pinned batches of the headline batch size.
 FID_IMAGES = MAX_BATCHES * BATCH
 FID_FLOOR = 1e-6  # an FID may fall below 0 by this share of its trace terms
@@ -308,6 +336,22 @@ SP_HALOS_PER_STEP = 48
 SP_RANKS_TIMEOUT_S = 400
 SP_BOUND = {"metric": 5e-3, "state": 0.175, "state_f32": 2e-2}
 SP_FAULTS = ("world_divisor", "summing_head", "no_halo", "one_sided_halo")
+# Phase 9e: the headline CycleGAN (float32) on 2 spatial ranks, 4 batches an
+# epoch, against the one-card engine (cyclegan_spatial_errors: each epoch's
+# metric error relative to max(1, |v|); a replayed float32 step's state
+# error per collection over its largest |v|), and the planted faults that
+# the bound must catch. Set from runs on an H100 80GB HBM3 at 700 W: sound,
+# metric 2.8e-7, state 2.2e-4 (the one card's own float32 step run twice:
+# 4.3e-5 to 2.0e-4, cuDNN's run to run); planted faults (plant_cyclegan_
+# fault), metric / state: each shard's own statistics 1.1e-5 / 0.694, the
+# PatchGANs' gradients on every peer 3.1e-4 / 3.0, inner edges reflected
+# 3.0e-7 / 0.0306. Only the state catches them. The state bound is 14x its
+# sound reading and 10x under the least fault; the metric bound 350x its
+# sound reading.
+CG_SP_SPATIAL = 2
+CG_SP_EPOCH_BATCHES = 4
+CG_SP_BOUND = {"metric": 1e-4, "state": 3e-3}
+CG_FAULTS = ("local_in_stats", "d_grad_every_peer", "inner_reflect")
 # The replayed config-5 steps of phase 9b: (label, compute dtype, seed of
 # the state and of the batch). bf16 is config 5's own; the float32 step is
 # the witness that the bf16 gap is rounding, and is held to its own bound.
@@ -350,6 +394,11 @@ def zero_launches() -> None:
     for counts in (*LAUNCH_COUNTERS, adam.GRAD_COPIES):
         for k in counts:
             counts[k] = 0
+
+
+def no_launches() -> dict[str, int]:
+    """Every launch counter's key at 0."""
+    return {k: 0 for counts in LAUNCH_COUNTERS for k in counts}
 
 
 def read_launches() -> dict[str, int]:
@@ -735,6 +784,165 @@ def check_instance_norm(card: str) -> list[dict]:
     return out
 
 
+SPLIT_NAMES = tuple(inorm.SPLIT_LAUNCHES)
+
+
+def split_shards(x: torch.Tensor, shards: int) -> list[torch.Tensor]:
+    """The row blocks of a (B, C, H, W) map, each channels_last."""
+    return [t.contiguous(memory_format=torch.channels_last) for t in x.chunk(shards, 2)]
+
+
+def check_split_instance_norm(card: str) -> list[dict]:
+    """The split InstanceNorm kernels against their plain versions on the
+    same inputs, at the generator's half-height shards of the headline
+    CycleGAN (IN_SPLIT_SHAPES), float32 and bfloat16, ReLU off and on: the
+    two shards' forward partials, the apply of each shard from both
+    partials, the backward partial of each shard (from the merged mean and
+    rstd) and the apply from the shards' summed sums. The two shards'
+    kernels together are also held to the single-pass kernels on the whole
+    map (y, mean, rstd, dx, dgamma, dbeta; rtol/atol 2e-5, bf16 + 1 ulp),
+    and the split pair on one shard (the whole map) to the single-pass
+    kernels bit for bit. Timed in float32 at the largest and the most
+    frequent shard, L2 flushed and warm, beside the plain versions and,
+    for the forward partial, torch.var_mean."""
+    dev = torch.device("cuda", 0)
+    max_err = {(k, dt): 0.0 for k in SPLIT_NAMES for dt in ("float32", "bfloat16")}
+    bit_equal_one_shard = True
+    for shape in IN_SPLIT_SHAPES:
+        b, c, h, w = shape
+        whole = (b, c, h * SP_SPATIAL, w)
+        total = h * SP_SPATIAL * w
+        terms = h * w
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy, gamma, beta = in_inputs(dev, whole, dtype)
+            dt = str(dtype).split(".")[1]
+            xs, dys = split_shards(x, SP_SPATIAL), split_shards(dy, SP_SPATIAL)
+
+            def err(name, *e):
+                max_err[name, dt] = max(max_err[name, dt], *e)
+
+            for relu in (False, True):
+                at = f"shard {shape} of {whole} {dt} relu={relu}"
+                parts = []
+                for xb in xs:
+                    got, want = inorm.in_fwd_partial_kernel(xb), inorm.in_fwd_partial_plain(xb)
+                    err(SPLIT_NAMES[0], in_close(f"fwd partial {at}", got, want, 2e-5, terms))
+                    parts.append(got)
+                parts = torch.stack(parts)
+                ys, sums, dgs, dbs = [], 0, 0, 0
+                for xb in xs:
+                    y, mean, rstd = inorm.in_fwd_apply_kernel(xb, parts, gamma, beta, EPS, relu)
+                    yp, meanp, rstdp = inorm.in_fwd_apply_plain(xb, parts, gamma, beta, EPS,
+                                                                relu)
+                    err(SPLIT_NAMES[1], in_close(f"fwd apply y {at}", y, yp, 2e-5),
+                        in_close(f"fwd apply mean {at}", mean, meanp, 1e-5),
+                        in_close(f"fwd apply rstd {at}", rstd, rstdp, 1e-5))
+                    ys.append(y)
+                for xb, db in zip(xs, dys):
+                    sm, dg, dbt = inorm.in_bwd_partial_kernel(xb, db, gamma, beta, mean, rstd,
+                                                              relu)
+                    smp, dgp, dbp = inorm.in_bwd_partial_plain(xb, db, gamma, beta, mean, rstd,
+                                                               relu)
+                    err(SPLIT_NAMES[2], in_close(f"bwd partial sums {at}", sm, smp, 2e-5, terms),
+                        in_close(f"bwd partial dgamma {at}", dg, dgp, 2e-5, b * terms),
+                        in_close(f"bwd partial dbeta {at}", dbt, dbp, 2e-5, b * terms))
+                    sums, dgs, dbs = sums + sm, dgs + dg, dbs + dbt
+                dxs = []
+                for xb, db in zip(xs, dys):
+                    dx = inorm.in_bwd_apply_kernel(xb, db, sums, gamma, beta, mean, rstd, relu,
+                                                   total)
+                    dxp = inorm.in_bwd_apply_plain(xb, db, sums, gamma, beta, mean, rstd, relu,
+                                                   total)
+                    err(SPLIT_NAMES[3], in_close(f"bwd apply dx {at}", dx, dxp, 2e-5))
+                    dxs.append(dx)
+                # the shards together against the single-pass kernels on the map
+                yw, meanw, rstdw = inorm.in_fwd_kernel(x, gamma, beta, EPS, relu)
+                dxw, dgw, dbw = inorm.in_bwd_kernel(x, dy, gamma, beta, mean, rstd, relu)
+                in_close(f"split y vs whole {at}", torch.cat(ys, 2), yw, 2e-5)
+                in_close(f"split mean vs whole {at}", mean, meanw, 1e-5)
+                in_close(f"split rstd vs whole {at}", rstd, rstdw, 1e-5)
+                in_close(f"split dx vs whole {at}", torch.cat(dxs, 2), dxw, 2e-5)
+                in_close(f"split dgamma vs whole {at}", dgs, dgw, 2e-5, b * total)
+                in_close(f"split dbeta vs whole {at}", dbs, dbw, 2e-5, b * total)
+                # one shard: the split pair is the single-pass pair
+                y1, m1, r1 = inorm.in_fwd_apply_kernel(x, inorm.in_fwd_partial_kernel(x)[None],
+                                                       gamma, beta, EPS, relu)
+                s1, dg1, db1 = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, meanw, rstdw,
+                                                           relu)
+                dx1 = inorm.in_bwd_apply_kernel(x, dy, s1, gamma, beta, meanw, rstdw, relu,
+                                                total)
+                dxw1, dgw1, dbw1 = inorm.in_bwd_kernel(x, dy, gamma, beta, meanw, rstdw, relu)
+                bit_equal_one_shard &= all(torch.equal(a, b_) for a, b_ in (
+                    (y1, yw), (m1, meanw), (r1, rstdw), (dx1, dxw1), (dg1, dgw1), (db1, dbw1)))
+        log(f"split instance norm kernels at the shard {shape}: within tolerance of plain and, "
+            "as 2 shards, of the single-pass kernels on the whole map; f32/bf16, relu off/on")
+    torch.cuda.synchronize()
+    log(f"split instance norm on one shard bit-equal to the single-pass kernels: "
+        f"{bit_equal_one_shard}")
+
+    flush = L2Flush(dev)
+    timed = {}
+    for where, shape in (("largest", IN_SPLIT_SHAPES[0]), ("most_frequent", IN_SPLIT_FREQUENT)):
+        b, c, h, w = shape
+        x, dy, gamma, beta = in_inputs(dev, shape, torch.float32)
+        parts = torch.stack([inorm.in_fwd_partial_plain(x)] * SP_SPATIAL)
+        _, mean, rstd = inorm.in_fwd_apply_plain(x, parts, gamma, beta, EPS, False)
+        sums = inorm.in_bwd_partial_plain(x, dy, gamma, beta, mean, rstd, False)[0] * SP_SPATIAL
+        total = SP_SPATIAL * h * w
+        n, small = x.numel() * 4, 4 * b * c * 2
+        timed[where] = {
+            SPLIT_NAMES[0]: {**timing(lambda: inorm.in_fwd_partial_kernel(x),
+                                      lambda: inorm.in_fwd_partial_plain(x),
+                                      lambda: torch.var_mean(x, dim=(2, 3)), flush=flush),
+                             **bound(n + small, 4 * x.numel())},
+            SPLIT_NAMES[1]: {**timing(
+                lambda: inorm.in_fwd_apply_kernel(x, parts, gamma, beta, EPS, False),
+                lambda: inorm.in_fwd_apply_plain(x, parts, gamma, beta, EPS, False),
+                flush=flush), **bound(2 * n + SP_SPATIAL * small + small, 4 * x.numel())},
+            SPLIT_NAMES[2]: {**timing(
+                lambda: inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, False),
+                lambda: inorm.in_bwd_partial_plain(x, dy, gamma, beta, mean, rstd, False),
+                flush=flush), **bound(2 * n + 2 * small, 8 * x.numel())},
+            SPLIT_NAMES[3]: {**timing(
+                lambda: inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd, False,
+                                                  total),
+                lambda: inorm.in_bwd_apply_plain(x, dy, sums, gamma, beta, mean, rstd, False,
+                                                 total),
+                flush=flush), **bound(3 * n + 2 * small, 8 * x.numel())},
+        }
+    del flush
+    out = []
+    for name in SPLIT_NAMES:
+        line = 66 if "fwd" in name else 137
+        r = timed["largest"][name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "imagegeneration_tpu_torch/csrc/instance_norm.cu",
+            "replaces": f"imagegeneration_tpu/ops/pallas/instance_norm.py:{line}",
+            "max_abs_err": max_err[name, "float32"],
+            "max_abs_err_bf16": max_err[name, "bfloat16"],
+            "tolerance": "rtol/atol 2e-5 (mean, rstd 1e-5; sums atol x sqrt(h*W/128), dgamma/"
+                         "dbeta x sqrt(B*h*W/128)); bf16 + 1 ulp",
+            "checked_shapes_nchw": [list(sh) for sh in IN_SPLIT_SHAPES],
+            **r, "timed_shape_nchw": list(IN_SPLIT_SHAPES[0]), "dtype": "float32",
+            "library_call": "torch.var_mean(x, dim=(2, 3))" if name == SPLIT_NAMES[0] else None,
+            "at_most_frequent": {"shape_nchw": list(IN_SPLIT_FREQUENT),
+                                 **timed["most_frequent"][name]},
+            "plan_f32": vars(inorm.launch_plan(*IN_SPLIT_SHAPES[0], torch.float32,
+                                               2 if "bwd" in name else 1))
+            if "partial" in name else vars(inorm.apply_plan(*IN_SPLIT_SHAPES[0], torch.float32)),
+            "one_shard_bit_equal_to_single_pass": bit_equal_one_shard,
+        })
+        for where, t in timed.items():
+            t = t[name]
+            lib = (f", torch.var_mean {t['library_ms']:.4f} ({t['library_warm_ms']:.4f})"
+                   if t["library_ms"] is not None else "")
+            log(f"{name} at the {where} shard f32 device time, L2 flushed (warm): kernel "
+                f"{t['ms']:.4f} ({t['warm_ms']:.4f}) ms, plain {t['plain_ms']:.4f} "
+                f"({t['plain_warm_ms']:.4f}){lib}, bound {t['bound_ms']:.4f} ms ({card})")
+    return out
+
+
 def check_small_cyclegan_step_against_cpu(dev: torch.device) -> None:
     """Two float32 CycleGAN steps (96x96, base 8, 2 res blocks, batch 1) on
     the card and on the CPU, from the same weights and batches."""
@@ -903,10 +1111,10 @@ def run_sndcgan_slice(card: str, work: str) -> dict:
     for name, m in (("epoch 0", first), ("epoch 1", second)):
         require(all(math.isfinite(v) for v in m.values()), f"{name} losses {m}")
     want = {
+        **no_launches(),
         "leaky_relu_dropout_fwd": steplib.N_SITES * steps,
         "leaky_relu_dropout_bwd": steplib.N_SITES * steps,
         "adam": 3 * steps,  # G, then D twice (d_updates=2): one launch each
-        "instance_norm_fwd": 0, "instance_norm_bwd": 0,
     }
     require(launches == want, f"launch counts {launches}, expected {want}")
     want_copies = GRAD_COPIES_PER_STEP["sndcgan"] * steps
@@ -971,8 +1179,7 @@ def run_cyclegan_slice(card: str, work: str) -> dict:
                 "adam": 4}
     require(per_step == {"instance_norm_fwd": 156, "instance_norm_bwd": 210, "adam": 4},
             f"per-step structure {per_step}")
-    want = {"leaky_relu_dropout_fwd": 0, "leaky_relu_dropout_bwd": 0,
-            **{k: v * steps for k, v in per_step.items()}}
+    want = {**no_launches(), **{k: v * steps for k, v in per_step.items()}}
     require(launches == want, f"launch counts {launches}, expected {want}")
     want_copies = GRAD_COPIES_PER_STEP["cyclegan"] * steps
     require(copies == want_copies, f"adam gradient copies {copies}, expected {want_copies}")
@@ -1521,11 +1728,10 @@ def dp_engine_config() -> dict:
                 epoch_batches=DP_EPOCH_BATCHES)
 
 
-def dp_engine_rank(group, out: str, phases, small_jobs, ecfg: dict) -> dict:
-    """One rank of phase 8b/8c: SNDCGANEngine at the configuration `ecfg`
-    (dp_engine_config), `phases` of (epochs, continue_), with the launch and
-    collective counts, the state digest and which artifacts this rank
-    wrote; then the small float32 steps of `small_jobs` (tools/dp_parity)."""
+def count_writes() -> dict[str, int]:
+    """Count, in this process, the engines' artifact writes by kind: the
+    returned dict is updated by every checkpoint save, export, loss-history
+    save and perf.jsonl line from here on."""
     writes = {"checkpoint": 0, "export": 0, "losses": 0, "perf": 0}
 
     def counting(name, fn):
@@ -1538,6 +1744,15 @@ def dp_engine_rank(group, out: str, phases, small_jobs, ecfg: dict) -> dict:
     ckptlib.export_params = counting("export", ckptlib.export_params)
     metricslib.LossHistory.save = counting("losses", metricslib.LossHistory.save)
     metricslib.write_metrics_jsonl = counting("perf", metricslib.write_metrics_jsonl)
+    return writes
+
+
+def dp_engine_rank(group, out: str, phases, small_jobs, ecfg: dict) -> dict:
+    """One rank of phase 8b/8c: SNDCGANEngine at the configuration `ecfg`
+    (dp_engine_config), `phases` of (epochs, continue_), with the launch and
+    collective counts, the state digest and which artifacts this rank
+    wrote; then the small float32 steps of `small_jobs` (tools/dp_parity)."""
+    writes = count_writes()
     hw = (ecfg["height"], ecfg["width"])
     dataset = SyntheticImageDataset(ecfg["epoch_batches"] * ecfg["batch"], hw)
     kwargs = dict(image_size=(*hw, 3), device=group.device, spectral_norm=True,
@@ -1650,9 +1865,8 @@ def check_dp_engine_ranks(ranks: list[dict], label: str, card: str, ecfg: dict) 
         for r in ranks:
             ph = r["phases"][p]
             steps = ph["steps"]
-            want = {"leaky_relu_dropout_fwd": steplib.N_SITES * steps,
-                    "leaky_relu_dropout_bwd": steplib.N_SITES * steps,
-                    "adam": 3 * steps, "instance_norm_fwd": 0, "instance_norm_bwd": 0}
+            want = {**no_launches(), "leaky_relu_dropout_fwd": steplib.N_SITES * steps,
+                    "leaky_relu_dropout_bwd": steplib.N_SITES * steps, "adam": 3 * steps}
             require(ph["launches"] == want,
                     f"{label} rank {r['rank']} phase {p}: launches {ph['launches']}, "
                     f"expected {want}")
@@ -2178,16 +2392,322 @@ def run_four_cards(card: str, work: str, ecfg: dict, phases, ref: dict) -> dict 
             "peak_bytes": [r["peak_bytes"] for r in ranks]}
 
 
+# ----------------------------------------------------------------- phase 9e
+def cyclegan_spatial_config() -> dict:
+    """The headline CycleGAN (bench.py:489-503: 128x128, batch 4, base 64, 9
+    res blocks, float32) on CG_SP_SPATIAL spatial ranks, CG_SP_EPOCH_BATCHES
+    batches an epoch."""
+    return dict(size=CG_SIZE, batch=CG_BATCH, base=CG_BASE, res=CG_RES,
+                dtype=torch.float32, epoch_batches=CG_SP_EPOCH_BATCHES,
+                spatial=CG_SP_SPATIAL)
+
+
+def cyclegan_spatial_per_step(n_res: int) -> tuple[dict, dict]:
+    """(hand-kernel launches, collectives) per rank and step of the CycleGAN
+    step under a spatial partition. A generator pass has P = 6 + 2 * n_res
+    norms (the split kernels) and P halo exchanges (the 7x7 stem and to_rgb,
+    the two reflect pads, the res blocks' convs, the two ConvTransposes); a
+    PatchGAN pass 3 whole-map norms and 1 row gather. The forward runs 6
+    generator and 4 PatchGAN passes; pulls 1 and 2 each run 1 PatchGAN and
+    4 generator passes back, 3 of which need no gradient of their input (a
+    batch, or a translation only the other generator's parameters reach),
+    so their stem exchanges no adjoint; pull 3 runs the 4 PatchGAN passes
+    back; 4 L1 sums over the spatial peers; 4 Adam applies, each after one
+    gradient all-reduce."""
+    p = 6 + 2 * n_res
+    launches = {**no_launches(), "instance_norm_fwd_partial": 6 * p,
+                "instance_norm_fwd_apply": 6 * p, "instance_norm_bwd_partial": 8 * p,
+                "instance_norm_bwd_apply": 8 * p, "instance_norm_fwd": 4 * 3,
+                "instance_norm_bwd": 2 * 3 + 4 * 3, "adam": 4}
+    collectives = {"halo": 14 * p - 6, "norm_gather": 6 * p, "norm_all_reduce": 8 * p,
+                   "row_gather": 4, "spatial_sum": 4, "grad_all_reduce": 4}
+    return launches, collectives
+
+
+def plant_cyclegan_fault(fault: str | None) -> None:
+    """A planted fault of the CycleGAN spatial path, in this process: each
+    shard's norms take its own rows' statistics; the PatchGANs' gradients
+    summed over every spatial peer (not counted once); the inner shard
+    edges reflected instead of exchanged."""
+    from imagegeneration_tpu_torch.nn import layers
+
+    if fault == "local_in_stats":
+        layers.instance_norm = lambda x, g, b, eps=1e-3, relu=False, group=None: \
+            inorm.instance_norm(x, g, b, eps, relu)
+    elif fault == "d_grad_every_peer":
+        cyclegan_step.count_once = lambda grads, group: list(grads)
+    elif fault == "inner_reflect":
+        layers.reflect_halo = lambda x, n, group: F.pad(x, (0, 0, n, n), mode="reflect")
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    if fault is not None:  # unequal ranks still report
+        dp.check_replicated = lambda state, group: dp.state_digest(state)
+
+
+def cyclegan_spatial_datasets(ecfg: dict) -> list[SyntheticImageDataset]:
+    return [SyntheticImageDataset(ecfg["epoch_batches"] * ecfg["batch"],
+                                  (ecfg["size"], ecfg["size"]), seed=s) for s in (1, 2)]
+
+
+def cyclegan_engine_kwargs(ecfg: dict, dev: torch.device, group=None) -> dict:
+    return dict(device=dev, base_width=ecfg["base"], n_res_blocks=ecfg["res"],
+                dtype=ecfg["dtype"], mesh=group)
+
+
+def cyclegan_step_config(ecfg: dict, seed: int) -> cyclegan_step.CycleGANTrainConfig:
+    return cyclegan_step.CycleGANTrainConfig(
+        model=CycleGANConfig(image_size=(ecfg["size"], ecfg["size"], 3),
+                             base_width=ecfg["base"], n_res_blocks=ecfg["res"],
+                             dtype=ecfg["dtype"]),
+        batch_size=ecfg["batch"], seed=seed)
+
+
+def cyclegan_replay_batches(ecfg: dict) -> list[np.ndarray]:
+    return [SyntheticImageDataset(ecfg["batch"], (ecfg["size"], ecfg["size"]), seed=s).images
+            for s in (11, 12)]
+
+
+def cyclegan_replayed_step(work: str, ecfg: dict, dev: torch.device) -> dict:
+    """The one-card side of phase 9e's replayed step: from the seeded state
+    (its fingerprint kept: the ranks seed the same state), one float32 step
+    on a synthetic batch pair, the state after it saved under `work`; and the
+    same step run again (the floor of cuDNN's run to run)."""
+    cfg = cyclegan_step_config(ecfg, 0)
+    bx, by = (torch.from_numpy(b).to(dev) for b in cyclegan_replay_batches(ecfg))
+    step = cyclegan_step.make_train_step(cfg)
+    state = cyclegan_step.init_state(cfg, dev)
+    sums0 = state_sums(state).cpu()
+    state, _ = step(state, bx, by)
+    path = f"{work}/cyclegan_replay.pt"
+    torch.save(state.state_dict(), path)
+    again, _ = step(cyclegan_step.init_state(cfg, dev), bx, by)
+    rerun = state_errors(again.state_dict(), state.state_dict())
+    del state, again
+    torch.cuda.empty_cache()
+    return {"sums0": sums0, "path": path, "f32_rerun_one_card": rerun}
+
+
+def cyclegan_spatial_rank(group, out: str, phases, ecfg: dict, fault: str | None,
+                          replay: dict) -> dict:
+    """One rank of phase 9e/9f: CycleGANEngine at `ecfg` on a data x spatial
+    mesh for `phases` (epochs per engine; each later engine auto-resumes),
+    with the launch and collective counts, the digest, the artifacts this
+    rank wrote and its peak device memory; then the replayed step's distance
+    from the one card's."""
+    platform.configure_numerics()
+    plant_cyclegan_fault(fault)
+    torch.cuda.reset_peak_memory_stats(group.device)
+    writes = count_writes()
+    datasets = cyclegan_spatial_datasets(ecfg)
+    size = (ecfg["size"], ecfg["size"])
+    results = []
+    for epochs in phases:
+        engine = CycleGANEngine(*datasets, f"{out}/cyclegan", ecfg["batch"], size,
+                                **cyclegan_engine_kwargs(ecfg, group.device, group))
+        start = engine.epoch
+        zero_launches()
+        before = dict(group.counts)
+        torch.cuda.synchronize(group.device)
+        t0 = time.perf_counter()
+        engine.train(epochs, 1)
+        torch.cuda.synchronize(group.device)
+        seconds = time.perf_counter() - t0
+        perf = None
+        if group.is_main:
+            with open(f"{out}/cyclegan/perf.jsonl") as f:
+                perf = json.loads(f.read().splitlines()[-1])
+        results.append({
+            "start": start, "steps": engine.num_batches * epochs, "seconds": seconds,
+            "perf": perf, "launches": read_launches(), "grad_copies": adam.GRAD_COPIES["adam"],
+            "collectives": {k: group.counts[k] - before[k] for k in before},
+            "digest": engine.last_digest, "metrics": engine.last_epoch_metrics,
+            "resident": engine.resident})
+        del engine
+    peak = torch.cuda.max_memory_allocated(group.device)
+    cfg = cyclegan_step_config(ecfg, 0)
+    state = cyclegan_step.init_state(cfg, group.device)
+    require(torch.equal(state_sums(state).cpu(), replay["sums0"]),
+            f"rank {group.rank}'s seeded CycleGAN state is not the one card's")
+    rows = slice(*meshlib.process_row_range(group, ecfg["batch"]))
+    image_rows = slice(*meshlib.spatial_row_range(group, ecfg["size"]))
+    bx, by = (torch.from_numpy(np.ascontiguousarray(b[rows, image_rows])).to(group.device)
+              for b in cyclegan_replay_batches(ecfg))
+    state, _ = cyclegan_step.make_train_step(cfg, group)(state, bx, by)
+    replayed = state_errors(state.state_dict(),
+                            torch.load(replay["path"], map_location=group.device))
+    return {"rank": group.rank, "backend": group.backend, "device": str(group.device),
+            "phases": results, "writes": writes, "peak_bytes": peak, "replay": replayed}
+
+
+def cyclegan_spatial_reference(out: str, phases, ecfg: dict, dev: torch.device) -> dict:
+    """The one-card CycleGANEngine run of phase 9e: the same configuration,
+    data and phases, no group; its epoch metrics, its resumed epoch's
+    perf.jsonl line and its peak memory above what the process held."""
+    datasets = cyclegan_spatial_datasets(ecfg)
+    size = (ecfg["size"], ecfg["size"])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = []
+    for epochs in phases:
+        engine = CycleGANEngine(*datasets, f"{out}/cyclegan", ecfg["batch"], size,
+                                **cyclegan_engine_kwargs(ecfg, dev))
+        engine.train(epochs, 1)
+        metrics.append(engine.last_epoch_metrics)
+        del engine
+    torch.cuda.synchronize()
+    with open(f"{out}/cyclegan/perf.jsonl") as f:
+        perf = json.loads(f.read().splitlines()[-1])
+    return {"metrics": metrics, "perf": perf,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - held}
+
+
+def cyclegan_spatial_errors(ranks: list[dict], ref: dict) -> dict:
+    """Phase 9e's distance of the spatial ranks from the one-card run: each
+    epoch's metrics relative to max(1, |v|), and the replayed step's state
+    per collection (state_errors); the worst over epochs and ranks, with
+    where."""
+    out = {"metric": 0.0, "metric_at": None, "state": 0.0, "state_at": None}
+    for p, (ph, want) in enumerate(zip(ranks[0]["phases"], ref["metrics"])):
+        for k, v in want.items():
+            got = ph["metrics"][k]
+            d = abs(got - v) / max(1.0, abs(v)) if math.isfinite(got) else math.inf
+            if d >= out["metric"]:
+                out["metric"], out["metric_at"] = d, f"epoch {p} {k}"
+    for r in ranks:
+        if r["replay"]["state"] >= out["state"]:
+            out["state"] = r["replay"]["state"]
+            out["state_at"] = f"rank {r['rank']} /{r['replay']['state_at']}"
+    return out
+
+
+def check_cyclegan_spatial_ranks(ranks: list[dict], label: str, card: str, ecfg: dict) -> dict:
+    """Per rank: exact launches and collectives per step
+    (cyclegan_spatial_per_step), no Adam gradient copy, bit-equal digests
+    after each phase, artifacts from rank 0 only."""
+    per_launch, per_coll = cyclegan_spatial_per_step(ecfg["res"])
+    for p in range(len(ranks[0]["phases"])):
+        require(len({r["phases"][p]["digest"] for r in ranks}) == 1,
+                f"{label} phase {p}: rank digests differ")
+        for r in ranks:
+            ph = r["phases"][p]
+            steps = ph["steps"]
+            want = {k: v * steps for k, v in per_launch.items()}
+            require(ph["launches"] == want, f"{label} rank {r['rank']} phase {p}: launches "
+                    f"{ph['launches']}, expected {want}")
+            got = {k: ph["collectives"][k] for k in per_coll}
+            want = {k: v * steps for k, v in per_coll.items()}
+            require(got == want, f"{label} rank {r['rank']} phase {p}: collectives {got}, "
+                    f"expected {want}")
+            require(ph["grad_copies"] == 0, f"{label}: adam gradient copies {ph['grad_copies']}")
+            require(ph["start"] == p and all(math.isfinite(v) for v in ph["metrics"].values()),
+                    f"{label} rank {r['rank']} phase {p}: start {ph['start']}, {ph['metrics']}")
+    require(all(v > 0 for v in ranks[0]["writes"].values()),
+            f"{label}: rank 0 wrote {ranks[0]['writes']}")
+    for r in ranks[1:]:
+        require(set(r["writes"].values()) == {0}, f"{label}: rank {r['rank']} wrote {r['writes']}")
+    perf = ranks[0]["phases"][-1]["perf"]
+    log(f"{label}: backend {ranks[0]['backend']}, {len(ranks)} ranks on "
+        f"{sorted({r['device'] for r in ranks})}, {ecfg['size']}x{ecfg['size']} global batch "
+        f"{ecfg['batch']} base {ecfg['base']} {ecfg['res']} res blocks {ecfg['dtype']}; per rank "
+        f"and step: launches {per_launch}, collectives {per_coll}, 0 gradient copies; digests "
+        f"equal after each epoch; artifacts from rank 0 only {ranks[0]['writes']}; resumed "
+        f"epoch {perf['steps_per_sec']:.3f} steps/s, {perf['images_per_sec']:.2f} global "
+        f"images/s ({card})")
+    return {"ranks": len(ranks), "backend": ranks[0]["backend"],
+            "devices": sorted({r["device"] for r in ranks}),
+            "last_epoch_steps_per_sec": perf["steps_per_sec"],
+            "last_epoch_images_per_sec": perf["images_per_sec"],
+            "launches_rank0": {k: sum(ph["launches"][k] for ph in ranks[0]["phases"])
+                               for k in ranks[0]["phases"][0]["launches"]},
+            "collectives_per_step": per_coll, "peak_bytes": [r["peak_bytes"] for r in ranks]}
+
+
+def run_cyclegan_spatial(card: str, work: str, dev: torch.device,
+                         fault: str | None = None) -> dict:
+    """Phase 9e: the headline CycleGAN on CG_SP_SPATIAL spatial ranks sharing
+    this card over gloo, through CycleGANEngine for a 4-step epoch and an
+    auto-resumed one, held to the one-card engine on the same batches, then
+    a float32 step replayed from the one card's seeded state, both within
+    CG_SP_BOUND; then (9f) NCCL data 2 x spatial 2 on four cards where the
+    machine has them. With `fault`, the ranks carry a planted fault and the
+    phase requires their distance to exceed CG_SP_BOUND (9f is skipped)."""
+    t0 = time.perf_counter()
+    ecfg = cyclegan_spatial_config()
+    phases = [1, 1]
+    torch.cuda.empty_cache()
+    ref = cyclegan_spatial_reference(f"{work}/cg_one", phases, ecfg, dev)
+    replay = cyclegan_replayed_step(work, ecfg, dev)
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter()
+    ranks = dp.spawn_local(cyclegan_spatial_rank, ecfg["spatial"], backend="gloo",
+                           devices=[str(dev)] * ecfg["spatial"], timeout=SP_RANKS_TIMEOUT_S,
+                           spatial=ecfg["spatial"],
+                           args=(f"{work}/cg_spatial", phases, ecfg, fault, replay))
+    err = cyclegan_spatial_errors(ranks, ref)
+    label = (f"phase 9e (CycleGAN {ecfg['size']}x{ecfg['size']} on {ecfg['spatial']} spatial "
+             "ranks sharing one card, gloo)")
+    log(f"phase 9e times: the one-card runs {t_one - t0:.1f} s, the spatial ranks "
+        f"{time.perf_counter() - t_one:.1f} s; the one card's float32 step against the same "
+        f"step run again: {replay['f32_rerun_one_card']} ({card})")
+    if fault is not None:
+        shows = not within(err, CG_SP_BOUND)
+        log(f"{label}, planted fault {fault}: {err}; exceeds the bound {CG_SP_BOUND}: {shows} "
+            f"({card})")
+        require(shows, f"planted fault {fault} stays within the bound {CG_SP_BOUND}: {err}")
+        return {"fault": fault, "errors": err}
+    shared = check_cyclegan_spatial_ranks(ranks, label, card, ecfg)
+    log(f"{label}: against the one-card run on the same batches: {err} (bound {CG_SP_BOUND}); "
+        f"peak device memory per rank {[r['peak_bytes'] / 2**30 for r in ranks]} GiB, one card "
+        f"{ref['peak_bytes'] / 2**30:.3f} GiB; one card's resumed epoch "
+        f"{ref['perf']['steps_per_sec']:.3f} steps/s ({card})")
+    require(within(err, CG_SP_BOUND), f"{label}: {err} past the bound {CG_SP_BOUND}")
+    four = run_cyclegan_four_cards(card, work, ecfg, phases, ref, replay)
+    seconds = time.perf_counter() - t0
+    log(f"phase 9e/9f: {seconds:.1f} s ({card})")
+    return {"shared_card_gloo": shared, "errors": err, "bound": CG_SP_BOUND,
+            "f32_rerun_one_card": replay["f32_rerun_one_card"],
+            "peak_bytes_one_card": ref["peak_bytes"], "one_card_perf": ref["perf"],
+            "four_cards_nccl": four, "seconds": seconds, "launches": shared["launches_rank0"]}
+
+
+def run_cyclegan_four_cards(card: str, work: str, ecfg: dict, phases, ref: dict,
+                            replay: dict) -> dict | None:
+    """Phase 9f: the headline CycleGAN over NCCL on four cards as data 2 x
+    spatial 2 (each rank 2 rows and 64 image rows), through CycleGANEngine,
+    held as 9e to the one-card run (`ref`, `replay`) within CG_SP_BOUND;
+    steps/s and global images/s of the resumed epoch beside the one card's.
+    None, with a line, on fewer cards."""
+    if torch.cuda.device_count() < 4:
+        log(f"phase 9f: {torch.cuda.device_count()} card(s) visible: the 4-card NCCL data 2 x "
+            "spatial 2 CycleGAN run is skipped for want of cards")
+        return None
+    label = "phase 9f (CycleGAN, NCCL data 2 x spatial 2, 4 cards)"
+    ranks = dp.spawn_local(cyclegan_spatial_rank, 4, "cuda", backend="nccl",
+                           spatial=ecfg["spatial"], timeout=SP_RANKS_TIMEOUT_S,
+                           args=(f"{work}/cg_spatial4", phases, ecfg, None, replay))
+    four = check_cyclegan_spatial_ranks(ranks, label, card, ecfg)
+    err = cyclegan_spatial_errors(ranks, ref)
+    require(within(err, CG_SP_BOUND), f"{label}: {err} past the bound {CG_SP_BOUND}")
+    log(f"{label}: against the one-card run {err}; peak device memory per rank "
+        f"{[r['peak_bytes'] / 2**30 for r in ranks]} GiB; one card "
+        f"{ref['perf']['steps_per_sec']:.3f} steps/s, {ref['perf']['images_per_sec']:.2f} "
+        f"images/s ({card})")
+    return {**four, "errors": err, "one_card": ref["perf"]}
+
+
 def parse_args(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    parser.add_argument("--only-phase", choices=["9", "9d"], default=None,
-                        help="build the kernels and run phase 9 (spatial) alone, or its "
-                        "4-card part 9d with the one-card run it is held to")
-    parser.add_argument("--plant", choices=SP_FAULTS, default=None,
-                        help="phase 9b/9c with this fault planted in the spatial ranks; "
-                        "passes when it moves them past SP_BOUND")
+    parser.add_argument("--only-phase", choices=["9", "9d", "9e", "9f"], default=None,
+                        help="build the kernels and run phase 9a-9d (SNDCGAN and WGAN "
+                        "spatial) alone, its 4-card part 9d, phase 9e (CycleGAN spatial), "
+                        "or its 4-card part 9f, each with the one-card run it is held to")
+    parser.add_argument("--plant", choices=SP_FAULTS + CG_FAULTS, default=None,
+                        help="phase 9b/9c (SP_FAULTS) or 9e (CG_FAULTS) with this fault "
+                        "planted in the spatial ranks; passes when it moves them past "
+                        "SP_BOUND or CG_SP_BOUND")
     return parser.parse_args(argv)
 
 
@@ -2210,11 +2730,21 @@ def main(argv=None) -> int:
     log(f"kernel build total {time.perf_counter() - t0:.2f} s (parallel)")
     if args.only_phase is not None or args.plant is not None:
         with tempfile.TemporaryDirectory() as work:
+            if args.only_phase in ("9d", "9f"):
+                require(torch.cuda.device_count() >= 4, f"--only-phase {args.only_phase} "
+                        "needs 4 cards")
             if args.only_phase == "9d":
-                require(torch.cuda.device_count() >= 4, "--only-phase 9d needs 4 cards")
                 ecfg, phases = spatial_engine_config(), [(1, False), (2, True)]
                 spatial = run_four_cards(card, work, ecfg, phases,
                                          spatial_reference(f"{work}/one", phases, ecfg, dev))
+            elif args.only_phase == "9f":
+                ecfg, phases = cyclegan_spatial_config(), [1, 1]
+                spatial = run_cyclegan_four_cards(
+                    card, work, ecfg, phases,
+                    cyclegan_spatial_reference(f"{work}/cg_one", phases, ecfg, dev),
+                    cyclegan_replayed_step(work, ecfg, dev))
+            elif args.only_phase == "9e" or args.plant in CG_FAULTS:
+                spatial = run_cyclegan_spatial(card, work, dev, args.plant)
             else:
                 spatial = run_spatial(card, work, dev, args.plant)
         print(json.dumps({"spatial": spatial, "card": card}))
@@ -2222,6 +2752,7 @@ def main(argv=None) -> int:
     kernels = check_dropout(dev, card)
     kernels.append(check_adam(dev, card))
     kernels += check_instance_norm(card)
+    kernels += check_split_instance_norm(card)
     check_small_step_against_cpu(dev)
     check_small_cyclegan_step_against_cpu(dev)
     check_small_wgan_steps_against_cpu(dev)
@@ -2233,6 +2764,7 @@ def main(argv=None) -> int:
         evaluation = run_evaluation(card, work, dev, kernels)
         data_parallel = run_data_parallel(card, work, dev)
         spatial = run_spatial(card, work, dev)
+        cg_spatial = run_cyclegan_spatial(card, work, dev)
     names = {k["name"] for k in kernels}
     for p, r in slices.items():
         require(set(r["launches"]) == names, f"{p}: counters {sorted(r['launches'])} "
@@ -2244,6 +2776,7 @@ def main(argv=None) -> int:
         k["launches_by_path"]["evaluation"] = evaluation["launches"][k["name"]]
         k["launches_by_path"]["data_parallel"] = data_parallel["launches"][k["name"]]
         k["launches_by_path"]["spatial"] = spatial["launches"][k["name"]]
+        k["launches_by_path"]["cyclegan_spatial"] = cg_spatial["launches"][k["name"]]
         if k["name"].startswith("leaky"):  # phase 8a: rank 1's rows, with their base
             base = data_parallel["dropout_base"]
             k["at_rank_rows_with_base"] = {
@@ -2251,9 +2784,12 @@ def main(argv=None) -> int:
                 **base["fwd" if k["name"].endswith("fwd") else "bwd"]}
             k["at_spatial_shard"] = spatial["dropout_shard"][k["name"]]  # phase 9a
         # The path that runs it; Adam runs on both, and its record's times
-        # are the CycleGAN apply's, as are its launches.
+        # are the CycleGAN apply's, as are its launches; the split norm runs
+        # on the CycleGAN spatial path alone.
         k["launches"] = k["launches_by_path"][
-            "sndcgan" if k["name"].startswith("leaky") else "cyclegan"]
+            "sndcgan" if k["name"].startswith("leaky") else
+            "cyclegan_spatial" if k["name"] in SPLIT_NAMES else "cyclegan"]
+        require(k["launches"] > 0, f"{k['name']}: no launch on its path")
         for p, r in k.get("by_path", {}).items():
             r["launches"] = k["launches_by_path"][p]
     print(json.dumps({"kernels": kernels, "slices": {
@@ -2261,7 +2797,7 @@ def main(argv=None) -> int:
             "images_per_sec": r["perf"][-1]["images_per_sec"], "config": r["config"],
             "adam_grad_copies": r["grad_copies"]}
         for p, r in slices.items()}, "sampling_and_fid": offline, "evaluation": evaluation,
-        "data_parallel": data_parallel, "spatial": spatial,
+        "data_parallel": data_parallel, "spatial": spatial, "cyclegan_spatial": cg_spatial,
         "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)

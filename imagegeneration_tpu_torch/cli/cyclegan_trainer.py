@@ -2,22 +2,23 @@
 
   python -m imagegeneration_tpu_torch.cli.cyclegan_trainer <bSize> <epochs>
       [-x DATA1] [-y DATA2] [-d DIR] [-c FREQ] [-ct] [--bf16]
-      [--mesh-data N] [--host-sharded-data]
+      [--mesh-data N] [--mesh-spatial K] [--host-sharded-data]
       [--height H] [--width W] [--quirk-axis1] [--seed S] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.cyclegan_trainer. Training
-runs on one CUDA device, or with `--mesh-data N` on N data-parallel ranks,
-one card each, over a global batch of bSize (`--host-sharded-data`: each
-rank decodes only its shard of each domain's files; cli/launch.py).
+runs on one CUDA device, or with `--mesh-data N [--mesh-spatial K]` on N x K
+ranks, one card each, over a global batch of bSize, each of the K spatial
+ranks of a data block holding 1/K of the image rows (`--host-sharded-data`:
+each data block decodes only its shard of each domain's files;
+cli/launch.py). A spatial request is held to the JAX guard at the
+generator's H/4 maps (2 even rows per shard at least).
 `--device cpu` runs the same code on the CPU with the plain versions of the
 kernels (tests, debugging; with `--mesh-data`, gloo ranks). As in the reference,
 training resumes from the latest checkpoint in the output directory
 whether or not `-ct` is given (the flag is parsed and has no effect).
 `-c` paces the generator exports `gen_weights_{f,g}-<epoch>.msgpack`:
-every epoch that is a multiple of it writes them. `--mesh-spatial` > 1
-and `--profile` are refused: the CycleGAN spatial slice (InstanceNorm
-statistics over the spatial group, reflect padding at the global edges)
-and the profiler are not ported.
+every epoch that is a multiple of it writes them. `--profile` is refused:
+the profiler is not ported (tools/profile_step.py measures the step).
 """
 
 from __future__ import annotations
@@ -77,7 +78,15 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if args.profile:
         parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
-    launch.run(parser, args, _train)
+    launch.run(parser, args, _train, _spatial_check)
+
+
+def _spatial_check(args: argparse.Namespace) -> None:
+    from imagegeneration_tpu_torch.core.mesh import check_spatial_partition
+    from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig, min_sharded_height
+
+    cfg = CycleGANConfig(image_size=(args.height, args.width, 3))
+    check_spatial_partition(min_sharded_height(cfg), args.mesh_spatial, "cyclegan", args.height)
 
 
 def _train(args: argparse.Namespace, mesh) -> None:

@@ -3,8 +3,7 @@
   --mesh-data N          data-parallel ranks (0: one process, no group)
   --mesh-spatial K       spatial (image-H) partition factor: each data rank's
                          images are split into K blocks of rows, one rank
-                         each, with halo exchanges (SNDCGAN and WGAN; needs
-                         --mesh-data >= 1; CycleGAN refuses K > 1)
+                         each, with halo exchanges (needs --mesh-data >= 1)
   --host-sharded-data    each data block decodes only its shard of the image
                          files
 
@@ -46,21 +45,18 @@ def _rank_main(group, train: Callable, args: argparse.Namespace) -> None:
 
 def run(parser: argparse.ArgumentParser, args: argparse.Namespace,
         train: Callable[[argparse.Namespace, object], None],
-        spatial_check: Callable[[argparse.Namespace], None] | None = None) -> None:
+        spatial_check: Callable[[argparse.Namespace], None]) -> None:
     """Run `train(args, group)` in this process (group None), as this rank
     of a torchrun launch, or on --mesh-data x --mesh-spatial local ranks.
     `train` must be a module-level function (it is pickled for the spawned
     ranks). `spatial_check(args)` raises ValueError for a spatial request
-    the family's guard refuses; None: the family refuses --mesh-spatial > 1."""
+    the family's guard refuses."""
     if args.mesh_data < 0 or args.mesh_spatial < 1:
         parser.error("--mesh-data must be >= 0 and --mesh-spatial >= 1")
     if args.mesh_spatial > 1:
         try:
-            if spatial_check is None:
-                meshlib.refuse_spatial(args.mesh_spatial)
-            else:
-                spatial_check(args)
-        except (NotImplementedError, ValueError) as e:
+            spatial_check(args)
+        except ValueError as e:
             parser.error(str(e))
         if args.mesh_data == 0:
             parser.error("--mesh-spatial > 1 needs --mesh-data >= 1")

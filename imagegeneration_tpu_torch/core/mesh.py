@@ -22,9 +22,8 @@ collectives by hand (parallel/dp.py, parallel/halo.py). What carries over:
   so that both packages accept the same requests;
 - rank 0 owns every artifact (`DataGroup.is_main`).
 
-Spatial partitioning is ported for the SNDCGAN and WGAN families;
-`refuse_spatial` refuses it for CycleGAN, whose InstanceNorm statistics
-and reflect padding are not yet partitioned.
+Spatial partitioning is ported for all three families (SNDCGAN, WGAN,
+CycleGAN), each held to the JAX guard of its `min_sharded_height`.
 
 The backend is named, never guessed at run time: NCCL for CUDA tensors,
 gloo for the CPU, unless the caller names one; a backend that fails to
@@ -110,7 +109,8 @@ class DataGroup:
     spatial_pg: object = None  # None: no spatial peers (spatial 1)
     counts: dict[str, int] = dataclasses.field(default_factory=lambda: {
         "grad_all_reduce": 0, "stat_all_reduce": 0, "metric_all_reduce": 0,
-        "halo": 0, "spatial_sum": 0, "broadcast": 0, "barrier": 0})
+        "halo": 0, "spatial_sum": 0, "row_gather": 0, "norm_gather": 0,
+        "norm_all_reduce": 0, "broadcast": 0, "barrier": 0})
 
     @property
     def is_main(self) -> bool:
@@ -148,16 +148,6 @@ class DataGroup:
 
     def size_of(self, over: str) -> int:
         return {"world": self.world, "data": self.data, "spatial": self.spatial}[over]
-
-
-def refuse_spatial(spatial: int) -> None:
-    """CycleGAN: any spatial factor > 1 is refused."""
-    if spatial > 1:
-        raise NotImplementedError(
-            f"--mesh-spatial {spatial}: spatial H-partitioning is ported for the "
-            "SNDCGAN and WGAN trainers only; the CycleGAN slice (InstanceNorm "
-            "statistics over the spatial group, reflect padding at the global "
-            "edges) is not ported to PyTorch yet; use the data axis only")
 
 
 def make_mesh(cfg: MeshConfig, device: torch.device) -> DataGroup:

@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -313,12 +315,17 @@ __device__ __forceinline__ void cluster_totals(const cg::cluster_group& cl, floa
   __syncthreads();
 }
 
-template <typename T, int V>
+// kPartial: passes 1 and 2 only, for a shard of an H-partitioned map; the
+// sum and the centred sum of squares of each (sample, channel) over the
+// shard's rows go to partial[(b * C + c) * 2 + {0, 1}] (the apply pass
+// merges the spatial peers' partials), and y, mean and rstd are not
+// written.
+template <typename T, int V, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
     in_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, T* __restrict__ y,
-                  float* __restrict__ mean_out, float* __restrict__ rstd_out, Plan p,
-                  float eps, int relu) {
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  float* __restrict__ partial, Plan p, float eps, int relu) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kRed];
   __shared__ float part[2 * kMaxChannelBlock];
@@ -329,7 +336,7 @@ __global__ void __launch_bounds__(kThreads)
   T* cache = reinterpret_cast<T*>(smem);
   const float n = static_cast<float>(p.hw);
   float gm[V] = {}, bt[V] = {};
-  if (g.ch < p.c) {
+  if (!kPartial && g.ch < p.c) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       gm[j] = gamma[g.ch + j];
@@ -367,6 +374,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   cta_sums<V, 1>(q, p.cb, red, part + p.cb);
   cluster_totals(cl, part + p.cb, tot + p.cb, p.cb, p.k);
+  if constexpr (kPartial) {
+    if (rank == 0 && g.active && g.slot == 0) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int64_t at = (static_cast<int64_t>(blockIdx.z) * p.c + g.ch + j) * 2;
+        partial[at] = tot[g.lane * V + j];
+        partial[at + 1] = tot[p.cb + g.lane * V + j];
+      }
+    }
+    cluster_arrive(p.k);
+    cluster_wait(p.k);
+    return;
+  }
   float rstd[V];
 #pragma unroll
   for (int j = 0; j < V; ++j)
@@ -397,14 +417,18 @@ __global__ void __launch_bounds__(kThreads)
   cluster_wait(p.k);  // no CTA leaves while another may read its shared memory
 }
 
-template <typename T, int V>
+// kPartial: pass 1 and the batch sums only, for a shard of an H-partitioned
+// map; split[(b * C + c) * 2 + {0, 1}] gets gamma * sum dy' and gamma *
+// sum dy' * xhat over the shard's rows (sum g and sum g * xhat; the apply
+// pass takes them summed over the spatial peers), and dx is not written.
+template <typename T, int V, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
     in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
                   const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
                   T* __restrict__ dx, float* __restrict__ dgamma, float* __restrict__ dbeta,
-                  float* __restrict__ partials, unsigned int* __restrict__ tickets, Plan p,
-                  int batch, int relu) {
+                  float* __restrict__ partials, unsigned int* __restrict__ tickets,
+                  float* __restrict__ split, Plan p, int batch, int relu) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kRed];
   __shared__ float part[2 * kMaxChannelBlock];
@@ -472,8 +496,19 @@ __global__ void __launch_bounds__(kThreads)
       ticket = atomicInc(&tickets[blockIdx.y], static_cast<unsigned int>(batch - 1));
   }
 
+  if constexpr (kPartial) {
+    if (rank == 0 && threadIdx.x < p.cb) {
+      const int ch = blockIdx.y * p.cb + threadIdx.x;
+      if (ch < p.c) {
+        const int64_t at = (static_cast<int64_t>(blockIdx.z) * p.c + ch) * 2;
+        split[at] = __fmul_rn(tot[threadIdx.x], gamma[ch]);
+        split[at + 1] = __fmul_rn(tot[p.cb + threadIdx.x], gamma[ch]);
+      }
+    }
+  }
+
   // Pass 2: dx, with mean(g) = gamma * sum_d / HW, mean(g*xhat) likewise.
-  if (g.active) {
+  if (!kPartial && g.active) {
     const float n = static_cast<float>(p.hw);
     float mean_g[V], mean_gx[V];
 #pragma unroll
@@ -564,39 +599,212 @@ Plan make_plan(int hw, int c, int cb, int cluster, int rows) {
   return Plan{hw, c, cb, cluster, rows, 0};
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kPartial>
 int launch_fwd(const void* x, const void* gamma, const void* beta, void* y, void* mean,
-               void* rstd, int b, Plan p, int smem, float eps, int relu, void* stream) {
+               void* rstd, void* partial, int b, Plan p, int smem, float eps, int relu,
+               void* stream) {
   cudaError_t e = check_plan(p, b, V, 1, sizeof(T), smem);
-  if (e == cudaSuccess) e = prepare(in_fwd_kernel<T, V>, p, smem);
+  if (e == cudaSuccess) e = prepare(in_fwd_kernel<T, V, kPartial>, p, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   Launch l(p, b, smem, stream);
-  e = cudaLaunchKernelEx(&l.cfg, in_fwd_kernel<T, V>, static_cast<const T*>(x),
+  e = cudaLaunchKernelEx(&l.cfg, in_fwd_kernel<T, V, kPartial>, static_cast<const T*>(x),
                          static_cast<const float*>(gamma), static_cast<const float*>(beta),
                          static_cast<T*>(y), static_cast<float*>(mean),
-                         static_cast<float*>(rstd), p, eps, relu);
+                         static_cast<float*>(rstd), static_cast<float*>(partial), p, eps,
+                         relu);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kPartial>
 int launch_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
                const void* mean, const void* rstd, void* dx, void* dgamma, void* dbeta,
-               void* partials, void* tickets, int b, Plan p, int smem, int relu,
+               void* partials, void* tickets, void* split, int b, Plan p, int smem, int relu,
                void* stream) {
   cudaError_t e = check_plan(p, b, V, 2, sizeof(T), smem);
-  if (e == cudaSuccess) e = prepare(in_bwd_kernel<T, V>, p, smem);
+  if (e == cudaSuccess) e = prepare(in_bwd_kernel<T, V, kPartial>, p, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   Launch l(p, b, smem, stream);
-  e = cudaLaunchKernelEx(&l.cfg, in_bwd_kernel<T, V>, static_cast<const T*>(x),
+  e = cudaLaunchKernelEx(&l.cfg, in_bwd_kernel<T, V, kPartial>, static_cast<const T*>(x),
                          static_cast<const T*>(dy), static_cast<const float*>(gamma),
                          static_cast<const float*>(beta), static_cast<const float*>(mean),
                          static_cast<const float*>(rstd), static_cast<T*>(dx),
                          static_cast<float*>(dgamma), static_cast<float*>(dbeta),
                          static_cast<float*>(partials),
-                         static_cast<unsigned int*>(tickets), p, b, relu);
+                         static_cast<unsigned int*>(tickets), static_cast<float*>(split), p,
+                         b, relu);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ apply passes
+// The elementwise passes of the split norm, on a shard of an H-partitioned
+// map, once the spatial peers' statistics are known. A plain grid of
+// (row chunks, channel blocks, samples), no cluster: a CTA takes `rows`
+// consecutive rows (p.rows; p.k chunks cover the shard's p.hw rows) of its
+// sample and its block's cb channels, and a thread moves V channels per
+// load, as in the kernels above. Bound: bytes (forward: read x, write y;
+// backward: read x and dy, write dx).
+
+// cudaErrorInvalidValue unless this source can run an apply plan.
+cudaError_t check_apply_plan(const Plan& p, int b, int vec) {
+  const bool ok =
+      b >= 1 && p.hw >= 1 && p.c >= 1 && p.cb >= vec && p.cb <= kMaxChannelBlock &&
+      p.cb % vec == 0 && p.cb / vec <= kThreads && (vec == 1 || p.c % p.cb == 0) &&
+      p.k >= 1 && p.k <= 65535 && p.rows >= 1 &&
+      static_cast<int64_t>(p.rows) * p.k >= p.hw &&
+      static_cast<int64_t>(p.rows) * (p.k - 1) < p.hw;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+dim3 apply_grid(const Plan& p, int b) {
+  return dim3(static_cast<unsigned int>(p.k),
+              static_cast<unsigned int>((p.c + p.cb - 1) / p.cb),
+              static_cast<unsigned int>(b));
+}
+
+// Forward apply: merge the `shards` partials of each (sample, channel)
+// (parts is (shards, B, C, 2), shard s's sum and centred sum of squares over
+// its p.hw rows) into the whole map's statistics by Chan's formula for equal
+// counts n = p.hw, N = shards * n:
+//   mean = sum_s sum_s / N
+//   var  = (sum_s m2_s + n * sum_s (sum_s / n - mean)^2) / N
+// then y = (x - mean) * rstd * gamma + beta (+ReLU) on this shard's rows;
+// the CTAs of row chunk 0 write mean and rstd (B, C).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    in_fwd_apply_kernel(const T* __restrict__ x, const float* __restrict__ parts,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        T* __restrict__ y, float* __restrict__ mean_out,
+                        float* __restrict__ rstd_out, Plan p, int batch, int shards,
+                        float eps, int relu) {
+  __shared__ float stat[2 * kMaxChannelBlock];
+  if (threadIdx.x < p.cb) {
+    const int ch = blockIdx.y * p.cb + threadIdx.x;
+    if (ch < p.c) {
+      const float n = static_cast<float>(p.hw);
+      const float total = __fmul_rn(n, static_cast<float>(shards));
+      const int64_t stride = static_cast<int64_t>(batch) * p.c * 2;
+      const float* at = parts + (static_cast<int64_t>(blockIdx.z) * p.c + ch) * 2;
+      float sum = 0.f;
+      for (int r = 0; r < shards; ++r) sum = __fadd_rn(sum, at[r * stride]);
+      const float mean = __fdiv_rn(sum, total);
+      float m2 = 0.f, dev = 0.f;
+      for (int r = 0; r < shards; ++r) {
+        const float d = __fsub_rn(__fdiv_rn(at[r * stride], n), mean);
+        m2 = __fadd_rn(m2, at[r * stride + 1]);
+        dev = __fadd_rn(dev, __fmul_rn(d, d));
+      }
+      const float var = __fdiv_rn(__fadd_rn(m2, __fmul_rn(n, dev)), total);
+      const float rstd = rsqrtf(__fadd_rn(var, eps));
+      stat[threadIdx.x] = mean;
+      stat[kMaxChannelBlock + threadIdx.x] = rstd;
+      if (blockIdx.x == 0) {
+        mean_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = mean;
+        rstd_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = rstd;
+      }
+    }
+  }
+  __syncthreads();
+  const Geom<V> g = geom<V>(p, blockIdx.x);
+  if (!g.active) return;
+  float mean[V], rstd[V], gm[V], bt[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    mean[j] = stat[g.lane * V + j];
+    rstd[j] = stat[kMaxChannelBlock + g.lane * V + j];
+    gm[j] = gamma[g.ch + j];
+    bt[j] = beta[g.ch + j];
+  }
+  const Source<T> src{x + g.base, p.c, 0};
+  each_row(g, src, [&](int r, const Pack<T, V>& v) {
+    Pack<T, V> o;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float a = affine(normalized(to_f32(v.v[j]), mean[j], rstd[j]), gm[j], bt[j]);
+      if (relu) a = fmaxf(a, 0.f);
+      from_f32(o.v[j], a);
+    }
+    store_pack(y + g.base + static_cast<int64_t>(r) * p.c, o);
+  });
+}
+
+// Backward apply: with sums (B, C, 2) = (sum g, sum g * xhat) over the
+// whole map (the spatial peers' split outputs summed), g = dy' * gamma,
+//   dx = rstd * (g - sum g / N - xhat * sum(g * xhat) / N)
+// on this shard's rows, the ReLU mask rebuilt as in the single-pass kernel.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                        const float* __restrict__ sums, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, const float* __restrict__ mean_in,
+                        const float* __restrict__ rstd_in, T* __restrict__ dx, Plan p,
+                        float total, int relu) {
+  const Geom<V> g = geom<V>(p, blockIdx.x);
+  if (!g.active) return;
+  const int64_t s_idx = static_cast<int64_t>(blockIdx.z) * p.c + g.ch;
+  float mean[V], rstd[V], gm[V], bt[V], mean_g[V], mean_gx[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    mean[j] = mean_in[s_idx + j];
+    rstd[j] = rstd_in[s_idx + j];
+    gm[j] = gamma[g.ch + j];
+    bt[j] = beta[g.ch + j];
+    mean_g[j] = __fdiv_rn(sums[(s_idx + j) * 2], total);
+    mean_gx[j] = __fdiv_rn(sums[(s_idx + j) * 2 + 1], total);
+  }
+  const Source<T> xs{x + g.base, p.c, 0};
+  const Source<T> ds{dy + g.base, p.c, 0};
+  each_row(g, xs, ds, [&](int r, const Pack<T, V>& xv, const Pack<T, V>& dv) {
+    Pack<T, V> o;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float xhat = normalized(to_f32(xv.v[j]), mean[j], rstd[j]);
+      float d = to_f32(dv.v[j]);
+      if (relu && !(affine(xhat, gm[j], bt[j]) > 0.f)) d = 0.f;
+      const float inner = __fsub_rn(__fsub_rn(__fmul_rn(d, gm[j]), mean_g[j]),
+                                    __fmul_rn(xhat, mean_gx[j]));
+      from_f32(o.v[j], __fmul_rn(rstd[j], inner));
+    }
+    store_pack(dx + g.base + static_cast<int64_t>(r) * p.c, o);
+  });
+}
+
+template <typename T, int V>
+int launch_fwd_apply(const void* x, const void* parts, const void* gamma, const void* beta,
+                     void* y, void* mean, void* rstd, int b, const Plan& p, int shards,
+                     float eps, int relu, void* stream) {
+  cudaError_t e = check_apply_plan(p, b, V);
+  if (e == cudaSuccess && shards < 1) e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  in_fwd_apply_kernel<T, V><<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(parts),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<T*>(y),
+      static_cast<float*>(mean), static_cast<float*>(rstd), p, b, shards, eps, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_bwd_apply(const void* x, const void* dy, const void* sums, const void* gamma,
+                     const void* beta, const void* mean, const void* rstd, void* dx, int b,
+                     const Plan& p, float total, int relu, void* stream) {
+  cudaError_t e = check_apply_plan(p, b, V);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  in_bwd_apply_kernel<T, V><<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const float*>(sums),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd), static_cast<T*>(dx),
+      p, total, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, V>) for vec = V: 16 bytes of T, or 1.
+template <typename T, typename F>
+int with_vec(int vec, F&& f) {
+  if (vec == static_cast<int>(16 / sizeof(T)))
+    return f(std::integral_constant<int, static_cast<int>(16 / sizeof(T))>{});
+  if (vec == 1) return f(std::integral_constant<int, 1>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename K>
@@ -610,80 +818,103 @@ int active_clusters(K* kernel, const Plan& p, int smem) {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
+template <typename T>
+int clusters_of(int bwd, int vec, const Plan& p, int smem) {
+  return with_vec<T>(vec, [&](auto v) {
+    constexpr int V = decltype(v)::value;
+    return bwd ? active_clusters(in_bwd_kernel<T, V, false>, p, smem)
+               : active_clusters(in_fwd_kernel<T, V, false>, p, smem);
+  });
+}
+
 }  // namespace
+
+// Each entry point below comes in two storage types, suffixed f32 (vec 4
+// for 16-byte loads, or 1) and bf16 (vec 8, or 1); the float statistics,
+// gamma, beta and the partials are float32 either way.
+#define IN_ENTRY_POINTS(SUFFIX, T)                                                          \
+  int in_fwd_##SUFFIX(const void* x, const void* gamma, const void* beta, void* y,          \
+                      void* mean, void* rstd, int b, int hw, int c, int cb, int vec,        \
+                      int cluster, int rows, int smem, float eps, int relu, void* stream) { \
+    const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
+    return with_vec<T>(vec, [&](auto v) {                                                   \
+      return launch_fwd<T, decltype(v)::value, false>(x, gamma, beta, y, mean, rstd,        \
+                                                      nullptr, b, p, smem, eps, relu,       \
+                                                      stream);                              \
+    });                                                                                     \
+  }                                                                                         \
+  int in_bwd_##SUFFIX(const void* x, const void* dy, const void* gamma, const void* beta,   \
+                      const void* mean, const void* rstd, void* dx, void* dgamma,           \
+                      void* dbeta, void* partials, void* tickets, int b, int hw, int c,     \
+                      int cb, int vec, int cluster, int rows, int smem, int relu,           \
+                      void* stream) {                                                       \
+    const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
+    return with_vec<T>(vec, [&](auto v) {                                                   \
+      return launch_bwd<T, decltype(v)::value, false>(x, dy, gamma, beta, mean, rstd, dx,   \
+                                                      dgamma, dbeta, partials, tickets,     \
+                                                      nullptr, b, p, smem, relu, stream);   \
+    });                                                                                     \
+  }                                                                                         \
+  int in_fwd_partial_##SUFFIX(const void* x, void* partial, int b, int hw, int c, int cb,   \
+                              int vec, int cluster, int rows, int smem, void* stream) {     \
+    const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
+    return with_vec<T>(vec, [&](auto v) {                                                   \
+      return launch_fwd<T, decltype(v)::value, true>(x, nullptr, nullptr, nullptr, nullptr, \
+                                                     nullptr, partial, b, p, smem, 0.f, 0,  \
+                                                     stream);                               \
+    });                                                                                     \
+  }                                                                                         \
+  int in_bwd_partial_##SUFFIX(const void* x, const void* dy, const void* gamma,             \
+                              const void* beta, const void* mean, const void* rstd,         \
+                              void* split, void* dgamma, void* dbeta, void* partials,       \
+                              void* tickets, int b, int hw, int c, int cb, int vec,         \
+                              int cluster, int rows, int smem, int relu, void* stream) {    \
+    const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
+    return with_vec<T>(vec, [&](auto v) {                                                   \
+      return launch_bwd<T, decltype(v)::value, true>(x, dy, gamma, beta, mean, rstd,        \
+                                                     nullptr, dgamma, dbeta, partials,      \
+                                                     tickets, split, b, p, smem, relu,      \
+                                                     stream);                               \
+    });                                                                                     \
+  }                                                                                         \
+  int in_fwd_apply_##SUFFIX(const void* x, const void* parts, const void* gamma,            \
+                            const void* beta, void* y, void* mean, void* rstd, int b,       \
+                            int hw, int c, int cb, int vec, int chunks, int rows,           \
+                            int shards, float eps, int relu, void* stream) {                \
+    const Plan p = make_plan(hw, c, cb, chunks, rows);                                      \
+    return with_vec<T>(vec, [&](auto v) {                                                   \
+      return launch_fwd_apply<T, decltype(v)::value>(x, parts, gamma, beta, y, mean, rstd,  \
+                                                     b, p, shards, eps, relu, stream);      \
+    });                                                                                     \
+  }                                                                                         \
+  int in_bwd_apply_##SUFFIX(const void* x, const void* dy, const void* sums,                \
+                            const void* gamma, const void* beta, const void* mean,          \
+                            const void* rstd, void* dx, int b, int hw, int c, int cb,       \
+                            int vec, int chunks, int rows, float total, int relu,           \
+                            void* stream) {                                                 \
+    const Plan p = make_plan(hw, c, cb, chunks, rows);                                      \
+    return with_vec<T>(vec, [&](auto v) {                                                   \
+      return launch_bwd_apply<T, decltype(v)::value>(x, dy, sums, gamma, beta, mean, rstd,  \
+                                                     dx, b, p, total, relu, stream);        \
+    });                                                                                     \
+  }
 
 extern "C" {
 
-// vec: 4 (16-byte loads) or 1 for float32; 8 or 1 for bfloat16.
-int in_fwd_f32(const void* x, const void* gamma, const void* beta, void* y, void* mean,
-               void* rstd, int b, int hw, int c, int cb, int vec, int cluster, int rows,
-               int smem, float eps, int relu, void* stream) {
-  const Plan p = make_plan(hw, c, cb, cluster, rows);
-  if (vec == 4)
-    return launch_fwd<float, 4>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu, stream);
-  if (vec == 1)
-    return launch_fwd<float, 1>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int in_fwd_bf16(const void* x, const void* gamma, const void* beta, void* y, void* mean,
-                void* rstd, int b, int hw, int c, int cb, int vec, int cluster, int rows,
-                int smem, float eps, int relu, void* stream) {
-  const Plan p = make_plan(hw, c, cb, cluster, rows);
-  if (vec == 8)
-    return launch_fwd<__nv_bfloat16, 8>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu,
-                                        stream);
-  if (vec == 1)
-    return launch_fwd<__nv_bfloat16, 1>(x, gamma, beta, y, mean, rstd, b, p, smem, eps, relu,
-                                        stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int in_bwd_f32(const void* x, const void* dy, const void* gamma, const void* beta,
-               const void* mean, const void* rstd, void* dx, void* dgamma, void* dbeta,
-               void* partials, void* tickets, int b, int hw, int c, int cb, int vec,
-               int cluster, int rows, int smem, int relu, void* stream) {
-  const Plan p = make_plan(hw, c, cb, cluster, rows);
-  if (vec == 4)
-    return launch_bwd<float, 4>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta, partials,
-                                tickets, b, p, smem, relu, stream);
-  if (vec == 1)
-    return launch_bwd<float, 1>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta, partials,
-                                tickets, b, p, smem, relu, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int in_bwd_bf16(const void* x, const void* dy, const void* gamma, const void* beta,
-                const void* mean, const void* rstd, void* dx, void* dgamma, void* dbeta,
-                void* partials, void* tickets, int b, int hw, int c, int cb, int vec,
-                int cluster, int rows, int smem, int relu, void* stream) {
-  const Plan p = make_plan(hw, c, cb, cluster, rows);
-  if (vec == 8)
-    return launch_bwd<__nv_bfloat16, 8>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta,
-                                        partials, tickets, b, p, smem, relu, stream);
-  if (vec == 1)
-    return launch_bwd<__nv_bfloat16, 1>(x, dy, gamma, beta, mean, rstd, dx, dgamma, dbeta,
-                                        partials, tickets, b, p, smem, relu, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+// The single-pass forward and backward (whole maps), then the split pair of
+// an H-partitioned map: in_fwd_partial, (the caller all-gathers the
+// partials over the spatial group,) in_fwd_apply; in_bwd_partial, (the
+// caller all-reduces the split sums,) in_bwd_apply.
+IN_ENTRY_POINTS(f32, float)
+IN_ENTRY_POINTS(bf16, __nv_bfloat16)
 
 // How many clusters of a plan the card holds at once (the occupancy API),
 // or minus the CUDA error code. bwd: 0 forward, 1 backward.
 int in_active_clusters(int bwd, int bf16, int hw, int c, int cb, int vec, int cluster,
                        int rows, int smem) {
   const Plan p = make_plan(hw, c, cb, cluster, rows);
-  if (bf16) {
-    if (vec == 8)
-      return bwd ? active_clusters(in_bwd_kernel<__nv_bfloat16, 8>, p, smem)
-                 : active_clusters(in_fwd_kernel<__nv_bfloat16, 8>, p, smem);
-    return bwd ? active_clusters(in_bwd_kernel<__nv_bfloat16, 1>, p, smem)
-               : active_clusters(in_fwd_kernel<__nv_bfloat16, 1>, p, smem);
-  }
-  if (vec == 4)
-    return bwd ? active_clusters(in_bwd_kernel<float, 4>, p, smem)
-               : active_clusters(in_fwd_kernel<float, 4>, p, smem);
-  return bwd ? active_clusters(in_bwd_kernel<float, 1>, p, smem)
-             : active_clusters(in_fwd_kernel<float, 1>, p, smem);
+  return bf16 ? clusters_of<__nv_bfloat16>(bwd, vec, p, smem)
+              : clusters_of<float>(bwd, vec, p, smem);
 }
 
 const char* in_error_string(int code) {

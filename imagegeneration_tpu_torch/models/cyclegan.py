@@ -22,6 +22,19 @@ norm, in plain torch.
 Image tensors are NCHW logical and channels_last in memory. float64 is
 accepted as a compute dtype for the CPU parity tests against the JAX
 package's float64 step (the kernels take float32 and bfloat16 only).
+
+Under a spatial partition (nn/layers.partition with a core.mesh.DataGroup
+of spatial factor S > 1; the JAX step's P('data', 'spatial') batch) the
+generator runs on this rank's block of rows: its 7x7 SAME convs take halos
+of 3 rows, its down convs a reflect halo of 1 (and then tile as VALID
+convs: the shard's rows keep the stride's phase under the guard), its 18
+res-block convs halos of 1, its ConvTransposes their input halos, and its
+24 norms the whole maps' statistics (the split kernels). The PatchGAN's
+VALID maps shrink by 3 rows per conv and do not tile over shards, so it
+runs whole on every spatial peer (`runs_whole`), as the JAX package's
+partitioner re-replicates them: it gathers its input's rows from the
+peers; its parameter gradients are then the same on every peer, and the
+step counts them once (train/cyclegan_step.py).
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from imagegeneration_tpu_torch.nn.layers import (
     ResBlock,
     reflection_pad_2d,
 )
+from imagegeneration_tpu_torch.parallel.halo import gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +87,7 @@ class Generator(nn.Module):
         for i, out in enumerate((base * 2, base * 4)):
             h = -(-h // 2)  # reflect-pad 1, 3x3 s2 VALID
             self.add_module(f"down{i}", Conv(feats, out, (3, 3), (2, 2), "VALID",
-                                             dtype=dt, generator=generator))
+                                             dtype=dt, generator=generator, halo_fed=True))
             self.add_module(f"down{i}_in", norm(out, h))
             feats = out
         for i in range(cfg.n_res_blocks):
@@ -86,12 +100,13 @@ class Generator(nn.Module):
             feats = out
         self.to_rgb = Conv(feats, 3, (7, 7), dtype=dt, generator=generator)
         self.to_rgb_in = norm(3, h)
+        self.group = None  # a spatial partition: images are the rank's rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.cfg.dtype)
         x = torch.relu(self.stem_in(self.stem_conv(x)))
         for i in range(2):
-            x = self.get_submodule(f"down{i}")(reflection_pad_2d(x, (1, 1)))
+            x = self.get_submodule(f"down{i}")(reflection_pad_2d(x, (1, 1), self.group))
             x = torch.relu(self.get_submodule(f"down{i}_in")(x))
         for i in range(self.cfg.n_res_blocks):
             x = self.get_submodule(f"res{i}")(x)
@@ -122,7 +137,11 @@ def _check_patch_input(h: int, w: int, before: int | None) -> None:
 
 
 class Discriminator(nn.Module):
-    """PatchGAN: (B, 3, H, W) -> (B, 1, h, w) patch logits, float32."""
+    """PatchGAN: (B, 3, H, W) -> (B, 1, h, w) patch logits, float32. Under a
+    spatial partition the input is the rank's rows, gathered to the whole
+    map first; the layers run without a group (`runs_whole`)."""
+
+    runs_whole = True
 
     def __init__(self, cfg: CycleGANConfig, generator: torch.Generator | None = None):
         super().__init__()
@@ -141,8 +160,11 @@ class Discriminator(nn.Module):
         _check_patch_input(h, w, None)
         self.head = Conv(feats, 1, (4, 4), (1, 1), "VALID", dtype=cfg.dtype,
                          generator=generator)
+        self.group = None  # a spatial partition: the input is the rank's rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is not None and self.group.sharded:
+            x = gather_rows(x, self.group)
         x = x.to(self.cfg.dtype)
         for i, (_, use_norm) in enumerate(DISC_TRUNK):
             _check_patch_input(x.shape[2], x.shape[3], i)
@@ -163,3 +185,11 @@ def make_models(
     gens = generators or [None] * 4
     return (Generator(cfg, gens[0]), Generator(cfg, gens[1]),
             Discriminator(cfg, gens[2]), Discriminator(cfg, gens[3]))
+
+
+def min_sharded_height(cfg: CycleGANConfig) -> int:
+    """Smallest spatially partitioned feature height: the generator's H/4
+    maps after its two stride-2 down convs, where the res blocks run (the
+    PatchGAN runs whole). Input to core/mesh.check_spatial_partition, as
+    the JAX package's CycleGAN engine passes it."""
+    return cfg.image_size[0] // 4

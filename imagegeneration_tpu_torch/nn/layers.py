@@ -47,7 +47,19 @@ the whole map (parallel/dp.py):
   flatten of an H-partitioned map) multiplies this rank's block of the
   input features by its block of the weight's columns and sums the
   partial products over the spatial peers (`dp.spatial_sum`), with the
-  bias added once, on spatial rank 0.
+  bias added once, on spatial rank 0;
+- InstanceNorm takes the whole map's statistics through the split kernels
+  (ops/instance_norm.py: partial sums, one all_gather, apply; backward
+  likewise around one all_reduce); its `quirk_axis1` form normalizes each
+  row alone, so it needs no collective and takes the rank's rows of its
+  per-row parameters;
+- a reflect pad (`reflection_pad_2d` with a group) takes its inner edge
+  rows from the neighbours (`reflect_halo`) and reflects only at the
+  global top and bottom; a VALID conv built with `halo_fed=True` then
+  tiles the padded block; every other VALID conv refuses a partition;
+- a module with `runs_whole = True` (the PatchGAN) gathers its input's
+  rows itself and runs whole on every spatial peer: `partition` leaves
+  its layers without a group.
 
 Not ported: the phase/hybrid/packed/swapdw ConvTranspose lowerings of the
 JAX package, which work around TPU XLA; cuDNN lowers the transposed conv
@@ -62,6 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagegeneration_tpu_torch.core.mesh import spatial_row_range
 from imagegeneration_tpu_torch.ops.instance_norm import instance_norm
 from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.parallel.halo import halo
@@ -118,10 +131,32 @@ def keras_random_uniform_(
         return t.uniform_(-0.05, 0.05, generator=generator)
 
 
-def reflection_pad_2d(x: torch.Tensor, padding: tuple[int, int] = (1, 1)) -> torch.Tensor:
+def reflect_halo(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """This rank's (B, C, h, W) block of an H-partitioned map with `n` rows
+    above and below as a REFLECT pad of the whole map has them: the
+    neighbours' rows at inner edges (`halo`), the block's own rows n ... 1
+    above the global top and h-2 ... h-1-n below the global bottom."""
+    y = halo(x, n, n, group)
+    top, bottom = group.s == 0, group.s == group.spatial - 1
+    if not (top or bottom):
+        return y
+    h = x.shape[2]
+    if n >= h:
+        raise ValueError(f"a reflect pad of {n} rows needs more than {n} rows per shard")
+    parts = [x[:, :, 1:n + 1].flip(2) if top else y[:, :, :n], y[:, :, n:n + h],
+             x[:, :, h - 1 - n:h - 1].flip(2) if bottom else y[:, :, n + h:]]
+    return torch.cat(parts, 2)
+
+
+def reflection_pad_2d(x: torch.Tensor, padding: tuple[int, int] = (1, 1),
+                      group=None) -> torch.Tensor:
     """REFLECT-pad H and W of a (B, C, H, W) tensor; `padding` is (w, h), as
-    in the JAX package. The result is channels_last, like every activation."""
+    in the JAX package. With a spatially partitioned `group`, x is this
+    rank's block of rows and H is padded as the whole map (`reflect_halo`).
+    The result is channels_last, like every activation."""
     w_pad, h_pad = padding
+    if _spatial(group):
+        x, h_pad = reflect_halo(x, h_pad, group), 0
     y = F.pad(x, (w_pad, w_pad, h_pad, h_pad), mode="reflect")
     return y.contiguous(memory_format=torch.channels_last)
 
@@ -224,18 +259,27 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """2D conv, TF-SAME/VALID padding; weight (out, in, kh, kw)."""
+    """2D conv, TF-SAME/VALID padding; weight (out, in, kh, kw).
+
+    `halo_fed=True` (a VALID conv only): under a spatial partition its
+    input is the rank's block already padded with kh - 1 halo rows
+    (`reflection_pad_2d` with a group), so the VALID conv tiles it: the
+    block's own rows must keep the stride's phase."""
 
     def __init__(
         self, in_features: int, features: int, kernel_size: tuple[int, int],
         strides: tuple[int, int] = (1, 1), padding: str = "SAME",
         use_bias: bool = True, dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None, kernel_init: str = "glorot_uniform",
+        halo_fed: bool = False,
     ) -> None:
         super().__init__()
         kh, kw = kernel_size
+        if halo_fed and padding != "VALID":
+            raise ValueError("halo_fed=True is for a VALID conv")
         self.strides = tuple(strides)
         self.padding = padding
+        self.halo_fed = halo_fed
         self.dtype = dtype
         self.weight = conv_weight((features, in_features, kh, kw), generator, kernel_init)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -244,8 +288,15 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
+        group = self.group
+        if self.halo_fed and _spatial(group):
+            own = x.shape[2] - (self.weight.shape[2] - 1)
+            if own % self.strides[0]:
+                raise ValueError(f"a shard of {own} rows breaks the stride-{self.strides[0]} "
+                                 "phase")
+            group = None  # the padded block is this rank's whole input
         return conv2d_same(x.to(dt), self.weight.to(dt), b, self.strides,
-                           self.padding, self.group)
+                           self.padding, group)
 
 
 class ConvTranspose(nn.Module):
@@ -360,11 +411,15 @@ def partition(module: nn.Module, group) -> None:
     """Set `group` (a core.mesh.DataGroup; None: this process's whole batch
     and maps) on every layer of `module` that takes one: BatchNorms take
     global statistics, and under a spatial partition the convs exchange
-    halos, the sharded-input Dense heads sum over the spatial peers and the
-    models cut their maps to the rank's rows."""
-    for m in module.modules():
-        if hasattr(m, "group"):
-            m.group = group
+    halos, the sharded-input Dense heads sum over the spatial peers, the
+    InstanceNorms reduce over them and the models cut their maps to the
+    rank's rows. Inside a module with `runs_whole = True`, which gathers
+    its input's rows itself, the layers get None."""
+    if hasattr(module, "group"):
+        module.group = group
+    inner = None if getattr(module, "runs_whole", False) else group
+    for child in module.children():
+        partition(child, inner)
 
 
 class InstanceNorm(nn.Module):
@@ -376,7 +431,11 @@ class InstanceNorm(nn.Module):
     `quirk_axis1=True` reproduces the reference's `axis=1` on NHWC, which
     treats H as the channel axis: each H-slice is normalized over (W, C),
     with per-H parameters of shape (H, 1, 1) (the flax shape), in plain
-    torch. That form needs the input height at construction."""
+    torch. That form needs the input height at construction.
+
+    Under a spatial partition (`group`) the statistics are the whole map's
+    (the split kernels); the quirk form takes the rank's rows of its per-H
+    parameters."""
 
     def __init__(
         self, features: int, quirk_axis1: bool = False, height: int | None = None,
@@ -391,19 +450,22 @@ class InstanceNorm(nn.Module):
         shape = (height, 1, 1) if quirk_axis1 else (features,)
         self.scale = nn.Parameter(keras_random_uniform_(torch.empty(shape), generator))
         self.bias = nn.Parameter(keras_random_uniform_(torch.empty(shape), generator))
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
         if not self.quirk_axis1:
-            return instance_norm(x, self.scale, self.bias, self.epsilon).to(out_dtype)
+            return instance_norm(x, self.scale, self.bias, self.epsilon,
+                                 group=self.group).to(out_dtype)
         ct = torch.promote_types(x.dtype, torch.float32)
         x32 = x.to(ct)
         dims = (1, 3)  # (C, W) of NCHW: the (W, C) of the JAX NHWC axes
         mean = x32.mean(dims, keepdim=True)
         var = torch.square(x32 - mean).mean(dims, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
-        h = self.scale.shape[0]
-        y = y * self.scale.to(ct).view(1, 1, h, 1) + self.bias.to(ct).view(1, 1, h, 1)
+        rows = slice(*spatial_row_range(self.group, self.scale.shape[0]))
+        scale, bias = self.scale[rows].to(ct), self.bias[rows].to(ct)
+        y = y * scale.view(1, 1, -1, 1) + bias.view(1, 1, -1, 1)
         return y.to(out_dtype)
 
 

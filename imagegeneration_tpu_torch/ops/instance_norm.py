@@ -31,6 +31,32 @@ launch; the kernels only check it.
 A CPU tensor takes the plain versions below, which mirror `_in_fwd_xla` and
 `_in_bwd_xla` expression by expression; a CUDA tensor launches the kernels
 or raises. `LAUNCHES` counts kernel launches.
+
+Under a spatial partition (`instance_norm(..., group=...)` with a
+core.mesh.DataGroup whose spatial factor is > 1) x is this rank's block of
+rows of each map, and a (sample, channel) plane is spread over the spatial
+peers. The norm is then split around one collective in each direction
+(`_SplitInstanceNorm`), with four kernels of the same source:
+
+    forward:  in_fwd_partial: per (b, c), this shard's sum x and centred
+                sum (x - m_local)^2 over its rows -> (B, C, 2) float32
+              all_gather over the spatial group -> (S, B, C, 2)
+              in_fwd_apply: the S partials merged by Chan's formula (equal
+                shard sizes) into the whole plane's mean and var, as the
+                two-pass jnp.var sees it; y on this shard's rows; the merged
+                mean and rstd saved for the backward
+    backward: in_bwd_partial: per (b, c), this shard's sum g and sum g*xhat
+                (g = dy * gamma, dy masked by the ReLU) -> (B, C, 2); per c,
+                this shard's dgamma and dbeta summed over its samples
+              all_reduce of the (B, C, 2) sums over the spatial group
+              in_bwd_apply: dx = rstd * (g - sum g / N - xhat * sum g*xhat / N),
+                N = H * W of the whole map
+
+dgamma and dbeta need no spatial reduce: they are parameter gradients,
+which the step sums over the world and divides by the data size
+(parallel/dp.py). The partials stay float32 under bfloat16 (float64 in the
+CPU parity tests). `SPLIT_LAUNCHES` counts the split kernels' launches;
+`group.counts` counts the collectives ("norm_gather", "norm_all_reduce").
 """
 
 from __future__ import annotations
@@ -40,10 +66,14 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 from imagegeneration_tpu_torch.ops import native
 
 LAUNCHES = {"instance_norm_fwd": 0, "instance_norm_bwd": 0}
+SPLIT_LAUNCHES = {"instance_norm_fwd_partial": 0, "instance_norm_fwd_apply": 0,
+                  "instance_norm_bwd_partial": 0, "instance_norm_bwd_apply": 0}
 
 _SPATIAL = (2, 3)
 
@@ -71,19 +101,24 @@ def in_fwd_plain(
     return y.to(x.dtype), mean, rstd
 
 
+def _masked(x, dy, gamma, beta, mean, rstd, relu):
+    """(xhat, dy masked by the ReLU) in promote_types(x.dtype, float32)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xhat = (x.to(ct) - _per_channel(mean)) * _per_channel(rstd)
+    dy = dy.to(ct)
+    if relu:
+        pre = xhat * _per_channel(gamma.to(ct)) + _per_channel(beta.to(ct))
+        dy = dy * (pre > 0)
+    return xhat, dy
+
+
 def in_bwd_plain(
     x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     mean: torch.Tensor, rstd: torch.Tensor, relu: bool,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dgamma, dbeta): dx in x's dtype (the cast of the JAX `_in_bwd`),
     dgamma and dbeta (C,) in float32."""
-    ct = torch.promote_types(x.dtype, torch.float32)
-    x32 = x.to(ct)
-    dy = dy.to(ct)
-    xhat = (x32 - _per_channel(mean)) * _per_channel(rstd)
-    if relu:
-        pre = xhat * _per_channel(gamma.to(ct)) + _per_channel(beta.to(ct))
-        dy = dy * (pre > 0)
+    xhat, dy = _masked(x, dy, gamma, beta, mean, rstd, relu)
     dbeta = dy.sum((0, 2, 3))
     dgamma = (dy * xhat).sum((0, 2, 3))
     g = dy * _per_channel(gamma.to(torch.float32))
@@ -91,6 +126,67 @@ def in_bwd_plain(
     mean_gx = (g * xhat).mean(_SPATIAL, keepdim=True)
     dx = _per_channel(rstd) * (g - mean_g - xhat * mean_gx)
     return dx.to(x.dtype), dgamma, dbeta
+
+
+# ------------------------------------------------ plain version, split form
+def in_fwd_partial_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, 2) in promote_types(x.dtype, float32): per (sample, channel),
+    the shard's sum of x and its sum of squares about the shard's own
+    mean, over the shard's rows."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(ct)
+    s = x32.sum(_SPATIAL)
+    centered = x32 - _per_channel(s / (x.shape[2] * x.shape[3]))
+    return torch.stack([s, (centered * centered).sum(_SPATIAL)], -1)
+
+
+def in_fwd_apply_plain(
+    x: torch.Tensor, parts: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    eps: float, relu: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, mean, rstd) of this shard from the (S, B, C, 2) partials of the
+    S equal shards of each map (Chan's formula): mean = sum sums / N, var =
+    (sum m2 + n * sum (sums / n - mean)^2) / N, n = h * W, N = S * n."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(ct)
+    n = x.shape[2] * x.shape[3]
+    total = n * parts.shape[0]
+    sums, m2 = parts[..., 0], parts[..., 1]
+    mean = sums.sum(0) / total
+    delta = sums / n - mean
+    var = (m2.sum(0) + n * (delta * delta).sum(0)) / total
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - _per_channel(mean)) * _per_channel(rstd)
+    y = xhat * _per_channel(gamma.to(ct)) + _per_channel(beta.to(ct))
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype), mean, rstd
+
+
+def in_bwd_partial_plain(
+    x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    mean: torch.Tensor, rstd: torch.Tensor, relu: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sums, dgamma, dbeta): sums (B, C, 2) = sum g and sum g * xhat over
+    the shard's rows (g = dy * gamma); dgamma and dbeta (C,) over the
+    shard's samples and rows."""
+    xhat, dy = _masked(x, dy, gamma, beta, mean, rstd, relu)
+    g = dy * _per_channel(gamma.to(torch.float32))  # the JAX `_in_bwd_xla`'s cast
+    sums = torch.stack([g.sum(_SPATIAL), (g * xhat).sum(_SPATIAL)], -1)
+    return sums, (dy * xhat).sum((0, 2, 3)), dy.sum((0, 2, 3))
+
+
+def in_bwd_apply_plain(
+    x: torch.Tensor, dy: torch.Tensor, sums: torch.Tensor, gamma: torch.Tensor,
+    beta: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, relu: bool, total: int,
+) -> torch.Tensor:
+    """dx of this shard in x's dtype, from `sums` (B, C, 2) over the whole
+    map of `total` = H * W elements per plane."""
+    xhat, dy = _masked(x, dy, gamma, beta, mean, rstd, relu)
+    g = dy * _per_channel(gamma.to(torch.float32))
+    mean_g, mean_gx = sums[..., 0] / total, sums[..., 1] / total
+    dx = _per_channel(rstd) * (g - _per_channel(mean_g) - xhat * _per_channel(mean_gx))
+    return dx.to(x.dtype)
 
 
 # -------------------------------------------------------------- launch plan
@@ -184,6 +280,39 @@ def launch_plan(
                       ctas=b * blocks * k)
 
 
+APPLY_UNROLL = 4  # rows per thread of an apply pass
+
+
+@dataclasses.dataclass(frozen=True)
+class ApplyPlan:
+    """How an apply pass covers a (B, C, h, W) shard: a plain grid of
+    (`chunks`, `blocks`, B) CTAs, each taking `rows` consecutive rows of
+    h*W and `channel_block` channels, `vec` per load (the channel block
+    and vec of `launch_plan`)."""
+
+    vec: int
+    channel_block: int
+    blocks: int
+    chunks: int
+    rows: int
+    ctas: int
+
+    def args(self) -> list[int]:
+        """The entry-point arguments: cb, vec, chunks, rows."""
+        return [self.channel_block, self.vec, self.chunks, self.rows]
+
+
+def apply_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype) -> ApplyPlan:
+    """APPLY_UNROLL rows per thread: a CTA of 256 threads takes 256 / (cb /
+    vec) row slots times that."""
+    base = launch_plan(b, c, h, w, dtype, 1, cluster=1)
+    lanes = base.channel_block // base.vec
+    rows = (256 // lanes) * APPLY_UNROLL
+    chunks = -(-(h * w) // rows)
+    return ApplyPlan(vec=base.vec, channel_block=base.channel_block, blocks=base.blocks,
+                     chunks=chunks, rows=rows, ctas=chunks * base.blocks * b)
+
+
 # ------------------------------------------------------------------- kernel
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INTS = [ctypes.c_int] * 8  # B, H*W, C, then the plan (LaunchPlan.args)
@@ -201,6 +330,20 @@ def _lib() -> ctypes.CDLL:
         bwd = getattr(lib, f"in_bwd_{suffix}")
         bwd.restype = ctypes.c_int
         bwd.argtypes = [ctypes.c_void_p] * 11 + _INTS + [ctypes.c_int, ctypes.c_void_p]
+        fwd_partial = getattr(lib, f"in_fwd_partial_{suffix}")
+        fwd_partial.restype = ctypes.c_int
+        fwd_partial.argtypes = [ctypes.c_void_p] * 2 + _INTS + [ctypes.c_void_p]
+        bwd_partial = getattr(lib, f"in_bwd_partial_{suffix}")
+        bwd_partial.restype = ctypes.c_int
+        bwd_partial.argtypes = [ctypes.c_void_p] * 11 + _INTS + [ctypes.c_int, ctypes.c_void_p]
+        fwd_apply = getattr(lib, f"in_fwd_apply_{suffix}")
+        fwd_apply.restype = ctypes.c_int
+        fwd_apply.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        bwd_apply = getattr(lib, f"in_bwd_apply_{suffix}")
+        bwd_apply.restype = ctypes.c_int
+        bwd_apply.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.in_active_clusters.restype = ctypes.c_int
     lib.in_active_clusters.argtypes = [ctypes.c_int] * 9
     return lib
@@ -315,6 +458,104 @@ def in_bwd_kernel(
     return dx, dgamma, dbeta
 
 
+def in_fwd_partial_kernel(x: torch.Tensor, plan: LaunchPlan | None = None) -> torch.Tensor:
+    _check_activation("x", x, x)
+    b, c, h, w = x.shape
+    plan = plan or launch_plan(b, c, h, w, x.dtype, 1)
+    _check_aligned(plan, x)
+    lib = _lib()
+    partial = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    rc = getattr(lib, f"in_fwd_partial_{_DTYPES[x.dtype]}")(
+        x.data_ptr(), partial.data_ptr(), b, h * w, c, *plan.args(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    native.check(lib, "in_error_string", rc, "instance_norm partial forward")
+    SPLIT_LAUNCHES["instance_norm_fwd_partial"] += 1
+    return partial
+
+
+def in_fwd_apply_kernel(
+    x: torch.Tensor, parts: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    eps: float, relu: bool, plan: ApplyPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_activation("x", x, x)
+    b, c, h, w = x.shape
+    _check_vector("parts", parts, x, (parts.shape[0], b, c, 2))
+    _check_vector("gamma", gamma, x, (c,))
+    _check_vector("beta", beta, x, (c,))
+    plan = plan or apply_plan(b, c, h, w, x.dtype)
+    _check_aligned(plan, x)
+    lib = _lib()
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    rc = getattr(lib, f"in_fwd_apply_{_DTYPES[x.dtype]}")(
+        x.data_ptr(), parts.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), b, h * w, c, *plan.args(), parts.shape[0], eps,
+        int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+    native.check(lib, "in_error_string", rc, "instance_norm apply forward")
+    SPLIT_LAUNCHES["instance_norm_fwd_apply"] += 1
+    return y, mean, rstd
+
+
+def in_bwd_partial_kernel(
+    x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    mean: torch.Tensor, rstd: torch.Tensor, relu: bool, plan: LaunchPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_activation("x", x, x)
+    _check_activation("dy", dy, x)
+    b, c, h, w = x.shape
+    _check_vector("gamma", gamma, x, (c,))
+    _check_vector("beta", beta, x, (c,))
+    _check_vector("mean", mean, x, (b, c))
+    _check_vector("rstd", rstd, x, (b, c))
+    plan = plan or launch_plan(b, c, h, w, x.dtype, 2)
+    _check_aligned(plan, x, dy)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device)
+    sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    partials = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    tickets = _tickets(x.device, stream, plan.blocks)
+    rc = getattr(lib, f"in_bwd_partial_{_DTYPES[x.dtype]}")(
+        x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), sums.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        partials.data_ptr(), tickets.data_ptr(), b, h * w, c, *plan.args(), int(relu),
+        stream.cuda_stream)
+    native.check(lib, "in_error_string", rc, "instance_norm partial backward")
+    SPLIT_LAUNCHES["instance_norm_bwd_partial"] += 1
+    return sums, dgamma, dbeta
+
+
+def in_bwd_apply_kernel(
+    x: torch.Tensor, dy: torch.Tensor, sums: torch.Tensor, gamma: torch.Tensor,
+    beta: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, relu: bool, total: int,
+    plan: ApplyPlan | None = None,
+) -> torch.Tensor:
+    _check_activation("x", x, x)
+    _check_activation("dy", dy, x)
+    b, c, h, w = x.shape
+    _check_vector("sums", sums, x, (b, c, 2))
+    _check_vector("gamma", gamma, x, (c,))
+    _check_vector("beta", beta, x, (c,))
+    _check_vector("mean", mean, x, (b, c))
+    _check_vector("rstd", rstd, x, (b, c))
+    if total % (h * w) or total >= 2**24:
+        raise ValueError(f"instance_norm apply: {total} elements per plane is not a whole "
+                         f"number of {h * w}-element shards below 2**24")
+    plan = plan or apply_plan(b, c, h, w, x.dtype)
+    _check_aligned(plan, x, dy)
+    lib = _lib()
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    rc = getattr(lib, f"in_bwd_apply_{_DTYPES[x.dtype]}")(
+        x.data_ptr(), dy.data_ptr(), sums.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), b, h * w, c, *plan.args(),
+        float(total), int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+    native.check(lib, "in_error_string", rc, "instance_norm apply backward")
+    SPLIT_LAUNCHES["instance_norm_bwd_apply"] += 1
+    return dx
+
+
 # ------------------------------------------------------------------ wrapper
 def in_fwd(x, gamma, beta, eps: float, relu: bool):
     """Forward: the plain version for a CPU tensor, else the kernel."""
@@ -328,6 +569,81 @@ def in_bwd(x, dy, gamma, beta, mean, rstd, relu: bool):
     if x.device.type == "cpu":
         return in_bwd_plain(x, dy, gamma, beta, mean, rstd, relu)
     return in_bwd_kernel(x, dy, gamma, beta, mean, rstd, relu)
+
+
+def in_fwd_partial(x):
+    """Split forward, partial pass: the plain version for a CPU tensor, else
+    the kernel."""
+    if x.device.type == "cpu":
+        return in_fwd_partial_plain(x)
+    return in_fwd_partial_kernel(x)
+
+
+def in_fwd_apply(x, parts, gamma, beta, eps: float, relu: bool):
+    """Split forward, apply pass: the plain version for a CPU tensor, else
+    the kernel."""
+    if x.device.type == "cpu":
+        return in_fwd_apply_plain(x, parts, gamma, beta, eps, relu)
+    return in_fwd_apply_kernel(x, parts, gamma, beta, eps, relu)
+
+
+def in_bwd_partial(x, dy, gamma, beta, mean, rstd, relu: bool):
+    """Split backward, partial pass: the plain version for a CPU tensor,
+    else the kernel."""
+    if x.device.type == "cpu":
+        return in_bwd_partial_plain(x, dy, gamma, beta, mean, rstd, relu)
+    return in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, relu)
+
+
+def in_bwd_apply(x, dy, sums, gamma, beta, mean, rstd, relu: bool, total: int):
+    """Split backward, apply pass: the plain version for a CPU tensor, else
+    the kernel."""
+    if x.device.type == "cpu":
+        return in_bwd_apply_plain(x, dy, sums, gamma, beta, mean, rstd, relu, total)
+    return in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd, relu, total)
+
+
+def gather_partials(part: torch.Tensor, group) -> torch.Tensor:
+    """The spatial peers' (B, C, 2) partials, (S, B, C, 2) in peer order:
+    one all_gather_into_tensor over the spatial group."""
+    out = part.new_empty((group.spatial * part.shape[0], *part.shape[1:]))
+    dist.all_gather_into_tensor(out, part.contiguous(), group=group.pg_of("spatial"))
+    group.counts["norm_gather"] += 1
+    return out.view(group.spatial, *part.shape)
+
+
+def sum_over_peers(sums: torch.Tensor, group) -> torch.Tensor:
+    """The (B, C, 2) split sums summed over the spatial peers: one
+    all_reduce over the spatial group (in place)."""
+    dist.all_reduce(sums, group=group.pg_of("spatial"))
+    group.counts["norm_all_reduce"] += 1
+    return sums
+
+
+class _SplitInstanceNorm(torch.autograd.Function):
+    """The norm of an H-partitioned map (module docstring): partial ->
+    all_gather -> apply, and backward partial -> all_reduce -> apply.
+    Differentiable once: its backward is not differentiable again (the
+    CycleGAN step has no gradient penalty)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, relu, group):
+        parts = gather_partials(in_fwd_partial(x), group)
+        y, mean, rstd = in_fwd_apply(x, parts, gamma, beta, eps, relu)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.relu, ctx.group = relu, group
+        ctx.total = parts.shape[0] * x.shape[2] * x.shape[3]
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        dy = dy.contiguous(memory_format=torch.channels_last)
+        sums, dgamma, dbeta = in_bwd_partial(x, dy, gamma, beta, mean, rstd, ctx.relu)
+        sums = sum_over_peers(sums, ctx.group)
+        dx = in_bwd_apply(x, dy, sums, gamma, beta, mean, rstd, ctx.relu, ctx.total)
+        return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, None, None
 
 
 class _InstanceNorm(torch.autograd.Function):
@@ -348,12 +664,16 @@ class _InstanceNorm(torch.autograd.Function):
 
 def instance_norm(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-    eps: float = 1e-3, relu: bool = False,
+    eps: float = 1e-3, relu: bool = False, group=None,
 ) -> torch.Tensor:
     """Per-(sample, channel) instance norm over (H, W) with affine (+ReLU).
 
     x: (B, C, H, W), float32 or bfloat16 (any layout; computed in
     channels_last). gamma, beta: (C,) float32. Returns y in x's dtype,
-    channels_last."""
+    channels_last. With a spatially partitioned `group`, x is this rank's
+    block of rows of each map and the statistics are the whole map's (the
+    split form)."""
     x = x.contiguous(memory_format=torch.channels_last)
+    if group is not None and group.sharded:
+        return _SplitInstanceNorm.apply(x, gamma, beta, eps, relu, group)
     return _InstanceNorm.apply(x, gamma, beta, eps, relu)

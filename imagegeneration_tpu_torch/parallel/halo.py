@@ -26,6 +26,13 @@ spatial peer: with 2 spatial ranks, exactly a neighbour-to-neighbour
 exchange.
 
 Each exchange, either direction, counts one in `group.counts["halo"]`.
+
+`gather_rows(x, group)` is the other movement of rows: the whole map from
+every spatial peer's block, for a model that runs whole on each peer (the
+CycleGAN PatchGAN, whose VALID maps do not tile). Its backward keeps the
+rank's own rows of the whole map's cotangent and sums nothing: every peer
+holds the same whole cotangent (the identity rule of dp.spatial_sum). It
+counts one in `group.counts["row_gather"]`.
 """
 
 from __future__ import annotations
@@ -120,3 +127,28 @@ def halo(x: torch.Tensor, lo: int, hi: int, group: DataGroup) -> torch.Tensor:
     (zeros at the global edges): (B, C, lo + h + hi, W), channels_last.
     Differentiable, and so is its backward."""
     return _Halo.apply(x, lo, hi, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        xn = _nhwc(x).contiguous()
+        b, h, w, c = xn.shape
+        buf = xn.new_empty((group.spatial * b, h, w, c))  # the blocks along dim 0
+        dist.all_gather_into_tensor(buf, xn, group=group.pg_of("spatial"))
+        group.counts["row_gather"] += 1
+        whole = buf.view(group.spatial, b, h, w, c).transpose(0, 1)
+        return whole.reshape(b, group.spatial * h, w, c).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        h = g.shape[2] // ctx.group.spatial
+        return g[:, :, ctx.group.s * h:(ctx.group.s + 1) * h], None
+
+
+def gather_rows(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """The whole (B, C, spatial * h, W) map, channels_last, from every
+    spatial peer's (B, C, h, W) block, in row order. Backward: this rank's
+    rows of the cotangent, which every peer holds whole."""
+    return _GatherRows.apply(x, group)

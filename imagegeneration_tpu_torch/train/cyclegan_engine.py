@@ -33,9 +33,13 @@ engine, `batch_size` is global, rank 0 alone makes the scaffold (a barrier
 follows) and writes every artifact, every rank restores, the state is
 broadcast from rank 0 and its digest checked after every epoch, and the
 epoch's metrics are averaged over the ranks with one all-reduce.
-`host_sharded_data=True` with folders: each rank decodes only its shard of
-each domain's files; rank 0 prints once per epoch how many rows the epoch
-leaves out.
+`host_sharded_data=True` with folders: each data block decodes only its
+shard of each domain's files; rank 0 prints once per epoch how many rows
+the epoch leaves out. A group with a spatial factor > 1 trains
+H-partitioned (the JAX engine's `spatial=True`; `spatial=None` follows the
+group): the request is first held to core/mesh.check_spatial_partition at
+the generator's H/4 maps, before the engine touches its directory, and
+each rank takes its block of image rows of both domains (train/feed.py).
 """
 
 from __future__ import annotations
@@ -83,9 +87,19 @@ class CycleGANEngine:
         seed: int = rnglib.DEFAULT_MODEL_SEED,
         mesh=None,
         host_sharded_data: bool = False,
+        spatial: bool | None = None,
     ) -> None:
-        if mesh is not None:
-            meshlib.refuse_spatial(mesh.spatial)
+        w, h = image_size
+        self.cfg = steplib.CycleGANTrainConfig(
+            model=modellib.CycleGANConfig(
+                image_size=(h, w, 3), base_width=base_width,
+                n_res_blocks=n_res_blocks, quirk_axis1=quirk_axis1, dtype=dtype,
+            ),
+            batch_size=batch_size,
+            seed=seed,
+        )
+        meshlib.check_engine_spatial(mesh, spatial, modellib.min_sharded_height(self.cfg.model),
+                                     "cyclegan", h)
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
         if self.is_main:
@@ -95,8 +109,7 @@ class CycleGANEngine:
         self.path = path_like
         self.preview_output = path.join(path_like, "preview")
         self.device = torch.device(device)
-        w, h = image_size
-        shard = (mesh.rank, mesh.world) if host_sharded_data and mesh else None
+        shard = (mesh.d, mesh.data) if host_sharded_data and mesh else None
         if isinstance(dataset1_path, (str, os.PathLike)):
             dataset1_path = datalib.ImageFolderDataset(dataset1_path, (h, w), labeled=False,
                                                        shard=shard)
@@ -105,14 +118,6 @@ class CycleGANEngine:
                                                        shard=shard)
         self.loader = datalib.PairedDataset(dataset1_path, dataset2_path)
         self.batch_size = batch_size
-        self.cfg = steplib.CycleGANTrainConfig(
-            model=modellib.CycleGANConfig(
-                image_size=(h, w, 3), base_width=base_width,
-                n_res_blocks=n_res_blocks, quirk_axis1=quirk_axis1, dtype=dtype,
-            ),
-            batch_size=batch_size,
-            seed=seed,
-        )
         self.state = steplib.init_state(self.cfg, self.device)
         self.feed = feedlib.EpochFeed(
             [self.loader.ds_x, self.loader.ds_y], self.cfg, self.device, steplib, mesh)

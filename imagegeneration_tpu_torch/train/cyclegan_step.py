@@ -32,6 +32,21 @@ averaged over the ranks before each of the four Adam applies. InstanceNorm
 normalizes each sample alone, so the forward needs no collective; its dγ
 and dβ are summed over the rank's own samples and then averaged with the
 other gradients.
+
+Spatial partitioning (a group with spatial > 1; the JAX engine's
+`spatial=True`): both batches are the rank's block of image rows too, and
+the models are partitioned each step (nn/layers.partition): the
+generators run on the rows (halo exchanges, the split InstanceNorm), the
+PatchGANs gather their input's rows and run whole on every spatial peer
+(models/cyclegan.py). So:
+- the L1 terms are means over the whole image: each rank sums |a - b| over
+  its rows, `dp.spatial_sum`s the sum and divides by the whole count;
+- the BCE terms are taken on the PatchGANs' whole logits, equal on the
+  peers, as are all the metrics;
+- the PatchGANs' parameter gradients are the whole gradient on every peer,
+  so they are counted on spatial rank 0 only (`count_once`) before the
+  world sum; the generators' are each rank's part, summed over the world
+  and divided by the data size as for the other families.
 """
 
 from __future__ import annotations
@@ -43,6 +58,8 @@ import torch
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import cyclegan
+from imagegeneration_tpu_torch.nn.layers import partition
+from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.train import common
 
 LAMBDA = 10.0  # cyclegan/CycleGAN.py:186
@@ -110,19 +127,40 @@ def init_state(cfg: CycleGANTrainConfig, device: torch.device | str) -> CycleGAN
     )
 
 
-def _l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _sharded(group) -> bool:
+    return group is not None and group.sharded
+
+
+def _l1(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
+    """mean|a - b| over the whole image: under a spatial partition, this
+    rank's sum over its rows, summed over the spatial peers, over the whole
+    count."""
     dt = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
-    return torch.mean(torch.abs(a.to(dt) - b.to(dt)))
+    d = torch.abs(a.to(dt) - b.to(dt))
+    if not _sharded(group):
+        return torch.mean(d)
+    return dp.spatial_sum(d.sum().reshape(1), group)[0] / (d.numel() * group.spatial)
 
 
-def cycle_loss(real: torch.Tensor, cycled: torch.Tensor) -> torch.Tensor:
+def cycle_loss(real: torch.Tensor, cycled: torch.Tensor, group=None) -> torch.Tensor:
     """10 * mean|real - cycled| (CycleGAN.py:201-203)."""
-    return LAMBDA * _l1(real, cycled)
+    return LAMBDA * _l1(real, cycled, group)
 
 
-def identity_loss(real: torch.Tensor, same: torch.Tensor) -> torch.Tensor:
+def identity_loss(real: torch.Tensor, same: torch.Tensor, group=None) -> torch.Tensor:
     """5 * mean|real - same| (CycleGAN.py:206-208)."""
-    return LAMBDA * 0.5 * _l1(real, same)
+    return LAMBDA * 0.5 * _l1(real, same, group)
+
+
+def count_once(grads, group) -> list:
+    """The gradients of a model that every spatial peer runs whole (the
+    PatchGAN) are the whole gradient on each peer: kept on spatial rank 0
+    and zeroed elsewhere (in place), so that the world sum counts them
+    once. Exact, as is the Dense heads' bias rule (nn/layers.dense)."""
+    grads = list(grads)
+    if _sharded(group):
+        torch._foreach_mul_(grads, float(group.s == 0))
+    return grads
 
 
 def discriminator_loss(logits_real: torch.Tensor, logits_fake: torch.Tensor) -> torch.Tensor:
@@ -141,8 +179,9 @@ def generator_adv_loss(logits_fake: torch.Tensor) -> torch.Tensor:
 def make_train_step(cfg: CycleGANTrainConfig, group=None):
     """Build `train_step(state, batch_x_u8, batch_y_u8) -> (state, metrics)`.
     Batches: (B, H, W, C) uint8 on the state's device (with a group, this
-    rank's rows of the global batches). Metrics are 0-d float32 device
-    tensors, keyed by METRIC_KEYS."""
+    rank's rows of the global batches, and under a spatial partition its
+    image rows). Metrics are 0-d float32 device tensors, keyed by
+    METRIC_KEYS."""
     dt = cfg.model.dtype
 
     def train_step(state: CycleGANState, batch_x_u8: torch.Tensor,
@@ -150,6 +189,8 @@ def make_train_step(cfg: CycleGANTrainConfig, group=None):
         real_x = normalize(batch_x_u8, dt).permute(0, 3, 1, 2)
         real_y = normalize(batch_y_u8, dt).permute(0, 3, 1, 2)
         g_g, g_f, d_x, d_y = state.gen_g, state.gen_f, state.disc_x, state.disc_y
+        for model in (g_g, g_f, d_x, d_y):
+            partition(model, group)
 
         fake_y = g_g(real_x)
         cycled_x = g_f(fake_y)
@@ -165,9 +206,9 @@ def make_train_step(cfg: CycleGANTrainConfig, group=None):
 
         gen_g_loss = generator_adv_loss(disc_fake_y)
         gen_f_loss = generator_adv_loss(disc_fake_x)
-        total_cycle = cycle_loss(real_x, cycled_x) + cycle_loss(real_y, cycled_y)
-        id_g = identity_loss(real_y, same_y)
-        id_f = identity_loss(real_x, same_x)
+        total_cycle = cycle_loss(real_x, cycled_x, group) + cycle_loss(real_y, cycled_y, group)
+        id_g = identity_loss(real_y, same_y, group)
+        id_f = identity_loss(real_x, same_x, group)
         total_gen_g = gen_g_loss + total_cycle + id_g
         total_gen_f = gen_f_loss + total_cycle + id_f
         disc_x_loss = discriminator_loss(disc_real_x, disc_fake_x)
@@ -177,7 +218,7 @@ def make_train_step(cfg: CycleGANTrainConfig, group=None):
         dx, dy = list(d_x.parameters()), list(d_y.parameters())
         gg_grads = torch.autograd.grad(total_gen_g, gg, retain_graph=True)
         gf_grads = torch.autograd.grad(total_gen_f, gf, retain_graph=True)
-        d_grads = torch.autograd.grad(disc_x_loss + disc_y_loss, dx + dy)
+        d_grads = count_once(torch.autograd.grad(disc_x_loss + disc_y_loss, dx + dy), group)
 
         lr, b1 = cfg.learning_rate, cfg.beta1
         common.adam_apply(gg, gg_grads, state.gg_opt, lr, b1=b1, group=group)
@@ -201,7 +242,9 @@ def make_translators():
     def translator(attr: str):
         @torch.no_grad()
         def translate(state: CycleGANState, x: torch.Tensor) -> torch.Tensor:
-            return getattr(state, attr)(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            gen = getattr(state, attr)
+            partition(gen, None)  # whole images on this process alone
+            return gen(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
         return translate
 

@@ -232,10 +232,13 @@ def test_engine_resident_and_streaming_agree(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_mesh_and_profile_flags(tmp_path, capsys):
-    # data parallelism is ported (tests/test_torch_dp.py); what stays refused:
-    # the spatial axis and --profile (not ported), host sharding without
-    # ranks, and more ranks than visible cards, which is never shrunk
-    for flags, says in ((["--mesh-spatial", "2"], "not ported"), (["--profile"], "not ported"),
+    # data and spatial parallelism are ported (tests/test_torch_dp.py,
+    # tests/test_torch_spatial_cyclegan.py); what stays refused: a spatial
+    # partition the guard refuses (16 rows: 1 row per shard of 4 at H/4),
+    # --profile (not ported), host sharding without ranks, and more ranks
+    # than visible cards, which is never shrunk
+    for flags, says in ((["--mesh-spatial", "4", "--height", "16"], "WRONG below 2"),
+                        (["--profile"], "not ported"),
                         (["--host-sharded-data"], "needs --mesh-data")):
         with pytest.raises(SystemExit):
             cyclegan_trainer.main(["1", "1", "-d", str(tmp_path), *flags])

@@ -66,7 +66,7 @@ bound above), only rank 0 writing and both ranks resuming; host-sharded
 WGAN and CycleGAN engines (each rank decodes only its block of the files,
 both reach the same batch count, and the rows left out are reported once
 per epoch); a trainer CLI with `--device cpu --mesh-data 2`; the spatial
-refusals (CycleGAN's, and the guard's) and the too-many-ranks one;
+refusals (the guard's) and the too-many-ranks one;
 tools/dryrun_multichip with n = 2.
 """
 
@@ -138,8 +138,6 @@ def test_process_row_range_and_refusals():
     assert meshlib.process_row_range(None, 8) == (0, 8)
     with pytest.raises(ValueError, match="not divisible"):
         meshlib.process_row_range(group, 5)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        meshlib.refuse_spatial(2)  # CycleGAN's; SNDCGAN and WGAN take a spatial axis
     with pytest.raises(RuntimeError, match="initialized process group"):
         meshlib.make_mesh(meshlib.MeshConfig(data=2, spatial=2), torch.device("cpu"))
     # more ranks than cards (none on a CPU-only host): refused, never shrunk
@@ -702,18 +700,19 @@ def test_trainer_cli_runs_two_cpu_ranks(tmp_path):
 
 @pytest.mark.parametrize("trainer", ["sndcgan_trainer", "wgan_trainer", "cyclegan_trainer"])
 def test_trainer_clis_refuse_spatial_and_missing_cards(trainer, tmp_path, capsys):
-    """CycleGAN refuses any spatial axis; SNDCGAN and WGAN refuse what the
-    guard refuses (16 rows: 1 row per shard at H/8; tests/test_torch_spatial.py
-    trains the accepted ones)."""
+    """Each trainer refuses what the guard refuses at 16 rows: 1 row per
+    shard of 2 at H/8 (SNDCGAN, WGAN), of 4 at H/4 (CycleGAN);
+    tests/test_torch_spatial.py trains the accepted ones."""
     import importlib
 
     cli = importlib.import_module(f"imagegeneration_tpu_torch.cli.{trainer}")
     base = ["4", "1", "-d", str(tmp_path / "run")]
+    spatial = "4" if trainer == "cyclegan_trainer" else "2"
     with pytest.raises(SystemExit):
-        cli.main(base + ["--mesh-data", "2", "--mesh-spatial", "2", "--device", "cpu",
+        cli.main(base + ["--mesh-data", "2", "--mesh-spatial", spatial, "--device", "cpu",
                          "--height", "16", "--width", "16"])
     err = capsys.readouterr().err
-    assert ("not ported" if trainer == "cyclegan_trainer" else "WRONG below 2") in err
+    assert "WRONG below 2" in err
     if torch.cuda.device_count() < 2:  # --device cuda: refused, never shrunk
         with pytest.raises(RuntimeError, match="need 2 cards"):
             cli.main(base + ["--mesh-data", "2"])

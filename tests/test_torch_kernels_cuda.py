@@ -403,6 +403,78 @@ def test_instance_norm_kernels_are_deterministic(cuda, shape):
         assert torch.equal(a, b)
 
 
+# The split pair of an H-partitioned map, its shards simulated in one
+# process: (4, 64, 16, 33) the 16-byte path, (2, 6, 18, 33) and (1, 3, 12, 5)
+# the scalar path (C not a multiple of 4), with 2 and 3 row blocks.
+@pytest.mark.parametrize("shards", [2, 3])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 64, 18, 33), (2, 6, 18, 33), (1, 3, 12, 5)])
+def test_split_instance_norm_kernels_match_plain(cuda, shape, dtype, relu, shards):
+    """Each split kernel against its plain version on the same inputs, and
+    the shards together against the single-pass kernels on the whole map."""
+    x, dy, gamma, beta = in_inputs(cuda, shape, dtype)
+    xs = [t.contiguous(memory_format=torch.channels_last) for t in x.chunk(shards, 2)]
+    dys = [t.contiguous(memory_format=torch.channels_last) for t in dy.chunk(shards, 2)]
+    before = dict(inorm.SPLIT_LAUNCHES)
+    parts = []
+    for xb in xs:
+        got = inorm.in_fwd_partial_kernel(xb)
+        assert_in_close(got, inorm.in_fwd_partial_plain(xb), 2e-5, xb.shape[2] * xb.shape[3])
+        parts.append(got)
+    parts = torch.stack(parts)
+    ys = []
+    for xb in xs:
+        y, mean, rstd = inorm.in_fwd_apply_kernel(xb, parts, gamma, beta, 1e-3, relu)
+        yp, meanp, rstdp = inorm.in_fwd_apply_plain(xb, parts, gamma, beta, 1e-3, relu)
+        assert_in_close(y, yp, 2e-5)
+        assert_in_close(mean, meanp, 1e-5)
+        assert_in_close(rstd, rstdp, 1e-5)
+        ys.append(y)
+    sums, dgs, dbs = 0, 0, 0
+    for xb, db in zip(xs, dys):
+        sm, dg, dbt = inorm.in_bwd_partial_kernel(xb, db, gamma, beta, mean, rstd, relu)
+        smp, dgp, dbp = inorm.in_bwd_partial_plain(xb, db, gamma, beta, mean, rstd, relu)
+        n = xb.shape[2] * xb.shape[3]
+        assert_in_close(sm, smp, 2e-5, n)
+        assert_in_close(dg, dgp, 2e-5, xb.shape[0] * n)
+        assert_in_close(dbt, dbp, 2e-5, xb.shape[0] * n)
+        sums, dgs, dbs = sums + sm, dgs + dg, dbs + dbt
+    total = shape[2] * shape[3]
+    dxs = []
+    for xb, db in zip(xs, dys):
+        dx = inorm.in_bwd_apply_kernel(xb, db, sums, gamma, beta, mean, rstd, relu, total)
+        assert_in_close(dx, inorm.in_bwd_apply_plain(xb, db, sums, gamma, beta, mean, rstd,
+                                                     relu, total), 2e-5)
+        dxs.append(dx)
+    yw, meanw, rstdw = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, relu)
+    dxw, dgw, dbw = inorm.in_bwd_kernel(x, dy, gamma, beta, mean, rstd, relu)
+    assert_in_close(torch.cat(ys, 2), yw, 2e-5)
+    assert_in_close(mean, meanw, 1e-5)
+    assert_in_close(rstd, rstdw, 1e-5)
+    assert_in_close(torch.cat(dxs, 2), dxw, 2e-5)
+    n = shape[0] * total
+    assert_in_close(dgs, dgw, 2e-5, n)
+    assert_in_close(dbs, dbw, 2e-5, n)
+    assert inorm.SPLIT_LAUNCHES == {k: v + shards for k, v in before.items()}
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 16, 32), (4, 3, 16, 32)])
+def test_split_instance_norm_on_one_shard_is_the_single_pass_pair(cuda, shape):
+    """One shard: the partials are the single-pass kernels' cluster sums
+    and the applies their last pass, so every output is bit-equal."""
+    x, dy, gamma, beta = in_inputs(cuda, shape, torch.float32)
+    y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, True)
+    dx, dg, db = inorm.in_bwd_kernel(x, dy, gamma, beta, mean, rstd, True)
+    y1, mean1, rstd1 = inorm.in_fwd_apply_kernel(x, inorm.in_fwd_partial_kernel(x)[None],
+                                                 gamma, beta, 1e-3, True)
+    sums, dg1, db1 = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, True)
+    dx1 = inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd, True,
+                                    shape[2] * shape[3])
+    for a, b in ((y1, y), (mean1, mean), (rstd1, rstd), (dx1, dx), (dg1, dg), (db1, db)):
+        assert torch.equal(a, b)
+
+
 def test_instance_norm_kernel_refuses_a_bad_plan(cuda):
     """The kernels check the plan they are given: a cluster that leaves a
     CTA without rows is a CUDA invalid-value error, and nothing is counted."""

@@ -28,8 +28,10 @@ and reduces over named groups (parallel/dp.py). Here:
 - the guard (core/mesh.check_spatial_partition) accepts and refuses what
   the JAX guard does, the environment override included, and the models'
   `min_sharded_height` is the JAX one;
-- the SNDCGAN trainer trains an epoch with `--mesh-data 1 --mesh-spatial 2`
-  on the CPU, and the CycleGAN trainer refuses `--mesh-spatial 2`.
+- the SNDCGAN and CycleGAN trainers train an epoch with `--mesh-data 1
+  --mesh-spatial 2` on the CPU, and the CycleGAN trainer refuses what the
+  guard refuses (tests/test_torch_spatial_cyclegan.py holds the CycleGAN
+  spatial step against JAX).
 
 Workers are module-level functions of this module or of
 tests/test_torch_dp.py, whose helpers this module reuses; both import JAX
@@ -438,13 +440,27 @@ def test_wgan_trainer_refuses_what_the_guard_refuses(argv, message, tmp_path, ca
 
 
 def test_cyclegan_trainer_refuses_spatial(tmp_path, capsys):
+    """The CycleGAN trainer refuses what the guard refuses (16 rows: 1 row
+    per shard of 4 at H/4) and trains an epoch on 2 spatial ranks at 96x96
+    (the CLI's default model: base 64, 9 res blocks; ~7 s here)."""
     from imagegeneration_tpu_torch.cli import cyclegan_trainer
 
     with pytest.raises(SystemExit):
-        cyclegan_trainer.main(["4", "1", "-d", str(tmp_path / "run"), "--device", "cpu",
-                               "--mesh-data", "1", "--mesh-spatial", "2"])
-    err = capsys.readouterr().err
-    assert "CycleGAN slice" in err and "not ported" in err
+        cyclegan_trainer.main(["4", "1", "-d", str(tmp_path / "refused"), "--device", "cpu",
+                               "--mesh-data", "1", "--mesh-spatial", "4", "--height", "16",
+                               "--width", "16"])
+    assert "WRONG below 2" in capsys.readouterr().err
+    for domain, seed in (("x", 1), ("y", 2)):
+        _write_folder(str(tmp_path / domain), 2, seed, size=(100, 100))
+    out = tmp_path / "run"
+    cyclegan_trainer.main(["2", "1", "-x", str(tmp_path / "x"), "-y", str(tmp_path / "y"),
+                           "-d", str(out), "-c", "1", "--height", "96", "--width", "96",
+                           "--device", "cpu", "--mesh-data", "1", "--mesh-spatial", "2"])
+    with open(out / "perf.jsonl") as f:
+        perf = [json.loads(line) for line in f]
+    assert len(perf) == 1 and perf[0]["ranks"] == 2 and perf[0]["images_per_sec"] > 0
+    assert (out / "models" / "generator_g" / "gen_weights_g-0.msgpack").exists()
+    assert (out / "checkpoints").is_dir() and not (tmp_path / "refused").exists()
 
 
 def test_dryrun_multichip_data_by_spatial():

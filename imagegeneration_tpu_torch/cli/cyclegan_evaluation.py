@@ -105,7 +105,7 @@ def main_eval(
     from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig, Generator
 
     device = platform.require_cuda() if device is None else torch.device(device)
-    platform.configure_numerics(deterministic=True)
+    platform.configure_numerics()
     h, w, _ = generator_image_dim
     ds = ImageFolderDataset(samples_path, (h, w), labeled=False)
     batch_u8 = ds.images[ds.permutation(0)[:min(sample_size, len(ds))]]

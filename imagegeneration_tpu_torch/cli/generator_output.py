@@ -65,7 +65,7 @@ def _fixed_z(batch_size: int, z_size: int, seed: int) -> np.ndarray:
 def _generator(base_width: int, image_size, z_size: int, device) -> Generator:
     """A generator to load epochs into, on `device` (None: the card)."""
     device = platform.require_cuda() if device is None else torch.device(device)
-    platform.configure_numerics(deterministic=True)
+    platform.configure_numerics()
     cfg = SNDCGANConfig(image_size=tuple(image_size), z_size=z_size, base_width=base_width)
     return Generator(cfg, torch.Generator()).to(device)  # weights loaded next
 

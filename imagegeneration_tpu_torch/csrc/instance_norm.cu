@@ -54,6 +54,11 @@
 // the launch, the cluster barrier of each exchange, and the ticket's round
 // trips through L2 form a chain that data of a few MB does not hide.
 //
+// The split form of a map H-partitioned over spatial ranks (the section
+// "split passes" below; ops/instance_norm._SplitInstanceNorm) has four
+// more kernels on plain grids: a forward partial and apply, a backward
+// partial and apply, around one collective each way.
+//
 // The ReLU mask and the normalized values are evaluated with explicitly
 // rounded intrinsics (no FMA contraction), in the order of the plain
 // version, so that given the same mean and rstd the backward's mask is the
@@ -203,37 +208,38 @@ __device__ __forceinline__ Source<T> source(const Plan& p, const Geom<V>& g, boo
   return {global + g.base, p.c, 0};
 }
 
-// f(r, a_r) over this thread's rows in increasing order, kUnroll loads of
-// `a` in flight at a time (two-source form below: f(r, a_r, b_r)).
+// f(r, a_r) over this thread's rows in increasing order, U (kUnroll unless
+// given) loads of `a` in flight at a time (two-source form below: f(r, a_r,
+// b_r)).
 constexpr int kUnroll = 4;
 
-template <typename T, int V, typename F>
+template <int U = kUnroll, typename T, int V, typename F>
 __device__ __forceinline__ void each_row(const Geom<V>& g, const Source<T>& a, F&& f) {
-  for (int r0 = g.row0 + g.slot; r0 < g.row1; r0 += kUnroll * g.slots) {
-    Pack<T, V> va[kUnroll];
+  for (int r0 = g.row0 + g.slot; r0 < g.row1; r0 += U * g.slots) {
+    Pack<T, V> va[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
+    for (int u = 0; u < U; ++u)
       if (r0 + u * g.slots < g.row1) va[u] = load_pack<T, V>(a.row(r0 + u * g.slots));
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
+    for (int u = 0; u < U; ++u)
       if (r0 + u * g.slots < g.row1) f(r0 + u * g.slots, va[u]);
   }
 }
 
-template <typename T, int V, typename F>
+template <int U = kUnroll, typename T, int V, typename F>
 __device__ __forceinline__ void each_row(const Geom<V>& g, const Source<T>& a,
                                          const Source<T>& b, F&& f) {
-  for (int r0 = g.row0 + g.slot; r0 < g.row1; r0 += kUnroll * g.slots) {
-    Pack<T, V> va[kUnroll], vb[kUnroll];
+  for (int r0 = g.row0 + g.slot; r0 < g.row1; r0 += U * g.slots) {
+    Pack<T, V> va[U], vb[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       if (r0 + u * g.slots < g.row1) {
         va[u] = load_pack<T, V>(a.row(r0 + u * g.slots));
         vb[u] = load_pack<T, V>(b.row(r0 + u * g.slots));
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
+    for (int u = 0; u < U; ++u)
       if (r0 + u * g.slots < g.row1) f(r0 + u * g.slots, va[u], vb[u]);
   }
 }
@@ -315,17 +321,12 @@ __device__ __forceinline__ void cluster_totals(const cg::cluster_group& cl, floa
   __syncthreads();
 }
 
-// kPartial: passes 1 and 2 only, for a shard of an H-partitioned map; the
-// sum and the centred sum of squares of each (sample, channel) over the
-// shard's rows go to partial[(b * C + c) * 2 + {0, 1}] (the apply pass
-// merges the spatial peers' partials), and y, mean and rstd are not
-// written.
-template <typename T, int V, bool kPartial>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     in_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, T* __restrict__ y,
-                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                  float* __restrict__ partial, Plan p, float eps, int relu) {
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out, Plan p,
+                  float eps, int relu) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kRed];
   __shared__ float part[2 * kMaxChannelBlock];
@@ -336,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
   T* cache = reinterpret_cast<T*>(smem);
   const float n = static_cast<float>(p.hw);
   float gm[V] = {}, bt[V] = {};
-  if (!kPartial && g.ch < p.c) {
+  if (g.ch < p.c) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       gm[j] = gamma[g.ch + j];
@@ -374,19 +375,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   cta_sums<V, 1>(q, p.cb, red, part + p.cb);
   cluster_totals(cl, part + p.cb, tot + p.cb, p.cb, p.k);
-  if constexpr (kPartial) {
-    if (rank == 0 && g.active && g.slot == 0) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int64_t at = (static_cast<int64_t>(blockIdx.z) * p.c + g.ch + j) * 2;
-        partial[at] = tot[g.lane * V + j];
-        partial[at + 1] = tot[p.cb + g.lane * V + j];
-      }
-    }
-    cluster_arrive(p.k);
-    cluster_wait(p.k);
-    return;
-  }
   float rstd[V];
 #pragma unroll
   for (int j = 0; j < V; ++j)
@@ -417,18 +405,33 @@ __global__ void __launch_bounds__(kThreads)
   cluster_wait(p.k);  // no CTA leaves while another may read its shared memory
 }
 
-// kPartial: pass 1 and the batch sums only, for a shard of an H-partitioned
-// map; split[(b * C + c) * 2 + {0, 1}] gets gamma * sum dy' and gamma *
-// sum dy' * xhat over the shard's rows (sum g and sum g * xhat; the apply
-// pass takes them summed over the spatial peers), and dx is not written.
-template <typename T, int V, bool kPartial>
+// The backward's per-thread sums over one row: sums[j] += dy', sums[V + j]
+// += dy' * xhat, dy' masked by the ReLU rebuilt from xhat. The single-pass
+// kernel and the split partial both add their rows through it, in the same
+// order, so that one shard's sums are the single-pass kernel's bits.
+template <typename T, int V>
+__device__ __forceinline__ void bwd_add(float (&sums)[2 * V], const Pack<T, V>& xv,
+                                        const Pack<T, V>& dv, const float (&mean)[V],
+                                        const float (&rstd)[V], const float (&gm)[V],
+                                        const float (&bt)[V], int relu) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float xhat = normalized(to_f32(xv.v[j]), mean[j], rstd[j]);
+    float d = to_f32(dv.v[j]);
+    if (relu && !(affine(xhat, gm[j], bt[j]) > 0.f)) d = 0.f;
+    sums[j] += d;
+    sums[V + j] += d * xhat;
+  }
+}
+
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
                   const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
                   T* __restrict__ dx, float* __restrict__ dgamma, float* __restrict__ dbeta,
-                  float* __restrict__ partials, unsigned int* __restrict__ tickets,
-                  float* __restrict__ split, Plan p, int batch, int relu) {
+                  float* __restrict__ partials, unsigned int* __restrict__ tickets, Plan p,
+                  int batch, int relu) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kRed];
   __shared__ float part[2 * kMaxChannelBlock];
@@ -460,14 +463,7 @@ __global__ void __launch_bounds__(kThreads)
   float sums[2 * V] = {};  // sum dy' of each channel, then sum dy' * xhat
   if (g.active) {
     each_row(g, xs, ds, [&](int, const Pack<T, V>& xv, const Pack<T, V>& dv) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float xhat = normalized(to_f32(xv.v[j]), mean[j], rstd[j]);
-        float d = to_f32(dv.v[j]);
-        if (relu && !(affine(xhat, gm[j], bt[j]) > 0.f)) d = 0.f;
-        sums[j] += d;
-        sums[V + j] += d * xhat;
-      }
+      bwd_add(sums, xv, dv, mean, rstd, gm, bt, relu);
     });
   }
   cta_sums<V, 2>(sums, p.cb, red, part);
@@ -496,19 +492,8 @@ __global__ void __launch_bounds__(kThreads)
       ticket = atomicInc(&tickets[blockIdx.y], static_cast<unsigned int>(batch - 1));
   }
 
-  if constexpr (kPartial) {
-    if (rank == 0 && threadIdx.x < p.cb) {
-      const int ch = blockIdx.y * p.cb + threadIdx.x;
-      if (ch < p.c) {
-        const int64_t at = (static_cast<int64_t>(blockIdx.z) * p.c + ch) * 2;
-        split[at] = __fmul_rn(tot[threadIdx.x], gamma[ch]);
-        split[at + 1] = __fmul_rn(tot[p.cb + threadIdx.x], gamma[ch]);
-      }
-    }
-  }
-
   // Pass 2: dx, with mean(g) = gamma * sum_d / HW, mean(g*xhat) likewise.
-  if (!kPartial && g.active) {
+  if (g.active) {
     const float n = static_cast<float>(p.hw);
     float mean_g[V], mean_gx[V];
 #pragma unroll
@@ -599,62 +584,231 @@ Plan make_plan(int hw, int c, int cb, int cluster, int rows) {
   return Plan{hw, c, cb, cluster, rows, 0};
 }
 
-template <typename T, int V, bool kPartial>
+template <typename T, int V>
 int launch_fwd(const void* x, const void* gamma, const void* beta, void* y, void* mean,
-               void* rstd, void* partial, int b, Plan p, int smem, float eps, int relu,
-               void* stream) {
+               void* rstd, int b, Plan p, int smem, float eps, int relu, void* stream) {
   cudaError_t e = check_plan(p, b, V, 1, sizeof(T), smem);
-  if (e == cudaSuccess) e = prepare(in_fwd_kernel<T, V, kPartial>, p, smem);
+  if (e == cudaSuccess) e = prepare(in_fwd_kernel<T, V>, p, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   Launch l(p, b, smem, stream);
-  e = cudaLaunchKernelEx(&l.cfg, in_fwd_kernel<T, V, kPartial>, static_cast<const T*>(x),
+  e = cudaLaunchKernelEx(&l.cfg, in_fwd_kernel<T, V>, static_cast<const T*>(x),
                          static_cast<const float*>(gamma), static_cast<const float*>(beta),
                          static_cast<T*>(y), static_cast<float*>(mean),
-                         static_cast<float*>(rstd), static_cast<float*>(partial), p, eps,
-                         relu);
+                         static_cast<float*>(rstd), p, eps, relu);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V, bool kPartial>
+template <typename T, int V>
 int launch_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
                const void* mean, const void* rstd, void* dx, void* dgamma, void* dbeta,
-               void* partials, void* tickets, void* split, int b, Plan p, int smem, int relu,
+               void* partials, void* tickets, int b, Plan p, int smem, int relu,
                void* stream) {
   cudaError_t e = check_plan(p, b, V, 2, sizeof(T), smem);
-  if (e == cudaSuccess) e = prepare(in_bwd_kernel<T, V, kPartial>, p, smem);
+  if (e == cudaSuccess) e = prepare(in_bwd_kernel<T, V>, p, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   Launch l(p, b, smem, stream);
-  e = cudaLaunchKernelEx(&l.cfg, in_bwd_kernel<T, V, kPartial>, static_cast<const T*>(x),
+  e = cudaLaunchKernelEx(&l.cfg, in_bwd_kernel<T, V>, static_cast<const T*>(x),
                          static_cast<const T*>(dy), static_cast<const float*>(gamma),
                          static_cast<const float*>(beta), static_cast<const float*>(mean),
                          static_cast<const float*>(rstd), static_cast<T*>(dx),
                          static_cast<float*>(dgamma), static_cast<float*>(dbeta),
                          static_cast<float*>(partials),
-                         static_cast<unsigned int*>(tickets), static_cast<float*>(split), p,
-                         b, relu);
+                         static_cast<unsigned int*>(tickets), p, b, relu);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------------ apply passes
-// The elementwise passes of the split norm, on a shard of an H-partitioned
-// map, once the spatial peers' statistics are known. A plain grid of
-// (row chunks, channel blocks, samples), no cluster: a CTA takes `rows`
-// consecutive rows (p.rows; p.k chunks cover the shard's p.hw rows) of its
-// sample and its block's cb channels, and a thread moves V channels per
-// load, as in the kernels above. Bound: bytes (forward: read x, write y;
-// backward: read x and dy, write dx).
+// ------------------------------------------------------------ split passes
+// The split norm of a shard of an H-partitioned map: plain grids of (row
+// chunks, channel blocks, samples), no cluster. A CTA takes `rows`
+// consecutive rows (p.rows; p.k chunks cover the shard's p.hw rows, the
+// last one possibly shorter) of its sample and its block's cb channels, and
+// a thread moves V channels per load, as in the kernels above.
+//
+// The partial passes read 1-8 MB at the CycleGAN generator's shards, which
+// the card streams in 1-5 us: what sets their time is the chain from
+// launch to exit (a design built from the single-pass kernels' cluster
+// passes spent it on a shared-memory fill, cluster barriers and a ticket
+// chain).
+// - Forward partial: one read of x straight into registers, kHold rows a
+//   thread, every load issued before the first is used (the plan cuts the
+//   rows into chunks short enough); then the CTA's sum, its mean, and the
+//   centred sum of squares about that mean from the registers (two-pass,
+//   as jnp.var, within the chunk). No shared-memory copy, no cluster, no
+//   second read, no wait on another CTA: each chunk's (sum, M2) is written
+//   as it is, (k, B, C, 2), and the forward apply merges the S x k chunks
+//   of the spatial peers by Chan's formula, in a fixed order.
+// - Backward partial: one read of x and dy, kDeep rows of each in flight a
+//   thread, no staging; each CTA's sum dy' and sum dy' xhat go to a scratch
+//   row, and the last CTA of a channel block to take a ticket (one
+//   atomicInc after a release fence; the counter wraps back to 0) adds the
+//   chunks of each (sample, channel) in chunk order, and the samples in
+//   sample order for dgamma/dbeta: the single-pass kernel's orders, so one
+//   shard at its plan gives its bits. No float atomics: two calls give the
+//   same bits.
+// The applies are bound by bytes (forward: read x, write y; backward: read
+// x and dy, write dx).
+constexpr int kHold = 16;         // rows a thread of the forward partial holds
+constexpr int kDeep = 8;          // rows of x and dy a backward-partial thread has in flight
+constexpr int kTicketBatch = 32;  // samples the backward partial's last CTA adds per round
 
-// cudaErrorInvalidValue unless this source can run an apply plan.
-cudaError_t check_apply_plan(const Plan& p, int b, int vec) {
+// cudaErrorInvalidValue unless this source can run a plain-grid plan of
+// the split passes; a partial pass (`partial`) also reduces over its CTA,
+// so its vector path needs a warp to hold whole row segments (as
+// check_plan), and the forward partial (`hold`) every row of a thread in
+// registers.
+cudaError_t check_grid_plan(const Plan& p, int b, int vec, bool partial, bool hold) {
+  const int lanes = p.cb / vec;  // vec is 1 or 16 bytes' worth (with_vec)
   const bool ok =
       b >= 1 && p.hw >= 1 && p.c >= 1 && p.cb >= vec && p.cb <= kMaxChannelBlock &&
-      p.cb % vec == 0 && p.cb / vec <= kThreads && (vec == 1 || p.c % p.cb == 0) &&
+      p.cb % vec == 0 && lanes <= kThreads && (vec == 1 || p.c % p.cb == 0) &&
       p.k >= 1 && p.k <= 65535 && p.rows >= 1 &&
       static_cast<int64_t>(p.rows) * p.k >= p.hw &&
-      static_cast<int64_t>(p.rows) * (p.k - 1) < p.hw;
+      static_cast<int64_t>(p.rows) * (p.k - 1) < p.hw &&
+      (!partial || vec == 1 || 32 % lanes == 0) &&
+      (!hold || p.rows <= (kThreads / lanes) * kHold);
   return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Forward partial: parts[((chunk * B + b) * C + c) * 2 + {0, 1}] = the sum
+// of x and the sum of (x - m)^2 over the chunk's rows of (b, c), m the
+// chunk's own mean.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    in_fwd_partial_kernel(const T* __restrict__ x, float* __restrict__ parts, Plan p,
+                          int batch) {
+  __shared__ float red[kRed];
+  __shared__ float stat[2 * kMaxChannelBlock];
+  const Geom<V> g = geom<V>(p, blockIdx.x);
+  Pack<T, V> v[kHold];
+#pragma unroll
+  for (int u = 0; u < kHold; ++u) {
+    const int r = g.row0 + g.slot + u * g.slots;
+    if (g.active && r < g.row1) v[u] = load_pack<T, V>(x + g.base + static_cast<int64_t>(r) * p.c);
+  }
+  float s[V] = {};
+#pragma unroll
+  for (int u = 0; u < kHold; ++u) {
+    if (g.active && g.row0 + g.slot + u * g.slots < g.row1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] += to_f32(v[u].v[j]);
+    }
+  }
+  cta_sums<V, 1>(s, p.cb, red, stat);
+  const float n = static_cast<float>(g.row1 - g.row0);
+  float mean[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) mean[j] = __fdiv_rn(stat[g.lane * V + j], n);
+  float q[V] = {};
+#pragma unroll
+  for (int u = 0; u < kHold; ++u) {
+    if (g.active && g.row0 + g.slot + u * g.slots < g.row1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = __fsub_rn(to_f32(v[u].v[j]), mean[j]);
+        q[j] = __fadd_rn(q[j], __fmul_rn(d, d));
+      }
+    }
+  }
+  cta_sums<V, 1>(q, p.cb, red, stat + p.cb);
+  if (threadIdx.x < p.cb) {
+    const int ch = blockIdx.y * p.cb + threadIdx.x;
+    if (ch < p.c) {
+      const int64_t at =
+          ((static_cast<int64_t>(blockIdx.x) * batch + blockIdx.z) * p.c + ch) * 2;
+      parts[at] = stat[threadIdx.x];
+      parts[at + 1] = stat[p.cb + threadIdx.x];
+    }
+  }
+}
+
+// Backward partial: split[(b * C + c) * 2 + {0, 1}] = gamma * sum dy' and
+// gamma * sum dy' * xhat over the shard's rows (sum g and sum g * xhat; the
+// apply takes them summed over the spatial peers); dgamma, dbeta (C,) the
+// shard's own, summed over its samples. chunks (k, B, C, 2) is scratch.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    in_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+                          float* __restrict__ split, float* __restrict__ dgamma,
+                          float* __restrict__ dbeta, float* __restrict__ chunks,
+                          unsigned int* __restrict__ tickets, Plan p, int batch, int relu) {
+  __shared__ float red[kRed];
+  __shared__ float part[2 * kMaxChannelBlock];
+  __shared__ float tot[2 * kTicketBatch * kMaxChannelBlock];
+  __shared__ unsigned int ticket;
+  const Geom<V> g = geom<V>(p, blockIdx.x);
+  const int64_t s_idx = static_cast<int64_t>(blockIdx.z) * p.c + g.ch;
+  float mean[V] = {}, rstd[V] = {}, gm[V] = {}, bt[V] = {};
+  if (g.ch < p.c) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mean[j] = mean_in[s_idx + j];
+      rstd[j] = rstd_in[s_idx + j];
+      gm[j] = gamma[g.ch + j];
+      bt[j] = beta[g.ch + j];
+    }
+  }
+  float sums[2 * V] = {};  // sum dy' of each channel, then sum dy' * xhat
+  if (g.active) {
+    const Source<T> xs{x + g.base, p.c, 0}, ds{dy + g.base, p.c, 0};
+    each_row<kDeep>(g, xs, ds, [&](int, const Pack<T, V>& xv, const Pack<T, V>& dv) {
+      bwd_add(sums, xv, dv, mean, rstd, gm, bt, relu);
+    });
+  }
+  cta_sums<V, 2>(sums, p.cb, red, part);
+  if (threadIdx.x < p.cb) {
+    const int ch = blockIdx.y * p.cb + threadIdx.x;
+    if (ch < p.c) {
+      const int64_t at =
+          ((static_cast<int64_t>(blockIdx.x) * batch + blockIdx.z) * p.c + ch) * 2;
+      chunks[at] = part[threadIdx.x];
+      chunks[at + 1] = part[p.cb + threadIdx.x];
+    }
+  }
+  __threadfence();  // this CTA's chunk row is visible before its ticket
+  __syncthreads();
+  const unsigned int last = static_cast<unsigned int>(p.k * batch - 1);
+  if (threadIdx.x == 0) ticket = atomicInc(&tickets[blockIdx.y], last);
+  __syncthreads();
+  if (ticket != last) return;
+  __threadfence();
+
+  // The last CTA of the channel block: per (sample, channel) the chunks in
+  // chunk order, then per channel the samples in sample order.
+  float sb = 0.f, sg = 0.f;
+  for (int b0 = 0; b0 < batch; b0 += kTicketBatch) {
+    const int nb = min(kTicketBatch, batch - b0);
+    for (int i = threadIdx.x; i < nb * p.cb; i += kThreads) {
+      const int b = b0 + i / p.cb, lc = i % p.cb, ch = blockIdx.y * p.cb + lc;
+      if (ch >= p.c) continue;
+      float t0 = 0.f, t1 = 0.f;
+      for (int j = 0; j < p.k; ++j) {
+        const int64_t at = ((static_cast<int64_t>(j) * batch + b) * p.c + ch) * 2;
+        t0 += __ldcg(chunks + at);
+        t1 += __ldcg(chunks + at + 1);
+      }
+      const int64_t at = (static_cast<int64_t>(b) * p.c + ch) * 2;
+      split[at] = __fmul_rn(t0, gamma[ch]);
+      split[at + 1] = __fmul_rn(t1, gamma[ch]);
+      tot[(i / p.cb) * 2 * kMaxChannelBlock + lc] = t0;
+      tot[(i / p.cb) * 2 * kMaxChannelBlock + kMaxChannelBlock + lc] = t1;
+    }
+    __syncthreads();
+    if (threadIdx.x < p.cb) {
+      for (int b = 0; b < nb; ++b) {
+        sb += tot[b * 2 * kMaxChannelBlock + threadIdx.x];
+        sg += tot[b * 2 * kMaxChannelBlock + kMaxChannelBlock + threadIdx.x];
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < p.cb && blockIdx.y * p.cb + threadIdx.x < p.c) {
+    dbeta[blockIdx.y * p.cb + threadIdx.x] = sb;
+    dgamma[blockIdx.y * p.cb + threadIdx.x] = sg;
+  }
 }
 
 dim3 apply_grid(const Plan& p, int b) {
@@ -663,12 +817,13 @@ dim3 apply_grid(const Plan& p, int b) {
               static_cast<unsigned int>(b));
 }
 
-// Forward apply: merge the `shards` partials of each (sample, channel)
-// (parts is (shards, B, C, 2), shard s's sum and centred sum of squares over
-// its p.hw rows) into the whole map's statistics by Chan's formula for equal
-// counts n = p.hw, N = shards * n:
-//   mean = sum_s sum_s / N
-//   var  = (sum_s m2_s + n * sum_s (sum_s / n - mean)^2) / N
+// Forward apply: merge the S x k chunk partials of each (sample, channel)
+// (parts is (S, k, B, C, 2): shard s's chunk j, the forward partial's sum and
+// centred sum of squares over its n_j rows, n_j = min(ceil(hw / k), hw - j *
+// ceil(hw / k)) of the shard's hw) into the whole map's statistics by Chan's
+// formula, N = S * hw, in a fixed order (G threads a channel, below):
+//   mean = sum_q sum_q / N
+//   var  = sum_q (m2_q + n_q (sum_q / n_q - mean)^2) / N
 // then y = (x - mean) * rstd * gamma + beta (+ReLU) on this shard's rows;
 // the CTAs of row chunk 0 write mean and rstd (B, C).
 template <typename T, int V>
@@ -677,28 +832,44 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ gamma, const float* __restrict__ beta,
                         T* __restrict__ y, float* __restrict__ mean_out,
                         float* __restrict__ rstd_out, Plan p, int batch, int shards,
-                        float eps, int relu) {
+                        int splits, float eps, int relu) {
   __shared__ float stat[2 * kMaxChannelBlock];
-  if (threadIdx.x < p.cb) {
-    const int ch = blockIdx.y * p.cb + threadIdx.x;
-    if (ch < p.c) {
-      const float n = static_cast<float>(p.hw);
-      const float total = __fmul_rn(n, static_cast<float>(shards));
-      const int64_t stride = static_cast<int64_t>(batch) * p.c * 2;
-      const float* at = parts + (static_cast<int64_t>(blockIdx.z) * p.c + ch) * 2;
-      float sum = 0.f;
-      for (int r = 0; r < shards; ++r) sum = __fadd_rn(sum, at[r * stride]);
-      const float mean = __fdiv_rn(sum, total);
-      float m2 = 0.f, dev = 0.f;
-      for (int r = 0; r < shards; ++r) {
-        const float d = __fsub_rn(__fdiv_rn(at[r * stride], n), mean);
-        m2 = __fadd_rn(m2, at[r * stride + 1]);
-        dev = __fadd_rn(dev, __fmul_rn(d, d));
+  // G threads a channel (a power of two, G * cb <= kThreads), lanes of one
+  // warp: thread g of a group adds the parts q = g, g + G, ... in order,
+  // then the group adds across by xor shuffles, which leave the same bits
+  // in every lane; every thread runs the shuffles (full mask).
+  {
+    int G = 32;
+    while (G * p.cb > kThreads) G >>= 1;
+    const int lc = threadIdx.x / G, q0 = threadIdx.x % G;
+    const int ch = blockIdx.y * p.cb + lc;
+    const bool mine = lc < p.cb && ch < p.c;
+    const float total = __fmul_rn(static_cast<float>(p.hw), static_cast<float>(shards));
+    const int prow = (p.hw + splits - 1) / splits;
+    const int nparts = shards * splits;
+    const int64_t stride = static_cast<int64_t>(batch) * p.c * 2;
+    const float* at = parts + (static_cast<int64_t>(blockIdx.z) * p.c + (mine ? ch : 0)) * 2;
+    float sum = 0.f;
+    if (mine) {
+      for (int q = q0; q < nparts; q += G) sum = __fadd_rn(sum, at[q * stride]);
+    }
+    for (int off = G / 2; off > 0; off >>= 1)
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+    const float mean = __fdiv_rn(sum, total);
+    float m2 = 0.f;
+    if (mine) {
+      for (int q = q0; q < nparts; q += G) {
+        const float n = static_cast<float>(min(prow, p.hw - (q % splits) * prow));
+        const float d = __fsub_rn(__fdiv_rn(at[q * stride], n), mean);
+        m2 = __fadd_rn(m2, __fadd_rn(at[q * stride + 1], __fmul_rn(n, __fmul_rn(d, d))));
       }
-      const float var = __fdiv_rn(__fadd_rn(m2, __fmul_rn(n, dev)), total);
-      const float rstd = rsqrtf(__fadd_rn(var, eps));
-      stat[threadIdx.x] = mean;
-      stat[kMaxChannelBlock + threadIdx.x] = rstd;
+    }
+    for (int off = G / 2; off > 0; off >>= 1)
+      m2 = __fadd_rn(m2, __shfl_xor_sync(0xffffffffu, m2, off));
+    if (mine && q0 == 0) {
+      const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(m2, total), eps));
+      stat[lc] = mean;
+      stat[kMaxChannelBlock + lc] = rstd;
       if (blockIdx.x == 0) {
         mean_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = mean;
         rstd_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = rstd;
@@ -773,14 +944,42 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int V>
 int launch_fwd_apply(const void* x, const void* parts, const void* gamma, const void* beta,
                      void* y, void* mean, void* rstd, int b, const Plan& p, int shards,
-                     float eps, int relu, void* stream) {
-  cudaError_t e = check_apply_plan(p, b, V);
-  if (e == cudaSuccess && shards < 1) e = cudaErrorInvalidValue;
+                     int splits, float eps, int relu, void* stream) {
+  cudaError_t e = check_grid_plan(p, b, V, false, false);
+  if (e == cudaSuccess && (shards < 1 || splits < 1 || splits > p.hw))
+    e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
   in_fwd_apply_kernel<T, V><<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(parts),
       static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), p, b, shards, eps, relu);
+      static_cast<float*>(mean), static_cast<float*>(rstd), p, b, shards, splits, eps, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_fwd_partial(const void* x, void* parts, int b, const Plan& p, void* stream) {
+  cudaError_t e = check_grid_plan(p, b, V, true, true);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  in_fwd_partial_kernel<T, V>
+      <<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<float*>(parts), p, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_bwd_partial(const void* x, const void* dy, const void* gamma, const void* beta,
+                       const void* mean, const void* rstd, void* split, void* dgamma,
+                       void* dbeta, void* chunks, void* tickets, int b, const Plan& p,
+                       int relu, void* stream) {
+  cudaError_t e = check_grid_plan(p, b, V, true, false);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  in_bwd_partial_kernel<T, V>
+      <<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(dy),
+          static_cast<const float*>(gamma), static_cast<const float*>(beta),
+          static_cast<const float*>(mean), static_cast<const float*>(rstd),
+          static_cast<float*>(split), static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+          static_cast<float*>(chunks), static_cast<unsigned int*>(tickets), p, b, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -788,7 +987,7 @@ template <typename T, int V>
 int launch_bwd_apply(const void* x, const void* dy, const void* sums, const void* gamma,
                      const void* beta, const void* mean, const void* rstd, void* dx, int b,
                      const Plan& p, float total, int relu, void* stream) {
-  cudaError_t e = check_apply_plan(p, b, V);
+  cudaError_t e = check_grid_plan(p, b, V, false, false);
   if (e != cudaSuccess) return static_cast<int>(e);
   in_bwd_apply_kernel<T, V><<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const float*>(sums),
@@ -822,8 +1021,8 @@ template <typename T>
 int clusters_of(int bwd, int vec, const Plan& p, int smem) {
   return with_vec<T>(vec, [&](auto v) {
     constexpr int V = decltype(v)::value;
-    return bwd ? active_clusters(in_bwd_kernel<T, V, false>, p, smem)
-               : active_clusters(in_fwd_kernel<T, V, false>, p, smem);
+    return bwd ? active_clusters(in_bwd_kernel<T, V>, p, smem)
+               : active_clusters(in_fwd_kernel<T, V>, p, smem);
   });
 }
 
@@ -838,9 +1037,8 @@ int clusters_of(int bwd, int vec, const Plan& p, int smem) {
                       int cluster, int rows, int smem, float eps, int relu, void* stream) { \
     const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
     return with_vec<T>(vec, [&](auto v) {                                                   \
-      return launch_fwd<T, decltype(v)::value, false>(x, gamma, beta, y, mean, rstd,        \
-                                                      nullptr, b, p, smem, eps, relu,       \
-                                                      stream);                              \
+      return launch_fwd<T, decltype(v)::value>(x, gamma, beta, y, mean, rstd, b, p, smem,   \
+                                               eps, relu, stream);                          \
     });                                                                                     \
   }                                                                                         \
   int in_bwd_##SUFFIX(const void* x, const void* dy, const void* gamma, const void* beta,   \
@@ -850,41 +1048,39 @@ int clusters_of(int bwd, int vec, const Plan& p, int smem) {
                       void* stream) {                                                       \
     const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
     return with_vec<T>(vec, [&](auto v) {                                                   \
-      return launch_bwd<T, decltype(v)::value, false>(x, dy, gamma, beta, mean, rstd, dx,   \
-                                                      dgamma, dbeta, partials, tickets,     \
-                                                      nullptr, b, p, smem, relu, stream);   \
+      return launch_bwd<T, decltype(v)::value>(x, dy, gamma, beta, mean, rstd, dx, dgamma, \
+                                               dbeta, partials, tickets, b, p, smem, relu,  \
+                                               stream);                                     \
     });                                                                                     \
   }                                                                                         \
-  int in_fwd_partial_##SUFFIX(const void* x, void* partial, int b, int hw, int c, int cb,   \
-                              int vec, int cluster, int rows, int smem, void* stream) {     \
-    const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
+  int in_fwd_partial_##SUFFIX(const void* x, void* parts, int b, int hw, int c, int cb,     \
+                              int vec, int chunks, int rows, void* stream) {                \
+    const Plan p = make_plan(hw, c, cb, chunks, rows);                                      \
     return with_vec<T>(vec, [&](auto v) {                                                   \
-      return launch_fwd<T, decltype(v)::value, true>(x, nullptr, nullptr, nullptr, nullptr, \
-                                                     nullptr, partial, b, p, smem, 0.f, 0,  \
-                                                     stream);                               \
+      return launch_fwd_partial<T, decltype(v)::value>(x, parts, b, p, stream);             \
     });                                                                                     \
   }                                                                                         \
   int in_bwd_partial_##SUFFIX(const void* x, const void* dy, const void* gamma,             \
                               const void* beta, const void* mean, const void* rstd,         \
-                              void* split, void* dgamma, void* dbeta, void* partials,       \
+                              void* split, void* dgamma, void* dbeta, void* chunks,         \
                               void* tickets, int b, int hw, int c, int cb, int vec,         \
-                              int cluster, int rows, int smem, int relu, void* stream) {    \
-    const Plan p = make_plan(hw, c, cb, cluster, rows);                                     \
+                              int nchunks, int rows, int relu, void* stream) {              \
+    const Plan p = make_plan(hw, c, cb, nchunks, rows);                                     \
     return with_vec<T>(vec, [&](auto v) {                                                   \
-      return launch_bwd<T, decltype(v)::value, true>(x, dy, gamma, beta, mean, rstd,        \
-                                                     nullptr, dgamma, dbeta, partials,      \
-                                                     tickets, split, b, p, smem, relu,      \
-                                                     stream);                               \
+      return launch_bwd_partial<T, decltype(v)::value>(x, dy, gamma, beta, mean, rstd,      \
+                                                       split, dgamma, dbeta, chunks,        \
+                                                       tickets, b, p, relu, stream);        \
     });                                                                                     \
   }                                                                                         \
   int in_fwd_apply_##SUFFIX(const void* x, const void* parts, const void* gamma,            \
                             const void* beta, void* y, void* mean, void* rstd, int b,       \
                             int hw, int c, int cb, int vec, int chunks, int rows,           \
-                            int shards, float eps, int relu, void* stream) {                \
+                            int shards, int splits, float eps, int relu, void* stream) {    \
     const Plan p = make_plan(hw, c, cb, chunks, rows);                                      \
     return with_vec<T>(vec, [&](auto v) {                                                   \
       return launch_fwd_apply<T, decltype(v)::value>(x, parts, gamma, beta, y, mean, rstd,  \
-                                                     b, p, shards, eps, relu, stream);      \
+                                                     b, p, shards, splits, eps, relu,       \
+                                                     stream);                               \
     });                                                                                     \
   }                                                                                         \
   int in_bwd_apply_##SUFFIX(const void* x, const void* dy, const void* sums,                \

@@ -131,7 +131,7 @@ class FIDEvaluator:
         self.dir_path = dir_path
         self.output_dir = output_dir
         self.device = platform.require_cuda() if device is None else torch.device(device)
-        platform.configure_numerics(deterministic=True)
+        platform.configure_numerics()
         self.cfg = SNDCGANConfig(
             image_size=tuple(image_size), z_size=z_size, dropout_rate=dropout,
             spectral_norm=spectral_norm,

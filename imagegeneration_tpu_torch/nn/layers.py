@@ -148,6 +148,19 @@ def reflect_halo(x: torch.Tensor, n: int, group) -> torch.Tensor:
     return torch.cat(parts, 2)
 
 
+def _reflect(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
+    """REFLECT-pad one dim by `pad` on each side: the mirrored rows (the edge
+    row left out) as flipped slices, cat around x. Its backward adds each
+    mirrored row's gradient to its source in a fixed order, where
+    F.pad(mode="reflect")'s backward accumulates with atomics on the card
+    and is not bit-stable from run to run."""
+    if pad == 0:
+        return x
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 1, pad).flip(dim), x,
+                      x.narrow(dim, n - 1 - pad, pad).flip(dim)], dim)
+
+
 def reflection_pad_2d(x: torch.Tensor, padding: tuple[int, int] = (1, 1),
                       group=None) -> torch.Tensor:
     """REFLECT-pad H and W of a (B, C, H, W) tensor; `padding` is (w, h), as
@@ -157,7 +170,7 @@ def reflection_pad_2d(x: torch.Tensor, padding: tuple[int, int] = (1, 1),
     w_pad, h_pad = padding
     if _spatial(group):
         x, h_pad = reflect_halo(x, h_pad, group), 0
-    y = F.pad(x, (w_pad, w_pad, h_pad, h_pad), mode="reflect")
+    y = _reflect(_reflect(x, h_pad, 2), w_pad, 3)
     return y.contiguous(memory_format=torch.channels_last)
 
 

@@ -38,19 +38,27 @@ rows of each map, and a (sample, channel) plane is spread over the spatial
 peers. The norm is then split around one collective in each direction
 (`_SplitInstanceNorm`), with four kernels of the same source:
 
-    forward:  in_fwd_partial: per (b, c), this shard's sum x and centred
-                sum (x - m_local)^2 over its rows -> (B, C, 2) float32
-              all_gather over the spatial group -> (S, B, C, 2)
-              in_fwd_apply: the S partials merged by Chan's formula (equal
-                shard sizes) into the whole plane's mean and var, as the
-                two-pass jnp.var sees it; y on this shard's rows; the merged
-                mean and rstd saved for the backward
+    forward:  in_fwd_partial: per (b, c) and each of k chunks of this
+                shard's rows, the chunk's sum x and centred sum (x - m)^2
+                about its own mean m -> (k, B, C, 2) float32 (k = 1 for the
+                plain version; the kernel's plan picks k)
+              all_gather over the spatial group -> (S, k, B, C, 2)
+              in_fwd_apply: the S x k partials merged by Chan's formula into
+                the whole plane's mean and var, as the two-pass jnp.var sees
+                it; y on this shard's rows; the merged mean and rstd saved
+                for the backward
     backward: in_bwd_partial: per (b, c), this shard's sum g and sum g*xhat
                 (g = dy * gamma, dy masked by the ReLU) -> (B, C, 2); per c,
                 this shard's dgamma and dbeta summed over its samples
               all_reduce of the (B, C, 2) sums over the spatial group
               in_bwd_apply: dx = rstd * (g - sum g / N - xhat * sum g*xhat / N),
                 N = H * W of the whole map
+
+The partial kernels read their input once, straight into registers, on
+plain grids of row chunks (`fwd_partial_plan`, `bwd_partial_plan`): the
+forward partial writes each chunk's (sum, M2) for the apply to merge; the
+backward partial's last CTA of a channel block adds the chunks in the
+single-pass backward's order, so one shard gives that kernel's bits.
 
 dgamma and dbeta need no spatial reduce: they are parameter gradients,
 which the step sums over the world and divides by the data size
@@ -129,32 +137,46 @@ def in_bwd_plain(
 
 
 # ------------------------------------------------ plain version, split form
-def in_fwd_partial_plain(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, 2) in promote_types(x.dtype, float32): per (sample, channel),
-    the shard's sum of x and its sum of squares about the shard's own
-    mean, over the shard's rows."""
+def chunk_counts(hw: int, splits: int) -> list[int]:
+    """The rows of each chunk when a shard's `hw` rows are cut into at most
+    `splits` chunks of ceil(hw / splits) rows, the last one what is left
+    (no chunk is empty; k chunks cut this way come back as k chunks)."""
+    rows = -(-hw // splits)
+    return [min(rows, hw - j * rows) for j in range(-(-hw // rows))]
+
+
+def in_fwd_partial_plain(x: torch.Tensor, splits: int = 1) -> torch.Tensor:
+    """(splits, B, C, 2) in promote_types(x.dtype, float32): per chunk of
+    the shard's h*W rows (chunk_counts) and (sample, channel), the chunk's
+    sum of x and its sum of squares about the chunk's own mean."""
     ct = torch.promote_types(x.dtype, torch.float32)
-    x32 = x.to(ct)
-    s = x32.sum(_SPATIAL)
-    centered = x32 - _per_channel(s / (x.shape[2] * x.shape[3]))
-    return torch.stack([s, (centered * centered).sum(_SPATIAL)], -1)
+    rows = x.to(ct).flatten(2).split(chunk_counts(x.shape[2] * x.shape[3], splits), -1)
+    out = []
+    for chunk in rows:
+        s = chunk.sum(-1)
+        centered = chunk - (s / chunk.shape[-1])[..., None]
+        out.append(torch.stack([s, (centered * centered).sum(-1)], -1))
+    return torch.stack(out)
 
 
 def in_fwd_apply_plain(
     x: torch.Tensor, parts: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     eps: float, relu: bool,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(y, mean, rstd) of this shard from the (S, B, C, 2) partials of the
-    S equal shards of each map (Chan's formula): mean = sum sums / N, var =
-    (sum m2 + n * sum (sums / n - mean)^2) / N, n = h * W, N = S * n."""
+    """(y, mean, rstd) of this shard from the (S, k, B, C, 2) partials of
+    the k chunks of each of the S equal shards of each map (Chan's formula):
+    mean = sum sums / N, var = (sum m2 + sum n_q (sums_q / n_q - mean)^2) /
+    N, n_q the chunk's rows, N = S * h * W."""
     ct = torch.promote_types(x.dtype, torch.float32)
     x32 = x.to(ct)
     n = x.shape[2] * x.shape[3]
     total = n * parts.shape[0]
+    counts = torch.tensor(chunk_counts(n, parts.shape[1]), dtype=parts.dtype,
+                          device=parts.device)[:, None, None]
     sums, m2 = parts[..., 0], parts[..., 1]
-    mean = sums.sum(0) / total
-    delta = sums / n - mean
-    var = (m2.sum(0) + n * (delta * delta).sum(0)) / total
+    mean = sums.sum((0, 1)) / total
+    delta = sums / counts - mean
+    var = (m2.sum((0, 1)) + (counts * delta * delta).sum((0, 1))) / total
     rstd = torch.rsqrt(var + eps)
     xhat = (x32 - _per_channel(mean)) * _per_channel(rstd)
     y = xhat * _per_channel(gamma.to(ct)) + _per_channel(beta.to(ct))
@@ -281,11 +303,12 @@ def launch_plan(
 
 
 APPLY_UNROLL = 4  # rows per thread of an apply pass
+HOLD = 16  # rows a thread of the forward partial holds (kHold in the source)
 
 
 @dataclasses.dataclass(frozen=True)
-class ApplyPlan:
-    """How an apply pass covers a (B, C, h, W) shard: a plain grid of
+class GridPlan:
+    """How a split pass covers a (B, C, h, W) shard: a plain grid of
     (`chunks`, `blocks`, B) CTAs, each taking `rows` consecutive rows of
     h*W and `channel_block` channels, `vec` per load (the channel block
     and vec of `launch_plan`)."""
@@ -302,15 +325,41 @@ class ApplyPlan:
         return [self.channel_block, self.vec, self.chunks, self.rows]
 
 
-def apply_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype) -> ApplyPlan:
+def _grid(base: LaunchPlan, b: int, hw: int, rows: int) -> GridPlan:
+    chunks = -(-hw // rows)
+    return GridPlan(vec=base.vec, channel_block=base.channel_block, blocks=base.blocks,
+                    chunks=chunks, rows=rows, ctas=chunks * base.blocks * b)
+
+
+def apply_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype) -> GridPlan:
     """APPLY_UNROLL rows per thread: a CTA of 256 threads takes 256 / (cb /
     vec) row slots times that."""
     base = launch_plan(b, c, h, w, dtype, 1, cluster=1)
     lanes = base.channel_block // base.vec
-    rows = (256 // lanes) * APPLY_UNROLL
-    chunks = -(-(h * w) // rows)
-    return ApplyPlan(vec=base.vec, channel_block=base.channel_block, blocks=base.blocks,
-                     chunks=chunks, rows=rows, ctas=chunks * base.blocks * b)
+    return _grid(base, b, h * w, (256 // lanes) * APPLY_UNROLL)
+
+
+def fwd_partial_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype) -> GridPlan:
+    """The forward partial's chunks: each thread holds at most HOLD rows in
+    registers, so a chunk has at most 256 / (cb / vec) x HOLD rows; the
+    chunks are halved (counted in powers of two) until the launch has
+    MIN_CTAS CTAs, while every thread keeps a row."""
+    base = launch_plan(b, c, h, w, dtype, 1, cluster=1)
+    slots, hw = 256 // (base.channel_block // base.vec), h * w
+    k = 1
+    while -(-hw // k) > slots * HOLD:
+        k *= 2
+    while b * base.blocks * k < MIN_CTAS and -(-hw // (2 * k)) >= slots:
+        k *= 2
+    return _grid(base, b, hw, -(-hw // k))
+
+
+def bwd_partial_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype) -> GridPlan:
+    """The backward partial's chunks: the single-pass backward's CTAs
+    (launch_plan's channel block, cluster size and rows), each on its own,
+    so that one shard sums in that kernel's order."""
+    base = launch_plan(b, c, h, w, dtype, 2)
+    return _grid(base, b, h * w, base.rows)
 
 
 # ------------------------------------------------------------------- kernel
@@ -332,13 +381,13 @@ def _lib() -> ctypes.CDLL:
         bwd.argtypes = [ctypes.c_void_p] * 11 + _INTS + [ctypes.c_int, ctypes.c_void_p]
         fwd_partial = getattr(lib, f"in_fwd_partial_{suffix}")
         fwd_partial.restype = ctypes.c_int
-        fwd_partial.argtypes = [ctypes.c_void_p] * 2 + _INTS + [ctypes.c_void_p]
+        fwd_partial.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         bwd_partial = getattr(lib, f"in_bwd_partial_{suffix}")
         bwd_partial.restype = ctypes.c_int
-        bwd_partial.argtypes = [ctypes.c_void_p] * 11 + _INTS + [ctypes.c_int, ctypes.c_void_p]
+        bwd_partial.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fwd_apply = getattr(lib, f"in_fwd_apply_{suffix}")
         fwd_apply.restype = ctypes.c_int
-        fwd_apply.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        fwd_apply.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         bwd_apply = getattr(lib, f"in_bwd_apply_{suffix}")
         bwd_apply.restype = ctypes.c_int
@@ -364,9 +413,10 @@ _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _tickets(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
-    """The backward's per-channel-block ticket counters on `stream`. They
-    start at 0 and every launch leaves them at 0 (atomicInc wraps at B), so
-    one zeroed buffer per stream serves every call."""
+    """The backward kernels' per-channel-block ticket counters on `stream`.
+    They start at 0 and every launch leaves them at 0 (atomicInc wraps at
+    the number of CTAs that take a ticket: B, or chunks x B for the split
+    partial), so one zeroed buffer per stream serves every call."""
     key = (device.index, stream.cuda_stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
@@ -389,7 +439,7 @@ def _check_activation(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError("instance_norm kernel: the int sizes cover < 2**31 elements")
 
 
-def _check_aligned(plan: LaunchPlan, *ts: torch.Tensor) -> None:
+def _check_aligned(plan: LaunchPlan | GridPlan, *ts: torch.Tensor) -> None:
     if plan.vec > 1 and any(t.data_ptr() % 16 for t in ts):
         raise ValueError("instance_norm kernel: the 16-byte path needs 16-byte aligned "
                          "tensors (a view at an odd storage offset is not)")
@@ -458,28 +508,32 @@ def in_bwd_kernel(
     return dx, dgamma, dbeta
 
 
-def in_fwd_partial_kernel(x: torch.Tensor, plan: LaunchPlan | None = None) -> torch.Tensor:
+def in_fwd_partial_kernel(x: torch.Tensor, plan: GridPlan | None = None) -> torch.Tensor:
+    """(k, B, C, 2): the plan's k chunks (in_fwd_partial_plain(x, k))."""
     _check_activation("x", x, x)
     b, c, h, w = x.shape
-    plan = plan or launch_plan(b, c, h, w, x.dtype, 1)
+    plan = plan or fwd_partial_plan(b, c, h, w, x.dtype)
     _check_aligned(plan, x)
     lib = _lib()
-    partial = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    parts = torch.empty((plan.chunks, b, c, 2), dtype=torch.float32, device=x.device)
     rc = getattr(lib, f"in_fwd_partial_{_DTYPES[x.dtype]}")(
-        x.data_ptr(), partial.data_ptr(), b, h * w, c, *plan.args(),
+        x.data_ptr(), parts.data_ptr(), b, h * w, c, *plan.args(),
         torch.cuda.current_stream(x.device).cuda_stream)
     native.check(lib, "in_error_string", rc, "instance_norm partial forward")
     SPLIT_LAUNCHES["instance_norm_fwd_partial"] += 1
-    return partial
+    return parts
 
 
 def in_fwd_apply_kernel(
     x: torch.Tensor, parts: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-    eps: float, relu: bool, plan: ApplyPlan | None = None,
+    eps: float, relu: bool, plan: GridPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_activation("x", x, x)
     b, c, h, w = x.shape
-    _check_vector("parts", parts, x, (parts.shape[0], b, c, 2))
+    if parts.dim() != 5:
+        raise ValueError(f"instance_norm apply: parts must be (S, k, B, C, 2), got "
+                         f"{tuple(parts.shape)}")
+    _check_vector("parts", parts, x, (*parts.shape[:2], b, c, 2))
     _check_vector("gamma", gamma, x, (c,))
     _check_vector("beta", beta, x, (c,))
     plan = plan or apply_plan(b, c, h, w, x.dtype)
@@ -490,8 +544,8 @@ def in_fwd_apply_kernel(
     rstd = torch.empty_like(mean)
     rc = getattr(lib, f"in_fwd_apply_{_DTYPES[x.dtype]}")(
         x.data_ptr(), parts.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), b, h * w, c, *plan.args(), parts.shape[0], eps,
-        int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+        mean.data_ptr(), rstd.data_ptr(), b, h * w, c, *plan.args(), parts.shape[0],
+        parts.shape[1], eps, int(relu), torch.cuda.current_stream(x.device).cuda_stream)
     native.check(lib, "in_error_string", rc, "instance_norm apply forward")
     SPLIT_LAUNCHES["instance_norm_fwd_apply"] += 1
     return y, mean, rstd
@@ -499,7 +553,7 @@ def in_fwd_apply_kernel(
 
 def in_bwd_partial_kernel(
     x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-    mean: torch.Tensor, rstd: torch.Tensor, relu: bool, plan: LaunchPlan | None = None,
+    mean: torch.Tensor, rstd: torch.Tensor, relu: bool, plan: GridPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_activation("x", x, x)
     _check_activation("dy", dy, x)
@@ -508,19 +562,19 @@ def in_bwd_partial_kernel(
     _check_vector("beta", beta, x, (c,))
     _check_vector("mean", mean, x, (b, c))
     _check_vector("rstd", rstd, x, (b, c))
-    plan = plan or launch_plan(b, c, h, w, x.dtype, 2)
+    plan = plan or bwd_partial_plan(b, c, h, w, x.dtype)
     _check_aligned(plan, x, dy)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device)
     sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
-    partials = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    chunks = torch.empty((plan.chunks, b, c, 2), dtype=torch.float32, device=x.device)
     tickets = _tickets(x.device, stream, plan.blocks)
     rc = getattr(lib, f"in_bwd_partial_{_DTYPES[x.dtype]}")(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), sums.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        partials.data_ptr(), tickets.data_ptr(), b, h * w, c, *plan.args(), int(relu),
+        chunks.data_ptr(), tickets.data_ptr(), b, h * w, c, *plan.args(), int(relu),
         stream.cuda_stream)
     native.check(lib, "in_error_string", rc, "instance_norm partial backward")
     SPLIT_LAUNCHES["instance_norm_bwd_partial"] += 1
@@ -530,7 +584,7 @@ def in_bwd_partial_kernel(
 def in_bwd_apply_kernel(
     x: torch.Tensor, dy: torch.Tensor, sums: torch.Tensor, gamma: torch.Tensor,
     beta: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, relu: bool, total: int,
-    plan: ApplyPlan | None = None,
+    plan: GridPlan | None = None,
 ) -> torch.Tensor:
     _check_activation("x", x, x)
     _check_activation("dy", dy, x)
@@ -604,8 +658,8 @@ def in_bwd_apply(x, dy, sums, gamma, beta, mean, rstd, relu: bool, total: int):
 
 
 def gather_partials(part: torch.Tensor, group) -> torch.Tensor:
-    """The spatial peers' (B, C, 2) partials, (S, B, C, 2) in peer order:
-    one all_gather_into_tensor over the spatial group."""
+    """The spatial peers' (k, B, C, 2) partials, (S, k, B, C, 2) in peer
+    order: one all_gather_into_tensor over the spatial group."""
     out = part.new_empty((group.spatial * part.shape[0], *part.shape[1:]))
     dist.all_gather_into_tensor(out, part.contiguous(), group=group.pg_of("spatial"))
     group.counts["norm_gather"] += 1

@@ -66,7 +66,6 @@ import datetime
 import hashlib
 import os
 import queue
-import socket
 import time
 import traceback
 from typing import Any, Callable, Sequence
@@ -287,12 +286,6 @@ def replicate_state(state, group: DataGroup | None) -> str | None:
 
 
 # --------------------------------------------------------------- launcher
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def local_devices(world: int, device_type: str) -> list[torch.device]:
     """One device per rank of one host: the CPU for every rank, or card r
     for rank r; refuses more ranks than visible cards."""
@@ -321,9 +314,10 @@ def _run_rank(rank: int, world: int, spatial: int, port: int, backend: str, devi
             from imagegeneration_tpu_torch.core import platform
 
             dev = platform.require_cuda()
-        dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+        store = dist.TCPStore("localhost", port, world, is_master=False, timeout=timeout)
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                                timeout=timeout)
         try:
             group = meshlib.make_mesh(
                 meshlib.MeshConfig(data=world // spatial, spatial=spatial), dev)
@@ -361,9 +355,14 @@ def spawn_local(fn: Callable, world: int, device_type: str = "cpu",
         raise ValueError("NCCL runs one rank per card; name backend='gloo' to share a card")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = free_port()
+    # The ranks' rendezvous, served here until every rank has ended, on a
+    # port the system picks as it binds (port 0): no group started at the
+    # same moment (another test worker's) can be handed the same port
+    # between its choice and its bind.
+    store = dist.TCPStore("localhost", 0, world, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     procs = [ctx.Process(target=_run_rank, daemon=True, args=(
-        r, world, spatial, port, backend, str(devs[r]), num_threads, fn, args, results))
+        r, world, spatial, store.port, backend, str(devs[r]), num_threads, fn, args, results))
         for r in range(world)]
     for p in procs:
         p.start()

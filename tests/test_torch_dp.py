@@ -170,6 +170,28 @@ def test_spawn_local_waits_without_a_deadline(timeout):
                            timeout=timeout)
 
 
+def _token_worker(group, token):
+    """Rank 0's token as every rank of the group sees it, and the group's
+    sum of (rank + 1)."""
+    t = torch.tensor([token if group.rank == 0 else -1], dtype=torch.int64)
+    torch.distributed.broadcast(t, src=0)
+    total = torch.tensor([group.rank + 1], dtype=torch.int64)
+    torch.distributed.all_reduce(total)
+    return int(t), int(total), group.world
+
+
+def test_groups_started_at_once_keep_their_own_rendezvous():
+    """Two spawn_local groups started at the same moment (as test workers
+    do side by side) each meet only their own ranks: each parent serves
+    its group's store on a port bound as it is chosen."""
+    with concurrent.futures.ThreadPoolExecutor(2) as threads:
+        runs = [threads.submit(dp.spawn_local, _token_worker, world, "cpu",
+                               args=(token,), num_threads=1, timeout=120)
+                for world, token in ((2, 11), (3, 22))]
+        got = [r.result() for r in runs]
+    assert got == [[(11, 3, 2)] * 2, [(22, 6, 3)] * 3]
+
+
 @pytest.mark.parametrize("shape", [(4, 5, 7, 3), (6, 16, 16, 64)])
 def test_plain_dropout_base_is_the_jax_global_mask(shape):
     """Rank r of `world` rows-blocks: the plain mask with base r*b*H*W*C is
@@ -317,14 +339,28 @@ def _jobs():
     return jobs
 
 
+def to_parent(run: dict, rank: int, per_step: bool) -> dict:
+    """What a spawned process sends back of a run, and all the tests read:
+    the metrics, digest and counts, and from rank 0 alone the final state
+    (with `per_step`, a replay's, the state after each step too). The other
+    ranks' states are rank 0's (their digests say so), and a float64 state
+    of these runs pickles to ~90 MB: when every rank sent every state of
+    every run, the 4 spatial ranks grew to ~7.6 GB each and their parent to
+    12 GB, and the kernel's OOM killer ended a rank inside the full suite."""
+    keep = {"state", "states"} if per_step else {"state"}
+    return {k: v for k, v in run.items()
+            if k not in ("state", "state0", "states") or (rank == 0 and k in keep)}
+
+
 def _one_process_runs(jobs):
     torch.set_num_threads(1)
-    return {name: dp_parity.run_steps(None, family, cfg, inputs, init)
+    return {name: to_parent(dp_parity.run_steps(None, family, cfg, inputs, init), 0, False)
             for name, family, cfg, inputs, init in jobs}
 
 
 def _steps_worker(group, jobs):
-    out = {name: dp_parity.run_steps(group, family, cfg, inputs, init)
+    out = {name: to_parent(dp_parity.run_steps(group, family, cfg, inputs, init), group.rank,
+                           isinstance(init, list))
            for name, family, cfg, inputs, init in jobs}
     return {"runs": out, "jax_imported": "jax" in sys.modules}
 
@@ -726,6 +762,16 @@ def test_dryrun_multichip_two_ranks():
     assert not out["jax_imported"] and np.isfinite(out["metrics"]["g_loss"])
 
 
+def _free_port() -> int:
+    """A port free at the time of the call, for the torchrun-like launch
+    below (another process may bind it before the ranks do)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def test_trainer_cli_under_a_torchrun_environment(tmp_path):
     """torchrun's contract: each process gets RANK, WORLD_SIZE, LOCAL_RANK,
     MASTER_ADDR and MASTER_PORT and is one rank; --mesh-data must equal
@@ -735,7 +781,7 @@ def test_trainer_cli_under_a_torchrun_environment(tmp_path):
     folder = tmp_path / "data"
     _write_folder(str(folder), 8, 6)
     out = tmp_path / "run"
-    port = str(dp.free_port())
+    port = str(_free_port())
     cmd = [sys.executable, "-m", "imagegeneration_tpu_torch.cli.wgan_trainer", "4", "1",
            "-x", str(folder), "-d", str(out), "--height", "16", "--width", "16",
            "--n-critic", "1", "--device", "cpu", "--mesh-data", "2"]

@@ -130,3 +130,20 @@ def test_importing_the_port_pulls_in_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[0]) >= 15  # every module was imported
+
+
+def test_training_entry_points_hold_cudnn_to_deterministic_algorithms(monkeypatch):
+    """Every entry point's device choice (resolve_device, require_cuda)
+    pins float32 numerics and keeps cuDNN to deterministic algorithms, with
+    no algorithm chosen by timing: the JAX steps are bit-stable run to run."""
+    from imagegeneration_tpu_torch.core import platform
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert platform.resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+    assert not torch.backends.cudnn.allow_tf32
+    assert platform.configure_numerics() == {
+        "cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False,
+        "cudnn.deterministic": True, "cudnn.benchmark": False}

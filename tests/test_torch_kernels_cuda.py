@@ -419,8 +419,9 @@ def test_split_instance_norm_kernels_match_plain(cuda, shape, dtype, relu, shard
     before = dict(inorm.SPLIT_LAUNCHES)
     parts = []
     for xb in xs:
-        got = inorm.in_fwd_partial_kernel(xb)
-        assert_in_close(got, inorm.in_fwd_partial_plain(xb), 2e-5, xb.shape[2] * xb.shape[3])
+        got = inorm.in_fwd_partial_kernel(xb)  # (k, B, C, 2): the plan's chunks
+        assert_in_close(got, inorm.in_fwd_partial_plain(xb, got.shape[0]), 2e-5,
+                        -(-xb.shape[2] * xb.shape[3] // got.shape[0]))
         parts.append(got)
     parts = torch.stack(parts)
     ys = []
@@ -461,18 +462,55 @@ def test_split_instance_norm_kernels_match_plain(cuda, shape, dtype, relu, shard
 
 @pytest.mark.parametrize("shape", [(4, 64, 16, 32), (4, 3, 16, 32)])
 def test_split_instance_norm_on_one_shard_is_the_single_pass_pair(cuda, shape):
-    """One shard: the partials are the single-pass kernels' cluster sums
-    and the applies their last pass, so every output is bit-equal."""
+    """One shard: the backward partial takes the single-pass backward's CTAs
+    and orders and the backward apply its last pass, so the backward is
+    bit-equal; the forward partial's chunks, merged by Chan's formula, sum
+    in another order than the single-pass forward's cluster, so y, mean
+    and rstd are held within 1e-6 of each plane's scale (max |y|, max |x|,
+    rstd)."""
     x, dy, gamma, beta = in_inputs(cuda, shape, torch.float32)
     y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, True)
     dx, dg, db = inorm.in_bwd_kernel(x, dy, gamma, beta, mean, rstd, True)
     y1, mean1, rstd1 = inorm.in_fwd_apply_kernel(x, inorm.in_fwd_partial_kernel(x)[None],
                                                  gamma, beta, 1e-3, True)
+    for got, want, scale in ((y1, y, y.abs().amax((2, 3), keepdim=True)),
+                             (mean1, mean, x.abs().amax((2, 3))), (rstd1, rstd, rstd)):
+        assert bool(((got - want).abs() <= 1e-6 * scale).all())
     sums, dg1, db1 = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, True)
     dx1 = inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd, True,
                                     shape[2] * shape[3])
-    for a, b in ((y1, y), (mean1, mean), (rstd1, rstd), (dx1, dx), (dg1, dg), (db1, db)):
+    for a, b in ((dx1, dx), (dg1, dg), (db1, db)):
         assert torch.equal(a, b)
+
+
+# The generator's norm maps as half-height shards of 2 spatial ranks
+# (chip_smoke.IN_SPLIT_SHAPES): the partial kernels' own plans there.
+SPLIT_SHAPES = [(4, 64, 64, 128), (4, 128, 32, 64), (4, 256, 16, 32), (4, 3, 64, 128)]
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_partial_kernels_match_plain_at_the_generator_shards(cuda, shape, dtype, relu):
+    """The forward partial against the plain partial cut into the same
+    chunks (each chunk a sum of at most ceil(h*W / k) terms), the backward
+    partial against its plain version (sums of h*W terms, dgamma/dbeta of
+    B*h*W), and each twice on the same inputs giving the same bits."""
+    x, dy, gamma, beta = in_inputs(cuda, shape, dtype)
+    b, c, h, w = shape
+    got = inorm.in_fwd_partial_kernel(x)
+    k = inorm.fwd_partial_plan(b, c, h, w, dtype).chunks
+    assert got.shape == (k, b, c, 2)
+    assert_in_close(got, inorm.in_fwd_partial_plain(x, k), 2e-5, -(-h * w // k))
+    assert torch.equal(got, inorm.in_fwd_partial_kernel(x))
+    _, mean, rstd = inorm.in_fwd_apply_plain(x, got[None], gamma, beta, 1e-3, relu)
+    sums, dg, db = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, relu)
+    sp, dgp, dbp = inorm.in_bwd_partial_plain(x, dy, gamma, beta, mean, rstd, relu)
+    assert_in_close(sums, sp, 2e-5, h * w)
+    assert_in_close(dg, dgp, 2e-5, b * h * w)
+    assert_in_close(db, dbp, 2e-5, b * h * w)
+    again = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, relu)
+    assert all(torch.equal(u, v) for u, v in zip((sums, dg, db), again))
 
 
 def test_instance_norm_kernel_refuses_a_bad_plan(cuda):

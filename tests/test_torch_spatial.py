@@ -64,6 +64,7 @@ from test_torch_dp import (
     _gp_eps,
     check_free_run,
     check_replay,
+    to_parent,
     _jax_run,
     _jax_state0,
     _jobs,
@@ -83,7 +84,8 @@ def _spawn(fn, world, spatial, *args):
 
 # ------------------------------------------------- the f64 multi-step runs
 def _steps_worker(group, jobs):
-    out = {name: dp_parity.run_steps(group, family, cfg, inputs, init)
+    out = {name: to_parent(dp_parity.run_steps(group, family, cfg, inputs, init), group.rank,
+                           isinstance(init, list))
            for name, family, cfg, inputs, init in jobs}
     return {"runs": out, "coords": (group.d, group.s), "jax_imported": "jax" in sys.modules}
 
@@ -159,15 +161,26 @@ def test_spatial_ranks_are_bit_equal_and_count_their_collectives(f64_runs, name)
     sums the step's structure gives."""
     ranks = f64_runs[name][0]
     name = name.removesuffix("_replayed")
-    assert len({r["digest"] for r in ranks}) == 1
-    applies = {"sndcgan": 3 * STEPS, "wgan_clip": 2 * STEPS + STEPS // 2,
-               "wgan_gp": 2 * STEPS + STEPS // 2}
-    for r in ranks:
-        c = r["collectives"]
-        assert c["grad_all_reduce"] == applies[name]
-        assert c["metric_all_reduce"] == 1
-        assert c["halo"] == HALOS[name], c
-        assert c["spatial_sum"] == SPATIAL_SUMS[name], c
+    coords = [(r // SPATIAL, r % SPATIAL) for r in range(DATA * SPATIAL)]
+    assert len({r["digest"] for r in ranks}) == 1, \
+        {f"rank {i} (d, s) = {c}": r["digest"] for i, (c, r) in enumerate(zip(coords, ranks))}
+    want = {"grad_all_reduce": {"sndcgan": 3 * STEPS, "wgan_clip": 2 * STEPS + STEPS // 2,
+                                "wgan_gp": 2 * STEPS + STEPS // 2}[name],
+            "metric_all_reduce": 1, "halo": HALOS[name], "spatial_sum": SPATIAL_SUMS[name]}
+    for i, (c, r) in enumerate(zip(coords, ranks)):
+        got = {k: r["collectives"].get(k) for k in want}
+        assert got == want, f"rank {i} (d, s) = {c}: counted {r['collectives']}, want {want}"
+
+
+def test_spatial_ranks_send_their_parent_one_state(f64_runs):
+    """Only rank 0 sends states, and only a replay its state after each step
+    (test_torch_dp.to_parent): when 4 ranks sent every state of every run,
+    the fixture took ~42 GB and the OOM killer ended a rank inside the
+    full suite."""
+    for name, (ranks, *_) in f64_runs.items():
+        assert all(not {"state", "state0", "states"} & set(r) for r in ranks[1:]), name
+        assert "state" in ranks[0] and "state0" not in ranks[0], name
+        assert ("states" in ranks[0]) == name.endswith("_replayed"), name
 
 
 # ------------------------------------------------------------ the halo

@@ -57,7 +57,8 @@ from imagegeneration_tpu_torch.ops import instance_norm as tin
 from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.tools import dp_parity
 from imagegeneration_tpu_torch.train import cyclegan_step as tcyc
-from test_torch_dp import ABSOLUTE, B, STEPS, _leaf_bound, _tree_leaves, _worst, check_free_run
+from test_torch_dp import (ABSOLUTE, B, STEPS, _leaf_bound, _tree_leaves, _worst,
+                           check_free_run, to_parent)
 
 torch.set_num_threads(1)
 
@@ -123,7 +124,8 @@ def _jax_steps(js, cfg, state, inputs):
 
 
 def _steps_worker(group, jobs):
-    out = {name: dp_parity.run_steps(group, "cyclegan", cfg, inputs, init)
+    out = {name: to_parent(dp_parity.run_steps(group, "cyclegan", cfg, inputs, init),
+                           group.rank, False)
            for name, cfg, inputs, init in jobs}
     return {"runs": out, "coords": (group.d, group.s), "jax_imported": "jax" in sys.modules}
 
@@ -240,12 +242,13 @@ def test_spatial_ranks_are_bit_equal_and_count_their_collectives(f64_runs, name)
 
 
 # ------------------------------------------------------- the split norms
-def _split_plain(x, dy, gamma, beta, eps, relu, shards, mean_rstd):
+def _split_plain(x, dy, gamma, beta, eps, relu, shards, mean_rstd, splits=1):
     """The split plain norm over `shards` row blocks of the whole (B, C, H, W)
-    x in one process: (y, mean, rstd, dx, dgamma, dbeta), dx from the given
-    (mean, rstd)."""
+    x in one process, each block's forward partial cut into `splits` chunks
+    of rows: (y, mean, rstd, dx, dgamma, dbeta), dx from the given (mean,
+    rstd)."""
     xs, dys = x.chunk(shards, 2), dy.chunk(shards, 2)
-    parts = torch.stack([tin.in_fwd_partial_plain(xb) for xb in xs])
+    parts = torch.stack([tin.in_fwd_partial_plain(xb, splits) for xb in xs])
     out = [tin.in_fwd_apply_plain(xb, parts, gamma, beta, eps, relu) for xb in xs]
     mean, rstd = mean_rstd
     bwd = [tin.in_bwd_partial_plain(xb, db, gamma, beta, mean, rstd, relu)
@@ -262,6 +265,25 @@ def _split_plain(x, dy, gamma, beta, eps, relu, shards, mean_rstd):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("shards", [2, 3, 4])
 def test_split_plain_norm_equals_the_jax_norm_on_the_whole_map(shards, dtype, relu):
+    _check_split_plain_against_jax(shards, 1, dtype, relu)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shards,splits", [(1, 4), (2, 7), (3, 3)])
+def test_chunked_split_plain_norm_equals_the_jax_norm_on_the_whole_map(shards, splits,
+                                                                       dtype):
+    """The forward partial in chunks of each shard's rows, as the kernel
+    writes them (30 rows a shard cut at most 7 ways are 6 chunks of 5; 20
+    cut 3 ways 7, 7 and 6), merged by the apply's Chan formula over the S x
+    k chunks: the same bounds against the JAX norm."""
+    _check_split_plain_against_jax(shards, splits, dtype, True)
+
+
+def _check_split_plain_against_jax(shards, splits, dtype, relu):
+    """The split plain pair on `shards` row blocks (forward partials in
+    `splits` chunks) against the JAX norm on the whole map: float64 within
+    1e-12, float32 within rtol 1e-5 and atol 1e-5 of the output's largest
+    |v| (float32 sums in another order)."""
     import jax
     import jax.numpy as jnp
 
@@ -289,7 +311,7 @@ def test_split_plain_norm_equals_the_jax_norm_on_the_whole_map(shards, dtype, re
 
     nchw = lambda a: t(a).permute(0, 3, 1, 2)  # noqa: E731
     got = _split_plain(nchw(x), nchw(dy), t(gamma), t(beta), 1e-3, relu, shards,
-                       (t(want[1]), t(want[2])))
+                       (t(want[1]), t(want[2])), splits)
     got = [g.numpy() for g in got]
     got[0], got[3] = got[0].transpose(0, 2, 3, 1), got[3].transpose(0, 2, 3, 1)
     for name, g, w in zip(("y", "mean", "rstd", "dx", "dgamma", "dbeta"), got, want):

@@ -353,6 +353,68 @@ def test_bf16_step_rounds_like_jax(jax_bf16_draws):
     assert {p.dtype for p in state.critic.parameters()} == {torch.float32}
 
 
+# The bf16 BatchNorm gate: the batch statistics of a bf16 (B, H, W, C) map
+# against JAX's, per channel, the mean's error over the channel's std and
+# the variance's over the variance. Readings on the CPU: sound 2.4e-6
+# (mean) and 3.9e-5 (var: float32 sums of 16,384 squares in another
+# order); statistics taken in bf16 (the planted fault) 3.9e-3 and 2.2e-2.
+# The bound is 5x the sound reading and 19x under the fault's.
+BN_SHAPE = (16, 32, 32, 64)
+BN_STAT_BOUND = 2e-4
+
+
+def _bn_statistics(x: np.ndarray) -> dict:
+    """The port's BatchNorm on `x` (NHWC float32, cast to bf16) in train mode
+    with momentum 0, whose running statistics are then the batch's."""
+    from imagegeneration_tpu_torch.nn import layers as tl
+
+    bn = tl.BatchNorm(x.shape[-1], momentum=0.0, dtype=torch.bfloat16)
+    xb = torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16)
+    with torch.no_grad():
+        bn(xb, use_running_average=False)
+    return {"mean": bn.mean.numpy().copy(), "var": bn.var.numpy().copy()}
+
+
+def test_bf16_batchnorm_statistics_are_float32_like_jax(monkeypatch):
+    """`--bf16` BatchNorm alone: on a bf16 map of 16,384 values a channel
+    (mean 3, std 2, so that E[x^2] - E[x]^2 cancels part of its digits), the
+    port's batch statistics (float32 buffers) are the JAX BatchNorm's
+    (flax, statistics in float32 from the bf16 input) within BN_STAT_BOUND
+    of each channel's std (mean) and variance (var); statistics taken in
+    bf16 (one more rounding of
+    E[x] and E[x^2]: the planted fault, `_moments` on a bf16 copy) miss it
+    by >= 10x. test_bf16_step_rounds_like_jax cannot see that rounding
+    through a whole step's bf16 noise."""
+    import jax.numpy as jnp
+
+    from imagegeneration_tpu.nn.layers import BatchNorm as JaxBatchNorm
+    from imagegeneration_tpu_torch.nn import layers as tl
+
+    x = np.random.default_rng(31).normal(3.0, 2.0, BN_SHAPE).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    assert np.array_equal(np.asarray(jx.astype(jnp.float32)),
+                          torch.from_numpy(x).to(torch.bfloat16).float().numpy())
+    jbn = JaxBatchNorm(use_running_average=False, momentum=0.0, dtype=jnp.bfloat16)
+    variables = jbn.init(jax.random.key(0), jx)
+    _, upd = jbn.apply(variables, jx, mutable=["batch_stats"])
+    want = {k: np.asarray(v) for k, v in upd["batch_stats"]["BatchNorm_0"].items()}
+    assert {v.dtype for v in want.values()} == {np.dtype(np.float32)}
+
+    scale = {"mean": np.sqrt(want["var"]), "var": want["var"]}
+
+    def errors(got):
+        return {k: float(np.max(np.abs(got[k].astype(np.float64) - want[k]) / scale[k]))
+                for k in ("mean", "var")}
+
+    sound = errors(_bn_statistics(x))
+    moments = tl.BatchNorm._moments
+    monkeypatch.setattr(tl.BatchNorm, "_moments",
+                        lambda self, xf: moments(self, xf.to(torch.bfloat16)))
+    planted = errors(_bn_statistics(x))
+    assert max(sound.values()) <= BN_STAT_BOUND, sound
+    assert min(planted.values()) >= 10 * BN_STAT_BOUND, planted
+
+
 def test_epoch_runner_equals_per_batch_stepping():
     cfg = tstep.WGANTrainConfig(model=WGANConfig(**MODEL), batch_size=B, n_critic=2)
     images = torch.from_numpy(

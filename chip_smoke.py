@@ -39,9 +39,11 @@ Phases (any failure raises, and the exit code is non-zero):
      float32 and bfloat16, with and without ReLU, each against its plain
      version on the same inputs; the two shards together against the
      single-pass kernels on the whole map; one shard (the whole map)
-     against the single-pass kernels bit for bit; timed in float32 at the
-     largest and the most frequent shard, beside torch.var_mean for the
-     forward partial.
+     against the single-pass kernels bit for bit (the backward; the
+     forward within SPLIT_WHOLE_REL); timed in float32 at every shard,
+     beside the PyTorch calls that compute each kernel's function
+     (tools/split_times.LIBRARY; those of the partials' sums and of the
+     applies first held to the plain versions).
 4. A small float32 step of each model on the card against the same step on
    the CPU (the plain kernel versions), from the same weights and inputs.
    WGAN (32x48, base 16, batch 4, n_critic 2): four steps, two of them with
@@ -836,10 +838,13 @@ def launch_floor(flush: L2Flush) -> dict:
 
 def time_split_pair(shape, flush: L2Flush) -> dict:
     """The four split kernels, their plain versions and the library calls
-    (torch.var_mean beside the forward partial, native_batch_norm_backward
-    beside the backward partial, first held to the plain partial's sums) at
-    one shard, float32, L2 flushed and warm, each with its bound; the calls
-    are tools/split_times.split_calls's."""
+    (torch.var_mean beside the forward partial; native_batch_norm_backward
+    beside the backward partial; batch_norm_gather_stats_with_counts then
+    batch_norm_elemt beside the forward apply; batch_norm_backward_elemt
+    beside the backward apply; the last three first held to the plain
+    versions at ReLU off, the kernels' own tolerances) at one shard,
+    float32, L2 flushed and warm, each with its bound; the calls are
+    tools/split_times.split_calls's."""
     dev = torch.device("cuda", 0)
     b, c, h, w = shape
     x, dy, gamma, beta = in_inputs(dev, shape, torch.float32)
@@ -848,6 +853,14 @@ def time_split_pair(shape, flush: L2Flush) -> dict:
     in_close(f"native_batch_norm_backward vs the plain backward partial at {shape}",
              split_times.library_partial_sums(library_bwd(), gamma), plain_bwd()[0], 2e-5,
              h * w)
+    _, plain_fwd_apply, library_fwd_apply = calls[SPLIT_NAMES[1]]
+    for what, got, want, tol in zip(("y", "mean", "invstd"), library_fwd_apply(),
+                                    plain_fwd_apply(), (2e-5, 1e-5, 1e-5)):
+        in_close(f"gather_stats_with_counts + batch_norm_elemt {what} vs the plain forward "
+                 f"apply at {shape}", got.view(want.shape), want, tol)
+    _, plain_bwd_apply, library_bwd_apply = calls[SPLIT_NAMES[3]]
+    in_close(f"batch_norm_backward_elemt vs the plain backward apply at {shape}",
+             library_bwd_apply().view(shape), plain_bwd_apply(), 2e-5)
     k = inorm.fwd_partial_plan(b, c, h, w, torch.float32).chunks
     n, small = x.numel() * 4, 4 * b * c * 2
     extra = {
@@ -875,8 +888,9 @@ def check_split_instance_norm(card: str) -> list[dict]:
     within rtol/atol 2e-5 + 1 ulp; on one shard the backward (the partial,
     then the apply) is also bit-equal to the single-pass backward, whose
     CTAs and orders its partial keeps. Timed in float32 at every shard, L2
-    flushed and warm, beside the plain versions, torch.var_mean for the
-    forward partial, and an empty kernel's launch (launch_floor)."""
+    flushed and warm, beside the plain versions, the library calls of
+    tools/split_times.LIBRARY (time_split_pair), and an empty kernel's
+    launch (launch_floor)."""
     dev = torch.device("cuda", 0)
     max_err = {(k, dt): 0.0 for k in SPLIT_NAMES for dt in ("float32", "bfloat16")}
     whole_rel = {"two_shards": 0.0, "one_shard": 0.0}
@@ -975,8 +989,8 @@ def check_split_instance_norm(card: str) -> list[dict]:
     out = []
     for name in SPLIT_NAMES:
         line = 66 if "fwd" in name else 137
-        plan = {"instance_norm_fwd_partial": inorm.fwd_partial_plan,
-                "instance_norm_bwd_partial": inorm.bwd_partial_plan}.get(name, inorm.apply_plan)
+        plan = dict(zip(SPLIT_NAMES, (inorm.fwd_partial_plan, inorm.fwd_apply_plan,
+                                      inorm.bwd_partial_plan, inorm.bwd_apply_plan)))[name]
         out.append({
             "name": name, "route": "cuda",
             "source": "imagegeneration_tpu_torch/csrc/instance_norm.cu",
@@ -998,7 +1012,7 @@ def check_split_instance_norm(card: str) -> list[dict]:
         })
         for sh, t in timed.items():
             t = t[name]
-            lib = (f", {split_times.LIBRARY[name].split('(')[0]} {t['library_ms']:.4f} "
+            lib = (f", library ({split_times.LIBRARY[name]}) {t['library_ms']:.4f} "
                    f"({t['library_warm_ms']:.4f})" if t["library_ms"] is not None else "")
             log(f"{name} at the shard {sh} f32 device time, L2 flushed (warm): kernel "
                 f"{t['ms']:.4f} ({t['warm_ms']:.4f}) ms, plain {t['plain_ms']:.4f} "

@@ -647,8 +647,7 @@ int launch_bwd(const void* x, const void* dy, const void* gamma, const void* bet
 //   sample order for dgamma/dbeta: the single-pass kernel's orders, so one
 //   shard at its plan gives its bits. No float atomics: two calls give the
 //   same bits.
-// The applies are bound by bytes (forward: read x, write y; backward: read
-// x and dy, write dx).
+// - The applies: below, beside their kernels.
 constexpr int kHold = 16;         // rows a thread of the forward partial holds
 constexpr int kDeep = 8;          // rows of x and dy a backward-partial thread has in flight
 constexpr int kTicketBatch = 32;  // samples the backward partial's last CTA adds per round
@@ -817,16 +816,179 @@ dim3 apply_grid(const Plan& p, int b) {
               static_cast<unsigned int>(b));
 }
 
-// Forward apply: merge the S x k chunk partials of each (sample, channel)
-// (parts is (S, k, B, C, 2): shard s's chunk j, the forward partial's sum and
-// centred sum of squares over its n_j rows, n_j = min(ceil(hw / k), hw - j *
-// ceil(hw / k)) of the shard's hw) into the whole map's statistics by Chan's
-// formula, N = S * hw, in a fixed order (G threads a channel, below):
-//   mean = sum_q sum_q / N
-//   var  = sum_q (m2_q + n_q (sum_q / n_q - mean)^2) / N
-// then y = (x - mean) * rstd * gamma + beta (+ReLU) on this shard's rows;
-// the CTAs of row chunk 0 write mean and rstd (B, C).
-template <typename T, int V>
+// The applies stream their rows once and are bound by bytes (forward:
+// read x, write y; backward: read x and dy, write dx), but at the
+// generator's shards (2-25 MB) what sets their time is the chain from
+// launch to the last store. So a thread issues the loads of its first
+// rows (up to kFwdApplyDeep of x; kShallow of x and of dy) before it
+// touches the statistics: the merge of the partials (forward) or the loads
+// of mean, rstd and the sums (backward) run while those rows are in
+// flight, and the chain holds one trip to device memory, not two. Rows
+// past the first batch (the plan's rows per thread above the batch) are
+// loaded batch by batch after it. The forward's plan (fwd_apply_plan)
+// gives each thread the deep batch where the grid keeps MIN_CTAS CTAs, so
+// that fewer CTAs repeat the merge, else kShallow rows or fewer; its
+// kernel holds D rows a thread: kShallow where the plan gives a thread at
+// most that many (the registers of a deep batch would cost the small
+// shards occupancy and spills), else the deep batch. The backward has no
+// merge to spread: kShallow rows a thread (bwd_apply_plan), where 8 rows
+// on half the CTAs measured no faster.
+constexpr int kFwdApplyDeep = 16;  // rows of x a forward-apply thread has in flight
+constexpr int kShallow = 4;        // the batch of a plan of at most that many rows a thread
+constexpr int kMergeParts = 8;     // partials a forward-apply thread holds in registers
+
+// v[u] = row r0 + u * slots of `src` (rows below row1 only).
+template <int D, typename T, int V>
+__device__ __forceinline__ void load_rows(Pack<T, V> (&v)[D], const T* __restrict__ src,
+                                          const Geom<V>& g, int pitch, int r0) {
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+    const int r = r0 + u * g.slots;
+    if (r < g.row1) v[u] = load_pack<T, V>(src + g.base + static_cast<int64_t>(r) * pitch);
+  }
+}
+
+// A (rows, sum, centred sum of squares) triple, and Chan's combination of
+// two: symmetric in its arguments bit for bit (commuted adds and products,
+// the difference of means only squared), so that an xor-shuffle tree
+// leaves the same bits in every lane.
+struct Moments {
+  float n, s, m2;
+};
+
+__device__ __forceinline__ Moments combine(const Moments& a, const Moments& b) {
+  if (a.n == 0.f) return b;
+  if (b.n == 0.f) return a;
+  const float n = __fadd_rn(a.n, b.n);
+  const float d = __fsub_rn(__fdiv_rn(a.s, a.n), __fdiv_rn(b.s, b.n));
+  const float w = __fdiv_rn(__fmul_rn(a.n, b.n), n);
+  return {n, __fadd_rn(a.s, b.s), __fadd_rn(__fadd_rn(a.m2, b.m2), __fmul_rn(__fmul_rn(d, d), w))};
+}
+
+// The whole map's mean and rstd of the CTA's channels from the S x k chunk
+// partials (parts is (S, k, B, C, 2): shard s's chunk j, the forward
+// partial's sum and centred sum of squares over its n_j rows, n_j =
+// min(ceil(hw / k), hw - j * ceil(hw / k)) of the shard's hw), N = S * hw,
+// into stat (mean at [lc], rstd at [kMaxChannelBlock + lc]); the CTAs of
+// row chunk 0 also write them to mean_out and rstd_out (B, C). G threads a
+// channel (a power of two, G * cb <= kThreads, lanes of one warp): thread
+// g of a group takes the parts q = g, g + G, ..., every part read once.
+// - Up to kMergeParts parts a thread (S x k <= kMergeParts * G: the
+//   generator's shards), all of them in registers, their loads issued
+//   together; Chan's two passes over the registers, in a fixed order:
+//     mean = sum_q sum_q / N
+//     var  = sum_q (m2_q + n_q (sum_q / n_q - mean)^2) / N
+//   each sum first over a thread's parts in order, then over the group by
+//   xor shuffles (the same bits in every lane).
+// - More: rounds of kMergeParts parts a thread, each round's (rows, sum,
+//   M2 about its own mean) combined into the thread's by `combine`, then
+//   the group's threads by xor shuffles of the same.
+// Every thread of the CTA runs the shuffles (full mask).
+__device__ __forceinline__ void merge_chunks(const float* __restrict__ parts, const Plan& p,
+                                             int batch, int shards, int splits, float eps,
+                                             float* stat, float* __restrict__ mean_out,
+                                             float* __restrict__ rstd_out) {
+  int G = 32;
+  while (G * p.cb > kThreads) G >>= 1;
+  const int lc = threadIdx.x / G, q0 = threadIdx.x % G;
+  const int ch = blockIdx.y * p.cb + lc;
+  const bool mine = lc < p.cb && ch < p.c;
+  const float total = __fmul_rn(static_cast<float>(p.hw), static_cast<float>(shards));
+  const int prow = (p.hw + splits - 1) / splits;
+  const int nparts = shards * splits;
+  const int64_t stride = static_cast<int64_t>(batch) * p.c * 2;
+  const float* at = parts + (static_cast<int64_t>(blockIdx.z) * p.c + (mine ? ch : 0)) * 2;
+  float sum = 0.f, m2 = 0.f, mean;
+  const int per = (nparts + G - 1) / G;  // parts of the busiest thread
+  if (per <= kMergeParts) {
+    float ps[kMergeParts], pm[kMergeParts];
+#pragma unroll
+    for (int i = 0; i < kMergeParts; ++i) {
+      if (i >= per) break;
+      const int q = q0 + i * G;
+      ps[i] = pm[i] = 0.f;
+      if (mine && q < nparts) {
+        ps[i] = at[q * stride];
+        pm[i] = at[q * stride + 1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMergeParts; ++i) {
+      if (i >= per) break;
+      if (mine && q0 + i * G < nparts) sum = __fadd_rn(sum, ps[i]);
+    }
+    for (int off = G / 2; off > 0; off >>= 1)
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+    mean = __fdiv_rn(sum, total);
+#pragma unroll
+    for (int i = 0; i < kMergeParts; ++i) {
+      if (i >= per) break;
+      const int q = q0 + i * G;
+      if (mine && q < nparts) {
+        const float n = static_cast<float>(min(prow, p.hw - (q % splits) * prow));
+        const float d = __fsub_rn(__fdiv_rn(ps[i], n), mean);
+        m2 = __fadd_rn(m2, __fadd_rn(pm[i], __fmul_rn(n, __fmul_rn(d, d))));
+      }
+    }
+    for (int off = G / 2; off > 0; off >>= 1)
+      m2 = __fadd_rn(m2, __shfl_xor_sync(0xffffffffu, m2, off));
+  } else {
+    Moments acc{0.f, 0.f, 0.f};
+    for (int q1 = q0; q1 < nparts; q1 += kMergeParts * G) {
+      float ps[kMergeParts], pm[kMergeParts], pn[kMergeParts];
+#pragma unroll
+      for (int i = 0; i < kMergeParts; ++i) {
+        const int q = q1 + i * G;
+        ps[i] = pm[i] = pn[i] = 0.f;
+        if (mine && q < nparts) {
+          ps[i] = at[q * stride];
+          pm[i] = at[q * stride + 1];
+          pn[i] = static_cast<float>(min(prow, p.hw - (q % splits) * prow));
+        }
+      }
+      Moments r{0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kMergeParts; ++i) {
+        r.n = __fadd_rn(r.n, pn[i]);
+        r.s = __fadd_rn(r.s, ps[i]);
+      }
+      if (r.n > 0.f) {
+        const float rm = __fdiv_rn(r.s, r.n);
+#pragma unroll
+        for (int i = 0; i < kMergeParts; ++i) {
+          if (pn[i] > 0.f) {
+            const float d = __fsub_rn(__fdiv_rn(ps[i], pn[i]), rm);
+            r.m2 = __fadd_rn(r.m2, __fadd_rn(pm[i], __fmul_rn(pn[i], __fmul_rn(d, d))));
+          }
+        }
+      }
+      acc = combine(acc, r);
+    }
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const Moments o{__shfl_xor_sync(0xffffffffu, acc.n, off),
+                      __shfl_xor_sync(0xffffffffu, acc.s, off),
+                      __shfl_xor_sync(0xffffffffu, acc.m2, off)};
+      acc = combine(acc, o);
+    }
+    sum = acc.s;
+    m2 = acc.m2;
+    mean = __fdiv_rn(sum, total);
+  }
+  if (mine && q0 == 0) {
+    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(m2, total), eps));
+    stat[lc] = mean;
+    stat[kMaxChannelBlock + lc] = rstd;
+    if (blockIdx.x == 0) {
+      mean_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = mean;
+      rstd_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = rstd;
+    }
+  }
+}
+
+// Forward apply: the loads of this thread's first rows of x, then the
+// merge of the partials (merge_chunks) while they are in flight, then y =
+// (x - mean) * rstd * gamma + beta (+ReLU) on this shard's rows.
+template <typename T, int V, int D>
 __global__ void __launch_bounds__(kThreads)
     in_fwd_apply_kernel(const T* __restrict__ x, const float* __restrict__ parts,
                         const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -834,76 +996,54 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ rstd_out, Plan p, int batch, int shards,
                         int splits, float eps, int relu) {
   __shared__ float stat[2 * kMaxChannelBlock];
-  // G threads a channel (a power of two, G * cb <= kThreads), lanes of one
-  // warp: thread g of a group adds the parts q = g, g + G, ... in order,
-  // then the group adds across by xor shuffles, which leave the same bits
-  // in every lane; every thread runs the shuffles (full mask).
-  {
-    int G = 32;
-    while (G * p.cb > kThreads) G >>= 1;
-    const int lc = threadIdx.x / G, q0 = threadIdx.x % G;
-    const int ch = blockIdx.y * p.cb + lc;
-    const bool mine = lc < p.cb && ch < p.c;
-    const float total = __fmul_rn(static_cast<float>(p.hw), static_cast<float>(shards));
-    const int prow = (p.hw + splits - 1) / splits;
-    const int nparts = shards * splits;
-    const int64_t stride = static_cast<int64_t>(batch) * p.c * 2;
-    const float* at = parts + (static_cast<int64_t>(blockIdx.z) * p.c + (mine ? ch : 0)) * 2;
-    float sum = 0.f;
-    if (mine) {
-      for (int q = q0; q < nparts; q += G) sum = __fadd_rn(sum, at[q * stride]);
-    }
-    for (int off = G / 2; off > 0; off >>= 1)
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-    const float mean = __fdiv_rn(sum, total);
-    float m2 = 0.f;
-    if (mine) {
-      for (int q = q0; q < nparts; q += G) {
-        const float n = static_cast<float>(min(prow, p.hw - (q % splits) * prow));
-        const float d = __fsub_rn(__fdiv_rn(at[q * stride], n), mean);
-        m2 = __fadd_rn(m2, __fadd_rn(at[q * stride + 1], __fmul_rn(n, __fmul_rn(d, d))));
-      }
-    }
-    for (int off = G / 2; off > 0; off >>= 1)
-      m2 = __fadd_rn(m2, __shfl_xor_sync(0xffffffffu, m2, off));
-    if (mine && q0 == 0) {
-      const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(m2, total), eps));
-      stat[lc] = mean;
-      stat[kMaxChannelBlock + lc] = rstd;
-      if (blockIdx.x == 0) {
-        mean_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = mean;
-        rstd_out[static_cast<int64_t>(blockIdx.z) * p.c + ch] = rstd;
-      }
+  const Geom<V> g = geom<V>(p, blockIdx.x);
+  Pack<T, V> v[D];
+  float gm[V] = {}, bt[V] = {};
+  if (g.active) {
+    load_rows(v, x, g, p.c, g.row0 + g.slot);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      gm[j] = gamma[g.ch + j];
+      bt[j] = beta[g.ch + j];
     }
   }
+  merge_chunks(parts, p, batch, shards, splits, eps, stat, mean_out, rstd_out);
   __syncthreads();
-  const Geom<V> g = geom<V>(p, blockIdx.x);
   if (!g.active) return;
-  float mean[V], rstd[V], gm[V], bt[V];
+  float mean[V], rstd[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     mean[j] = stat[g.lane * V + j];
     rstd[j] = stat[kMaxChannelBlock + g.lane * V + j];
-    gm[j] = gamma[g.ch + j];
-    bt[j] = beta[g.ch + j];
   }
-  const Source<T> src{x + g.base, p.c, 0};
-  each_row(g, src, [&](int r, const Pack<T, V>& v) {
-    Pack<T, V> o;
+  for (int r0 = g.row0 + g.slot;;) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float a = affine(normalized(to_f32(v.v[j]), mean[j], rstd[j]), gm[j], bt[j]);
-      if (relu) a = fmaxf(a, 0.f);
-      from_f32(o.v[j], a);
+    for (int u = 0; u < D; ++u) {
+      const int r = r0 + u * g.slots;
+      if (r < g.row1) {
+        Pack<T, V> o;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float a = affine(normalized(to_f32(v[u].v[j]), mean[j], rstd[j]), gm[j], bt[j]);
+          if (relu) a = fmaxf(a, 0.f);
+          from_f32(o.v[j], a);
+        }
+        store_pack(y + g.base + static_cast<int64_t>(r) * p.c, o);
+      }
     }
-    store_pack(y + g.base + static_cast<int64_t>(r) * p.c, o);
-  });
+    r0 += D * g.slots;
+    if (r0 - g.slot >= g.row1) break;
+    load_rows(v, x, g, p.c, r0);
+  }
 }
 
 // Backward apply: with sums (B, C, 2) = (sum g, sum g * xhat) over the
 // whole map (the spatial peers' split outputs summed), g = dy' * gamma,
 //   dx = rstd * (g - sum g / N - xhat * sum(g * xhat) / N)
-// on this shard's rows, the ReLU mask rebuilt as in the single-pass kernel.
+// on this shard's rows, the ReLU mask rebuilt as in the single-pass kernel
+// and every element by that kernel's expression (so one shard is its
+// bits). The loads of the first rows of x and dy are issued before those
+// of the statistics.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -913,6 +1053,10 @@ __global__ void __launch_bounds__(kThreads)
                         float total, int relu) {
   const Geom<V> g = geom<V>(p, blockIdx.x);
   if (!g.active) return;
+  constexpr int D = kShallow;
+  Pack<T, V> xv[D], dv[D];
+  load_rows(xv, x, g, p.c, g.row0 + g.slot);
+  load_rows(dv, dy, g, p.c, g.row0 + g.slot);
   const int64_t s_idx = static_cast<int64_t>(blockIdx.z) * p.c + g.ch;
   float mean[V], rstd[V], gm[V], bt[V], mean_g[V], mean_gx[V];
 #pragma unroll
@@ -924,21 +1068,40 @@ __global__ void __launch_bounds__(kThreads)
     mean_g[j] = __fdiv_rn(sums[(s_idx + j) * 2], total);
     mean_gx[j] = __fdiv_rn(sums[(s_idx + j) * 2 + 1], total);
   }
-  const Source<T> xs{x + g.base, p.c, 0};
-  const Source<T> ds{dy + g.base, p.c, 0};
-  each_row(g, xs, ds, [&](int r, const Pack<T, V>& xv, const Pack<T, V>& dv) {
-    Pack<T, V> o;
+  for (int r0 = g.row0 + g.slot;;) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float xhat = normalized(to_f32(xv.v[j]), mean[j], rstd[j]);
-      float d = to_f32(dv.v[j]);
-      if (relu && !(affine(xhat, gm[j], bt[j]) > 0.f)) d = 0.f;
-      const float inner = __fsub_rn(__fsub_rn(__fmul_rn(d, gm[j]), mean_g[j]),
-                                    __fmul_rn(xhat, mean_gx[j]));
-      from_f32(o.v[j], __fmul_rn(rstd[j], inner));
+    for (int u = 0; u < D; ++u) {
+      const int r = r0 + u * g.slots;
+      if (r < g.row1) {
+        Pack<T, V> o;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = normalized(to_f32(xv[u].v[j]), mean[j], rstd[j]);
+          float d = to_f32(dv[u].v[j]);
+          if (relu && !(affine(xhat, gm[j], bt[j]) > 0.f)) d = 0.f;
+          const float inner = __fsub_rn(__fsub_rn(__fmul_rn(d, gm[j]), mean_g[j]),
+                                        __fmul_rn(xhat, mean_gx[j]));
+          from_f32(o.v[j], __fmul_rn(rstd[j], inner));
+        }
+        store_pack(dx + g.base + static_cast<int64_t>(r) * p.c, o);
+      }
     }
-    store_pack(dx + g.base + static_cast<int64_t>(r) * p.c, o);
-  });
+    r0 += D * g.slots;
+    if (r0 - g.slot >= g.row1) break;
+    load_rows(xv, x, g, p.c, r0);
+    load_rows(dv, dy, g, p.c, r0);
+  }
+}
+
+// f(std::integral_constant<int, D>): D = kShallow where the plan gives a
+// thread at most that many rows, else kFwdApplyDeep.
+template <int V, typename F>
+void with_depth(const Plan& p, F&& f) {
+  const int slots = kThreads / (p.cb / V);
+  if ((p.rows + slots - 1) / slots <= kShallow)
+    f(std::integral_constant<int, kShallow>{});
+  else
+    f(std::integral_constant<int, kFwdApplyDeep>{});
 }
 
 template <typename T, int V>
@@ -949,10 +1112,14 @@ int launch_fwd_apply(const void* x, const void* parts, const void* gamma, const 
   if (e == cudaSuccess && (shards < 1 || splits < 1 || splits > p.hw))
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
-  in_fwd_apply_kernel<T, V><<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(parts),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), p, b, shards, splits, eps, relu);
+  with_depth<V>(p, [&](auto d) {
+    in_fwd_apply_kernel<T, V, decltype(d)::value>
+        <<<apply_grid(p, b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x), static_cast<const float*>(parts),
+            static_cast<const float*>(gamma), static_cast<const float*>(beta),
+            static_cast<T*>(y), static_cast<float*>(mean), static_cast<float*>(rstd), p, b,
+            shards, splits, eps, relu);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,7 +58,11 @@ The partial kernels read their input once, straight into registers, on
 plain grids of row chunks (`fwd_partial_plan`, `bwd_partial_plan`): the
 forward partial writes each chunk's (sum, M2) for the apply to merge; the
 backward partial's last CTA of a channel block adds the chunks in the
-single-pass backward's order, so one shard gives that kernel's bits.
+single-pass backward's order, so one shard gives that kernel's bits. The
+applies (`fwd_apply_plan`, `bwd_apply_plan`) issue the loads of their
+rows before they merge the partials or load the statistics; the forward
+takes as many rows a thread as leave MIN_CTAS CTAs, so that fewer CTAs
+repeat the merge.
 
 dgamma and dbeta need no spatial reduce: they are parameter gradients,
 which the step sums over the world and divides by the data size
@@ -302,8 +306,10 @@ def launch_plan(
                       ctas=b * blocks * k)
 
 
-APPLY_UNROLL = 4  # rows per thread of an apply pass
 HOLD = 16  # rows a thread of the forward partial holds (kHold in the source)
+FWD_APPLY_DEEP = 16  # rows of x a forward-apply thread has in flight (kFwdApplyDeep)
+SHALLOW = 4  # the applies' batch where a thread has at most that many rows (kShallow)
+MERGE_PARTS = 8  # chunk partials a forward-apply thread holds in registers (kMergeParts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,12 +337,54 @@ def _grid(base: LaunchPlan, b: int, hw: int, rows: int) -> GridPlan:
                     chunks=chunks, rows=rows, ctas=chunks * base.blocks * b)
 
 
-def apply_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype) -> GridPlan:
-    """APPLY_UNROLL rows per thread: a CTA of 256 threads takes 256 / (cb /
-    vec) row slots times that."""
+def _apply_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype, deep: int,
+                depth: int | None) -> GridPlan:
     base = launch_plan(b, c, h, w, dtype, 1, cluster=1)
-    lanes = base.channel_block // base.vec
-    return _grid(base, b, h * w, (256 // lanes) * APPLY_UNROLL)
+    slots, hw = 256 // (base.channel_block // base.vec), h * w
+    if depth is None:
+        depth = deep
+        while (depth > 1 and b * base.blocks * -(-hw // (slots * depth)) < MIN_CTAS
+               and -(-hw // (slots * depth)) < -(-hw // slots)):
+            depth = min(depth // 2, SHALLOW)
+    return _grid(base, b, hw, slots * depth)
+
+
+def fwd_apply_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype,
+                   depth: int | None = None) -> GridPlan:
+    """The forward apply's chunks: `depth` rows a thread (a CTA of 256
+    threads takes 256 / (cb / vec) row slots times that): FWD_APPLY_DEEP,
+    the deep kernel's batch, where the launch then has MIN_CTAS CTAs (as
+    few CTAs as fill the card, each merging the partials once for the most
+    rows); else SHALLOW, the shallow kernel's batch, halved (in powers of
+    two) until the launch has MIN_CTAS CTAs, while a smaller depth could
+    still cut the shard into more chunks. `depth` overrides the choice
+    (the timing tool's sweep)."""
+    return _apply_plan(b, c, h, w, dtype, FWD_APPLY_DEEP, depth)
+
+
+def bwd_apply_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype,
+                   depth: int | None = None) -> GridPlan:
+    """The backward apply's chunks: as fwd_apply_plan from SHALLOW rows a
+    thread (x and dy both in flight): it has no merge to spread over fewer
+    CTAs."""
+    return _apply_plan(b, c, h, w, dtype, SHALLOW, depth)
+
+
+def merge_threads(channel_block: int) -> int:
+    """G, the forward apply's threads per channel in its merge of the
+    partials: a power of two up to a warp, G * channel_block <= 256."""
+    g = 32
+    while g * channel_block > 256:
+        g //= 2
+    return g
+
+
+def merge_rounds(channel_block: int, parts: int) -> int:
+    """Rounds of MERGE_PARTS partials a thread of the forward apply reads
+    to merge `parts` (S x k) chunks: 1 where they all fit its registers
+    (Chan's two passes over them), more for the pairwise fallback; every
+    partial is read once either way."""
+    return -(-parts // (merge_threads(channel_block) * MERGE_PARTS))
 
 
 def fwd_partial_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype) -> GridPlan:
@@ -536,7 +584,7 @@ def in_fwd_apply_kernel(
     _check_vector("parts", parts, x, (*parts.shape[:2], b, c, 2))
     _check_vector("gamma", gamma, x, (c,))
     _check_vector("beta", beta, x, (c,))
-    plan = plan or apply_plan(b, c, h, w, x.dtype)
+    plan = plan or fwd_apply_plan(b, c, h, w, x.dtype)
     _check_aligned(plan, x)
     lib = _lib()
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -597,7 +645,7 @@ def in_bwd_apply_kernel(
     if total % (h * w) or total >= 2**24:
         raise ValueError(f"instance_norm apply: {total} elements per plane is not a whole "
                          f"number of {h * w}-element shards below 2**24")
-    plan = plan or apply_plan(b, c, h, w, x.dtype)
+    plan = plan or bwd_apply_plan(b, c, h, w, x.dtype)
     _check_aligned(plan, x, dy)
     lib = _lib()
     dx = torch.empty_like(x, memory_format=torch.channels_last)

@@ -3,6 +3,7 @@
 checkout it is pointed at.
 
     python imagegeneration_tpu_torch/tools/split_times.py [--tree DIR] [--out FILE]
+        [--depths 1 2 4 8 16]
 
 `--tree` (default: the checkout holding this file) goes first on the import
 path, so that one command can time two checkouts in turns (a parent
@@ -12,13 +13,20 @@ ranks (chip_smoke.IN_SPLIT_SHAPES), float32. At each, through the tree's
 own wrappers (`split_calls`, which chip_smoke.py's phase 3 times too): the
 forward partial, the forward apply (from two shards' partials as the
 tree's partial writes them), the backward partial, the backward apply;
-beside the forward partial torch.var_mean(x, dim=(2, 3)), beside the
-backward partial aten.native_batch_norm_backward with output_mask (False,
-True, True) on the (1, B*C, h, W) view (`library_bwd_partial`: sum dy and
-sum dy * xhat per (b, c), the partial's sums before the x gamma); and an
-empty kernel (torch.cuda._sleep(0), one thread that returns at once), the
-floor of a launch in this harness. Each is timed with tools/devtime.py:
-`ms` with the L2 flushed before every call, `warm_ms` back to back.
+and beside each the PyTorch calls that compute its function (`LIBRARY`;
+never used by the port), on NCHW copies of the shard made outside the
+timed call: torch.var_mean(x, dim=(2, 3)) beside the forward partial,
+aten.native_batch_norm_backward with output_mask (False, True, True) on
+the (1, B*C, h, W) view beside the backward partial (`library_bwd_partial`:
+sum dy and sum dy * xhat per (b, c), the partial's sums before the x
+gamma), batch_norm_gather_stats_with_counts then batch_norm_elemt beside
+the forward apply (`library_fwd_apply`, two calls), batch_norm_backward_elemt
+beside the backward apply (`library_bwd_apply`); and an empty kernel
+(torch.cuda._sleep(0), one thread that returns at once), the floor of a
+launch in this harness. Each is timed with tools/devtime.py: `ms` with the
+L2 flushed before every call, `warm_ms` back to back. `--depths` also
+times this tree's applies at each given number of rows a thread (the
+plans' `depth` override), beside the plans' own choice.
 
 Prints one line per call and shape, the card's name and power limit, and
 as the last line the results as one JSON object (also written to --out).
@@ -35,8 +43,13 @@ SHAPES = [(4, 64, 64, 128), (4, 128, 32, 64), (4, 256, 16, 32), (4, 3, 64, 128)]
 NAMES = ("instance_norm_fwd_partial", "instance_norm_fwd_apply",
          "instance_norm_bwd_partial", "instance_norm_bwd_apply")
 LIBRARY = {"instance_norm_fwd_partial": "torch.var_mean(x, dim=(2, 3))",
+           "instance_norm_fwd_apply": "two calls: torch.batch_norm_gather_stats_with_counts "
+                                      "over the S x k chunks, then torch.batch_norm_elemt, on "
+                                      "the (1, B*C, h, W) view",
            "instance_norm_bwd_partial": "aten.native_batch_norm_backward(output_mask=(False, "
-                                        "True, True)) on the (1, B*C, h, W) view"}
+                                        "True, True)) on the (1, B*C, h, W) view",
+           "instance_norm_bwd_apply": "torch.batch_norm_backward_elemt on the (1, B*C, h, W) "
+                                      "view"}
 SHARDS = 2
 EPS = 1e-3
 ITERS = 50
@@ -71,12 +84,62 @@ def library_partial_sums(out, gamma):
     return torch.stack([sum_g.view(-1, c), sum_gx.view(-1, c)], -1) * gamma.view(1, c, 1)
 
 
-def split_calls(inorm, x, dy, gamma, beta, shards: int = SHARDS, plain: bool = False) -> dict:
+def library_fwd_apply(x, parts, gamma, beta):
+    """Two PyTorch calls for the forward apply without ReLU (never used by
+    the port): batch_norm_gather_stats_with_counts merges the S x k chunks
+    as SyncBatchNorm merges its devices' statistics (each chunk's mean
+    sum / n and invstd rsqrt(M2 / n + eps), its rows n as the count), then
+    batch_norm_elemt normalizes the (1, B*C, h, W) view of the NCHW shard.
+    Returns (y (1, B*C, h, W), mean, invstd (B*C,))."""
+    import torch
+
+    from imagegeneration_tpu_torch.ops.instance_norm import chunk_counts
+
+    s, k = parts.shape[:2]
+    b, c, h, w = x.shape
+    x_r = x.contiguous().view(1, b * c, h, w)
+    n = torch.tensor(chunk_counts(h * w, k) * s, dtype=torch.float32, device=x.device)
+    sums, m2 = (parts[..., i].reshape(s * k, b * c) for i in (0, 1))
+    mean_q = (sums / n[:, None]).contiguous()
+    invstd_q = torch.rsqrt(m2 / n[:, None] + EPS).contiguous()
+    g_r, b_r = gamma.repeat(b), beta.repeat(b)
+
+    def call():
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x_r, mean_q, invstd_q, None, None, 0.0, EPS, n)
+        return torch.batch_norm_elemt(x_r, g_r, b_r, mean, invstd, EPS), mean, invstd
+
+    return call
+
+
+def library_bwd_apply(x, dy, sums, gamma, mean, rstd, shards: int):
+    """One PyTorch call for the backward apply without ReLU (never used by
+    the port): batch_norm_backward_elemt, SyncBatchNorm's last backward
+    step, on the (1, B*C, h, W) view of the NCHW shard, with weight gamma
+    per sample, sum_dy = sum g / gamma, sum_dy_xmu = sum (g xhat) / gamma /
+    rstd (the apply's whole-map sums, sum g and sum g * xhat) and `shards`
+    counts of h*W rows: rstd (g - sum g / N - xhat sum(g xhat) / N), the
+    apply's dx, as (1, B*C, h, W)."""
+    import torch
+
+    b, c, h, w = x.shape
+    x_r, dy_r = (t.contiguous().view(1, b * c, h, w) for t in (x, dy))
+    g_r, mean_r, rstd_r = gamma.repeat(b), mean.reshape(-1), rstd.reshape(-1)
+    sum_dy = (sums[..., 0] / gamma).reshape(-1)
+    sum_dy_xmu = (sums[..., 1] / gamma / rstd).reshape(-1)
+    count = torch.full((shards,), h * w, dtype=torch.int32, device=x.device)
+    return lambda: torch.batch_norm_backward_elemt(dy_r, x_r, mean_r, rstd_r, g_r, sum_dy,
+                                                   sum_dy_xmu, count)
+
+
+def split_calls(inorm, x, dy, gamma, beta, shards: int = SHARDS, plain: bool = False,
+                fwd_apply_plan=None, bwd_apply_plan=None) -> dict:
     """name -> (kernel, plain version or None, library call or None), each a
     call of no arguments at the shard `x` of a map cut into `shards` row
-    blocks; the applies take `shards` copies of the shard's partials, and
-    the backward takes the merged mean and rstd. `inorm` is the timed
-    tree's ops/instance_norm; `plain` needs this tree's plain versions."""
+    blocks; the applies take `shards` copies of the shard's partials (at
+    the given plans, else their own), and the backward takes the merged
+    mean and rstd. `inorm` is the timed tree's ops/instance_norm; `plain`
+    needs this tree's plain versions."""
     import torch
 
     h, w = x.shape[2:]
@@ -85,19 +148,24 @@ def split_calls(inorm, x, dy, gamma, beta, shards: int = SHARDS, plain: bool = F
     sums = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, False)[0] * shards
     total = shards * h * w
     chunks = parts.shape[1]
+    fwd_apply = (lambda: inorm.in_fwd_apply_kernel(x, parts, gamma, beta, EPS, False,
+                                                   fwd_apply_plan))
+    bwd_apply = (lambda: inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd,
+                                                   False, total, bwd_apply_plan))
     calls = {
         NAMES[0]: (lambda: inorm.in_fwd_partial_kernel(x),
                    lambda: inorm.in_fwd_partial_plain(x, chunks),
                    lambda: torch.var_mean(x, dim=(2, 3))),
-        NAMES[1]: (lambda: inorm.in_fwd_apply_kernel(x, parts, gamma, beta, EPS, False),
-                   lambda: inorm.in_fwd_apply_plain(x, parts, gamma, beta, EPS, False), None),
+        NAMES[1]: (fwd_apply,
+                   lambda: inorm.in_fwd_apply_plain(x, parts, gamma, beta, EPS, False),
+                   library_fwd_apply(x, parts, gamma, beta)),
         NAMES[2]: (lambda: inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, False),
                    lambda: inorm.in_bwd_partial_plain(x, dy, gamma, beta, mean, rstd, False),
                    library_bwd_partial(x, dy, gamma, mean, rstd)),
-        NAMES[3]: (lambda: inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd,
-                                                     False, total),
+        NAMES[3]: (bwd_apply,
                    lambda: inorm.in_bwd_apply_plain(x, dy, sums, gamma, beta, mean, rstd,
-                                                    False, total), None),
+                                                    False, total),
+                   library_bwd_apply(x, dy, sums, gamma, mean, rstd, shards)),
     }
     return {k: (kern, pl if plain else None, lib) for k, (kern, pl, lib) in calls.items()}
 
@@ -107,6 +175,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose imagegeneration_tpu_torch is timed")
     ap.add_argument("--out", help="JSON file for the results")
+    ap.add_argument("--depths", type=int, nargs="*", default=[],
+                    help="also time the applies at these rows a thread")
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -144,6 +214,13 @@ def main(argv: list[str] | None = None) -> int:
             rec[name] = times(kernel)
             if library is not None:
                 rec[name]["library"] = times(library)
+        for depth in args.depths:
+            plans = {"fwd_apply_plan": inorm.fwd_apply_plan(*shape, x.dtype, depth),
+                     "bwd_apply_plan": inorm.bwd_apply_plan(*shape, x.dtype, depth)}
+            calls = split_calls(inorm, x, dy, gamma, beta, **plans)
+            for name, key in ((NAMES[1], "fwd_apply_plan"), (NAMES[3], "bwd_apply_plan")):
+                rec[f"{name}@depth{depth}"] = {**times(calls[name][0]),
+                                               "ctas": plans[key].ctas}
         out["shapes"][str(shape)] = rec
         for name, t in rec.items():
             lib = t.get("library")

@@ -5,10 +5,11 @@ a CUDA invalid-value error), so the plan's invariants are held here: at the
 seven norm shapes of the headline CycleGAN step (chip_smoke.IN_SHAPES) and
 at ragged shapes, in float32 and bfloat16, for the forward (one input
 tensor) and the backward (x and dy). The split norm's passes take plain
-grids: the applies `apply_plan`, the forward partial `fwd_partial_plan`,
-the backward partial `bwd_partial_plan` (the single-pass backward's CTAs),
-held at the generator's half-height shards (chip_smoke.IN_SPLIT_SHAPES)
-and the ragged shapes. Beside them, the library call that chip_smoke.py
+grids: the applies `fwd_apply_plan` and `bwd_apply_plan` (and the forward
+apply's merge of the chunk partials in registers), the forward partial
+`fwd_partial_plan`, the backward partial `bwd_partial_plan` (the
+single-pass backward's CTAs), held at the generator's half-height shards
+(chip_smoke.IN_SPLIT_SHAPES) and the ragged shapes. Beside them, the library call that chip_smoke.py
 times beside the backward partial (tools/split_times.library_bwd_partial)
 is held to the plain partial's sums.
 """
@@ -83,23 +84,60 @@ def test_launch_plan_overrides():
     assert inorm.launch_plan(4, 64, 40, 45, torch.float32, 1, held=2).held == 1
 
 
+APPLY_PLANS = {"fwd": (inorm.fwd_apply_plan, inorm.FWD_APPLY_DEEP),
+               "bwd": (inorm.bwd_apply_plan, inorm.SHALLOW)}
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", SPLIT_SHAPES + RAGGED_SHAPES, ids=str)
-def test_apply_plan_invariants(shape, dtype):
-    """The apply passes: the single-pass kernels' vec and channel block, and
-    row chunks of APPLY_UNROLL rows per thread that cover each sample's rows,
-    none of them empty (what the source's check_grid_plan refuses)."""
+def test_apply_plan_invariants(shape, dtype, which):
+    """The apply passes (fwd_apply_plan, bwd_apply_plan): the single-pass
+    kernels' vec and channel block; a power-of-two number of rows a thread,
+    the deep kernel's batch or at most the shallow one's; row chunks that cover each sample's rows,
+    none of them empty (what the source's check_grid_plan refuses); at least
+    MIN_CTAS CTAs unless no smaller depth would cut the shard into more
+    chunks (every generator shard allows it)."""
     b, c, h, w = shape
-    plan = inorm.apply_plan(b, c, h, w, dtype)
+    hw = h * w
+    plan_fn, deep = APPLY_PLANS[which]
+    plan = plan_fn(b, c, h, w, dtype)
     base = inorm.launch_plan(b, c, h, w, dtype, 1)
     assert (plan.vec, plan.blocks) == (base.vec, -(-c // plan.channel_block))
     assert plan.channel_block % plan.vec == 0 and plan.channel_block <= inorm.CHANNEL_BLOCK
     if plan.vec > 1:
         assert c % plan.channel_block == 0
-    assert plan.rows == 256 // (plan.channel_block // plan.vec) * inorm.APPLY_UNROLL
-    assert plan.rows * plan.chunks >= h * w > plan.rows * (plan.chunks - 1)
+    slots = 256 // (plan.channel_block // plan.vec)
+    depth = plan.rows // slots
+    assert plan.rows == slots * depth and depth & (depth - 1) == 0
+    assert depth == deep or 1 <= depth <= inorm.SHALLOW  # the deep or the shallow kernel
+    assert plan.rows * plan.chunks >= hw > plan.rows * (plan.chunks - 1)
     assert plan.ctas == b * plan.blocks * plan.chunks
+    assert plan.ctas >= inorm.MIN_CTAS or depth == 1 or plan.chunks == -(-hw // slots)
+    if shape in SPLIT_SHAPES:
+        assert plan.ctas >= inorm.MIN_CTAS
     assert plan.args() == [plan.channel_block, plan.vec, plan.chunks, plan.rows]
+    # the timing tool's override
+    assert plan_fn(b, c, h, w, dtype, depth=2 * deep).rows == slots * 2 * deep
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+def test_forward_apply_merges_the_generator_shards_in_registers(shape, dtype, shards):
+    """The forward apply holds every S x k chunk partial of a thread in
+    MERGE_PARTS registers (one round) at the generator's norm maps cut into
+    1, 2 or 4 shards, k the forward partial's chunks; a float32 256x256
+    map's stem on 2 ranks takes the pairwise fallback's rounds."""
+    b, c, h2, w = shape[0], shape[1], 2 * shape[2], shape[3]
+    h = h2 // shards
+    k = inorm.fwd_partial_plan(b, c, h, w, dtype).chunks
+    cb = inorm.fwd_apply_plan(b, c, h, w, dtype).channel_block
+    assert inorm.merge_threads(cb) * cb <= 256
+    assert inorm.merge_rounds(cb, shards * k) == 1
+    k_big = inorm.fwd_partial_plan(4, 64, 128, 256, torch.float32).chunks
+    assert inorm.merge_rounds(32, 2 * k_big) == 2
+    assert (inorm.merge_threads(32), inorm.merge_threads(3), inorm.merge_threads(6)) == (8, 32, 32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -34,6 +34,7 @@ from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import SNDCGANConfig
 from imagegeneration_tpu_torch.ops import adam, dropout
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
+from imagegeneration_tpu_torch.tools import split_times
 from imagegeneration_tpu_torch.train import cyclegan_step
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 
@@ -404,12 +405,12 @@ def test_instance_norm_kernels_are_deterministic(cuda, shape):
 
 
 # The split pair of an H-partitioned map, its shards simulated in one
-# process: (4, 64, 16, 33) the 16-byte path, (2, 6, 18, 33) and (1, 3, 12, 5)
-# the scalar path (C not a multiple of 4), with 2 and 3 row blocks.
-@pytest.mark.parametrize("shards", [2, 3])
+# process: (4, 64, 24, 33) the 16-byte path, (2, 6, 24, 33) and (1, 3, 12, 5)
+# the scalar path (C not a multiple of 4), with 1 to 4 row blocks.
+@pytest.mark.parametrize("shards", [1, 2, 3, 4])
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 64, 18, 33), (2, 6, 18, 33), (1, 3, 12, 5)])
+@pytest.mark.parametrize("shape", [(4, 64, 24, 33), (2, 6, 24, 33), (1, 3, 12, 5)])
 def test_split_instance_norm_kernels_match_plain(cuda, shape, dtype, relu, shards):
     """Each split kernel against its plain version on the same inputs, and
     the shards together against the single-pass kernels on the whole map."""
@@ -460,27 +461,104 @@ def test_split_instance_norm_kernels_match_plain(cuda, shape, dtype, relu, shard
     assert inorm.SPLIT_LAUNCHES == {k: v + shards for k, v in before.items()}
 
 
-@pytest.mark.parametrize("shape", [(4, 64, 16, 32), (4, 3, 16, 32)])
-def test_split_instance_norm_on_one_shard_is_the_single_pass_pair(cuda, shape):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 64, 16, 32), (4, 3, 16, 32), (2, 40, 9, 11)])
+def test_split_instance_norm_on_one_shard_is_the_single_pass_pair(cuda, shape, dtype):
     """One shard: the backward partial takes the single-pass backward's CTAs
-    and orders and the backward apply its last pass, so the backward is
-    bit-equal; the forward partial's chunks, merged by Chan's formula, sum
-    in another order than the single-pass forward's cluster, so y, mean
-    and rstd are held within 1e-6 of each plane's scale (max |y|, max |x|,
-    rstd)."""
-    x, dy, gamma, beta = in_inputs(cuda, shape, torch.float32)
+    and orders and the backward apply its last pass's expression, so the
+    backward is bit-equal; the forward partial's chunks, merged by Chan's
+    formula, sum in another order than the single-pass forward's cluster,
+    so y, mean and rstd are held within 1e-6 of each plane's scale (max
+    |y|, max |x|, rstd; y also to one bf16 ulp of |y|)."""
+    x, dy, gamma, beta = in_inputs(cuda, shape, dtype)
+    ulp = 2.0**-7 if dtype == torch.bfloat16 else 0.0
     y, mean, rstd = inorm.in_fwd_kernel(x, gamma, beta, 1e-3, True)
     dx, dg, db = inorm.in_bwd_kernel(x, dy, gamma, beta, mean, rstd, True)
     y1, mean1, rstd1 = inorm.in_fwd_apply_kernel(x, inorm.in_fwd_partial_kernel(x)[None],
                                                  gamma, beta, 1e-3, True)
-    for got, want, scale in ((y1, y, y.abs().amax((2, 3), keepdim=True)),
-                             (mean1, mean, x.abs().amax((2, 3))), (rstd1, rstd, rstd)):
-        assert bool(((got - want).abs() <= 1e-6 * scale).all())
+    for got, want, scale, rel in ((y1, y, y.abs().amax((2, 3), keepdim=True), ulp),
+                                  (mean1, mean, x.abs().amax((2, 3)), 0.0),
+                                  (rstd1, rstd, rstd, 0.0)):
+        got, want, scale = got.float(), want.float(), scale.float()
+        assert bool(((got - want).abs() <= 1e-6 * scale + rel * want.abs()).all())
     sums, dg1, db1 = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, True)
     dx1 = inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd, True,
                                     shape[2] * shape[3])
     for a, b in ((dx1, dx), (dg1, dg), (db1, db)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("depth", [1, 4, 8, 32])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 37, 45), (2, 3, 41, 43)])
+def test_split_applies_match_plain_at_every_depth(cuda, shape, dtype, relu, depth):
+    """The applies at plans of 1 to 32 rows a thread (fwd_apply_plan /
+    bwd_apply_plan's `depth`: ragged last chunks; the forward's shallow
+    kernel (up to 4 rows) and its deep one; past the kernels' rows in
+    flight (16 forward, 4 backward), so that later rows load batch by
+    batch) against their plain versions, each from 2 shards' partials, and
+    each twice giving the same bits."""
+    x, dy, gamma, beta = in_inputs(cuda, shape, dtype)
+    b, c, h, w = shape
+    parts = torch.stack([inorm.in_fwd_partial_kernel(x)] * 2)
+    fwd = inorm.fwd_apply_plan(b, c, h, w, dtype, depth)
+    y, mean, rstd = inorm.in_fwd_apply_kernel(x, parts, gamma, beta, 1e-3, relu, fwd)
+    yp, meanp, rstdp = inorm.in_fwd_apply_plain(x, parts, gamma, beta, 1e-3, relu)
+    assert_in_close(y, yp, 2e-5)
+    assert_in_close(mean, meanp, 1e-5)
+    assert_in_close(rstd, rstdp, 1e-5)
+    again = inorm.in_fwd_apply_kernel(x, parts, gamma, beta, 1e-3, relu, fwd)
+    assert all(torch.equal(u, v) for u, v in zip((y, mean, rstd), again))
+    sums = inorm.in_bwd_partial_kernel(x, dy, gamma, beta, mean, rstd, relu)[0] * 2
+    bwd = inorm.bwd_apply_plan(b, c, h, w, dtype, depth)
+    dx = inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd, relu, 2 * h * w, bwd)
+    assert_in_close(dx, inorm.in_bwd_apply_plain(x, dy, sums, gamma, beta, mean, rstd, relu,
+                                                 2 * h * w), 2e-5)
+    assert torch.equal(dx, inorm.in_bwd_apply_kernel(x, dy, sums, gamma, beta, mean, rstd,
+                                                     relu, 2 * h * w, bwd))
+
+
+# Partials past the forward apply's registers (merge_rounds > 1, the
+# pairwise fallback): 2 shards of k chunks each, k a count that
+# chunk_counts keeps (every chunk of ceil(h*W / k) rows but the last).
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [((2, 64, 12, 33), 40), ((2, 6, 12, 33), 132)])
+def test_split_forward_apply_merges_past_its_registers(cuda, shape, k, dtype, relu):
+    x, dy, gamma, beta = in_inputs(cuda, shape, dtype)
+    b, c, h, w = shape
+    part = inorm.in_fwd_partial_plain(x, k).float()
+    assert part.shape[0] == k
+    parts = torch.stack([part, inorm.in_fwd_partial_plain(x.flip(2), k).float()])
+    cb = inorm.fwd_apply_plan(b, c, h, w, dtype).channel_block
+    assert inorm.merge_rounds(cb, 2 * k) > 1
+    y, mean, rstd = inorm.in_fwd_apply_kernel(x, parts, gamma, beta, 1e-3, relu)
+    yp, meanp, rstdp = inorm.in_fwd_apply_plain(x, parts, gamma, beta, 1e-3, relu)
+    assert_in_close(y, yp, 2e-5)
+    assert_in_close(mean, meanp, 1e-5)
+    assert_in_close(rstd, rstdp, 1e-5)
+    again = inorm.in_fwd_apply_kernel(x, parts, gamma, beta, 1e-3, relu)
+    assert all(torch.equal(u, v) for u, v in zip((y, mean, rstd), again))
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(4, 64, 16, 32), (2, 40, 9, 11), (2, 3, 10, 7)])
+def test_library_calls_beside_the_split_applies_match_plain(cuda, shape, shards):
+    """The PyTorch calls that tools/split_times.py times beside the applies
+    (never used by the port), at ReLU off, against the plain versions within
+    the kernels' tolerances: batch_norm_gather_stats_with_counts then
+    batch_norm_elemt (y, mean, invstd), batch_norm_backward_elemt (dx)."""
+    x, dy, gamma, beta = in_inputs(cuda, shape, torch.float32)
+    b, c = shape[:2]
+    calls = split_times.split_calls(inorm, x, dy, gamma, beta, shards, plain=True)
+    y, mean, invstd = calls["instance_norm_fwd_apply"][2]()
+    yp, meanp, rstdp = calls["instance_norm_fwd_apply"][1]()
+    assert_in_close(y.view(shape), yp, 2e-5)
+    assert_in_close(mean.view(b, c), meanp, 1e-5)
+    assert_in_close(invstd.view(b, c), rstdp, 1e-5)
+    _, plain_bwd, library_bwd = calls["instance_norm_bwd_apply"]
+    assert_in_close(library_bwd().view(shape), plain_bwd(), 2e-5)
 
 
 # The generator's norm maps as half-height shards of 2 spatial ranks

@@ -26,6 +26,10 @@ Phases (any failure raises, and the exit code is non-zero):
      discriminator leaf of each slice, with that slice's b1 (SNDCGAN 0.9,
      CycleGAN 0.5), bit-identical to the plain version leaf by leaf; timed
      per slice, with the host time per apply of the slice's own applies;
+   - the Adam kernel's bfloat16-moment form (`opt_moments="bf16"`) at the
+     29 SNDCGAN leaves: p, m and v bit-equal to the plain version leaf by
+     leaf; timed with the L2 flushed and warm, beside the float32 form on
+     the same leaves (20 bytes an element against 28);
    - CycleGAN (128x128, batch 4, base_width 64, 9 res blocks): the
      InstanceNorm forward and backward, with and without ReLU, at each of
      the seven distinct norm shapes, float32 and bfloat16; timed at the
@@ -71,7 +75,20 @@ Phases (any failure raises, and the exit code is non-zero):
      512, float32, n_critic 5, weight clip; bench.py:445-468): one epoch of
      8 steps, then a new engine resumes for a second; gan updates at steps
      5, 10 and 15, critic_count 1 at the end, critic conv weights within
-     +-0.01, and no hand kernel launched (the WGAN path has none).
+     +-0.01, and no hand kernel launched (the WGAN path has none);
+   - the SNDCGAN step's options at the headline configuration, OPTION_STEPS
+     steps each from the seeded state on the same batches (the step is
+     the entry point: the JAX engine has no flag for either):
+     `opt_moments="bf16"` (3 launches a step of the Adam kernel's bfloat16
+     form, none of the float32 form; run twice, bit-equal), and
+     `remat_d=True` with float32 and with bfloat16 moments (21 + 14
+     dropout forwards and 21 backwards a step; state bit-equal to the run
+     without it); each run's peak device memory and steps/s (after its
+     first step) reported, not claimed;
+   - `--profile`: SNDCGANEngine(profile=True) for two epochs of 2 steps at
+     the headline configuration writes one trace, of epoch 1, under
+     <dir>/traces, holding CUDA kernel events, among them the dropout
+     kernels' and the Adam kernel's (launched through ctypes).
 6. Sampling and FID on the SNDCGAN slice's directory, at its full width,
    with the launch counters zeroed before and read after (no hand kernel
    runs: inference uses neither dropout nor Adam):
@@ -291,7 +308,10 @@ GRAD_COPIES_PER_STEP = {"sndcgan": 0, "cyclegan": 0}
 WGAN_N_CRITIC = 5
 # Every launch counter of the hand kernels: zeroed and read as one set, so
 # that no path can launch a kernel that goes uncounted.
-LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES, inorm.SPLIT_LAUNCHES)
+LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, adam.BF16_LAUNCHES, inorm.LAUNCHES,
+                   inorm.SPLIT_LAUNCHES)
+# The SNDCGAN step's options (phase 5): steps per run, the first untimed.
+OPTION_STEPS = 4
 # FID phase: MAX_BATCHES pinned batches of the headline batch size.
 FID_IMAGES = MAX_BATCHES * BATCH
 FID_FLOOR = 1e-6  # an FID may fall below 0 by this share of its trace terms
@@ -604,6 +624,65 @@ def check_adam(dev: torch.device, card: str) -> dict:
                         "correcting m and v; Keras adds it to sqrt(v) and folds the "
                         "correction into the step size, a different update",
     }
+
+
+def check_adam_bf16(dev: torch.device, card: str) -> dict:
+    """The bfloat16-moment form in one launch over the 29 SNDCGAN leaves
+    against the plain version leaf by leaf (p, m, v bit-equal); timed with
+    the L2 flushed and warm, beside the float32 form on the same leaves."""
+    models, b1 = adam_leaves("sndcgan", dev)
+    leaves = [p for ps in models for p in ps]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    grads = [torch.empty_like(p).normal_(generator=gen) for p in leaves]
+    ms_ = [torch.empty_like(p).normal_(generator=gen).to(torch.bfloat16) for p in leaves]
+    vs_ = [torch.empty_like(p).uniform_(generator=gen).to(torch.bfloat16) for p in leaves]
+    require(all(m.stride() == p.stride() for m, p in zip(ms_, leaves)), "bf16 moment layout")
+    alpha = adam.adam_alpha(torch.tensor(3, device=dev), 2e-4, b1, 0.999)
+    pk, mk, vk = ([t.clone() for t in ts] for ts in (leaves, ms_, vs_))
+    pp, mp, vp = ([t.clone() for t in ts] for ts in (leaves, ms_, vs_))
+    table = adam.LeafTable(pk, mk, vk)
+    require(table.moment_dtype == torch.bfloat16, "bf16 leaf table")
+    adam.adam_kernel(table, grads, alpha, b1, 0.999)
+    adam.adam_plain(pp, grads, mp, vp, alpha, b1, 0.999)
+    max_err = 0.0
+    for i, (a, b) in enumerate(zip(pk + mk + vk, pp + mp + vp)):
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+        require(torch.equal(a.view(bits), b.view(bits)),
+                f"adam bf16 form: leaf {i % len(leaves)} of {'pmv'[i // len(leaves)]} "
+                "differs from plain")
+        max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+    n = sum(p.numel() for p in leaves)
+    flush = L2Flush(dev)
+    times = timing(lambda: adam.adam_kernel(table, grads, alpha, b1, 0.999),
+                   lambda: adam.adam_plain(pk, grads, mk, vk, alpha, b1, 0.999),
+                   iters=10, flush=flush)
+    f32_table = adam.LeafTable([t.clone() for t in leaves], [t.float() for t in ms_],
+                               [t.float() for t in vs_])
+    f32_times = timing(lambda: adam.adam_kernel(f32_table, grads, alpha, b1, 0.999),
+                       None, iters=10, flush=flush)
+    record = {
+        "name": "adam_bf16", "route": "cuda", "source": "imagegeneration_tpu_torch/csrc/adam.cu",
+        "replaces": "imagegeneration_tpu/ops/pallas/adam.py:69",
+        "replaces_note": "the JAX package computes bfloat16 moments outside Pallas, in the "
+                         "inline XLA formula (imagegeneration_tpu/train/common.py:125-138); "
+                         "the port's form is this kernel's bfloat16-moment template",
+        "entry_point": "adam_multi_bf16", "max_abs_err": max_err, "tolerance": "0 ulp",
+        "leaves": len(leaves), "elements": n, "b1": b1,
+        "grid_ctas": adam.grid_ctas(torch.bfloat16), **times,
+        "f32_form_ms": f32_times["ms"], "f32_form_warm_ms": f32_times["warm_ms"],
+        # read p, g, m, v and write p, m, v: 4 + 4 + 4 + 2 * 2 * 2 bytes
+        **bound(20 * n, 12 * n),
+        "library_note": "torch.optim.Adam adds eps to sqrt(v_hat) after bias-correcting "
+                        "m and v and keeps its moments in the parameters' dtype; no "
+                        "PyTorch call computes this update",
+        "ms_is_per": "one launch over every SNDCGAN G and D leaf (b1 0.9), L2 flushed "
+                     "before each; warm_ms without",
+    }
+    log(f"adam bf16-moment form on sndcgan ({len(leaves)} leaves, {n:,} elements): p, m, v "
+        f"bit-equal to plain; {times['ms']:.4f} ms flushed, {times['warm_ms']:.4f} ms warm "
+        f"(float32 form {f32_times['ms']:.4f} / {f32_times['warm_ms']:.4f} ms), plain "
+        f"{times['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms ({card})")
+    return record
 
 
 def check_small_step_against_cpu(dev: torch.device) -> None:
@@ -1341,10 +1420,7 @@ def check_run_twice(card: str) -> dict:
     read."""
     dev = torch.device("cuda", 0)
     runs = {
-        "sndcgan": (steplib, steplib.SNDCGANTrainConfig(
-            model=SNDCGANConfig(image_size=(HEIGHT, WIDTH, 3), base_width=BASE,
-                                spectral_norm=True, dtype=torch.bfloat16),
-            batch_size=BATCH, loss="hinge"), 2),
+        "sndcgan": (steplib, headline_step_config(), 2),
         "cyclegan": (cyclegan_step, cyclegan_step.CycleGANTrainConfig(
             model=CycleGANConfig(image_size=(CG_SIZE, CG_SIZE, 3), base_width=CG_BASE,
                                  n_res_blocks=CG_RES), batch_size=CG_BATCH), 2),
@@ -1375,6 +1451,131 @@ def check_run_twice(card: str) -> dict:
         del states
         torch.cuda.empty_cache()
     return out
+
+
+def headline_step_config(**options) -> steplib.SNDCGANTrainConfig:
+    """The headline SNDCGAN step (SN, hinge, bf16 compute), with `options`."""
+    return steplib.SNDCGANTrainConfig(
+        model=SNDCGANConfig(image_size=(HEIGHT, WIDTH, 3), base_width=BASE,
+                            spectral_norm=True, dtype=torch.bfloat16),
+        batch_size=BATCH, loss="hinge", **options)
+
+
+def option_run(cfg: steplib.SNDCGANTrainConfig, batches: torch.Tensor) -> dict:
+    """`len(batches)` steps of `cfg` from its seeded state through
+    make_train_step (the key words and z from the state's streams): the
+    launches, the state's digest, the peak device memory over the steps,
+    and the steps/s after the first step."""
+    dev = batches.device
+    torch.cuda.empty_cache()
+    state, step = steplib.init_state(cfg, dev), steplib.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state_bytes = torch.cuda.memory_allocated(dev)
+    zero_launches()
+    state, metrics = step(state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, metrics = step(state, b)
+    launches = read_launches()  # synchronizes
+    seconds = time.perf_counter() - t0
+    out = {"launches": launches, "grad_copies": adam.GRAD_COPIES["adam"],
+           "digest": dp.state_digest(state), "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "state_bytes": state_bytes, "steps_per_sec": (len(batches) - 1) / seconds,
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "moments": sorted({str(t.dtype) for t in state.g_opt.mu + state.d_opt.nu})}
+    require(all(math.isfinite(v) for v in out["metrics"].values()),
+            f"{cfg.opt_moments} remat_d={cfg.remat_d}: losses {out['metrics']}")
+    del state
+    return out
+
+
+def run_sndcgan_options(card: str) -> dict:
+    """The SNDCGAN step's opt_moments="bf16" and remat_d at the headline
+    configuration: exact launch counts, bit-equal states (the bf16 run
+    twice; remat_d against the run without it, float32 and bf16 moments),
+    peak memory and steps/s beside each."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batches = torch.randint(0, 256, (OPTION_STEPS, BATCH, HEIGHT, WIDTH, 3), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    runs = {}
+    for label, moments, remat in (("f32", "f32", False), ("f32_remat_d", "f32", True),
+                                  ("bf16", "bf16", False), ("bf16_again", "bf16", False),
+                                  ("bf16_remat_d", "bf16", True)):
+        runs[label] = option_run(headline_step_config(opt_moments=moments, remat_d=remat),
+                                 batches)
+    n, steps = steplib.N_SITES // 3, OPTION_STEPS  # 7 dropout sites a D pass
+    for label, r in runs.items():
+        bf16 = label.startswith("bf16")
+        want = {**no_launches(),
+                "leaky_relu_dropout_fwd": (3 * n + (2 * n if "remat" in label else 0)) * steps,
+                "leaky_relu_dropout_bwd": 3 * n * steps,
+                "adam_bf16" if bf16 else "adam": 3 * steps}
+        require(r["launches"] == want, f"{label}: launches {r['launches']}, expected {want}")
+        require(r["grad_copies"] == 0, f"{label}: {r['grad_copies']} adam gradient copies")
+        require(r["moments"] == (["torch.bfloat16"] if bf16 else ["torch.float32"]),
+                f"{label}: moments {r['moments']}")
+    require(runs["bf16"]["digest"] == runs["bf16_again"]["digest"],
+            "bf16 moments: the steps run twice from the seeded state differ")
+    require(runs["f32_remat_d"]["digest"] == runs["f32"]["digest"],
+            "remat_d (float32 moments): state differs from the run without it")
+    require(runs["bf16_remat_d"]["digest"] == runs["bf16"]["digest"],
+            "remat_d (bf16 moments): state differs from the run without it")
+    require(runs["bf16"]["digest"] != runs["f32"]["digest"], "bf16 moments changed nothing")
+    gib = 2.0**30
+    for label, r in runs.items():
+        log(f"sndcgan {label}: {steps} steps, launches {r['launches']}, peak "
+            f"{r['peak_bytes'] / gib:.3f} GiB (state {r['state_bytes'] / gib:.3f} GiB), "
+            f"{r['steps_per_sec']:.3f} steps/s over steps 2-{steps} ({card})")
+    log("sndcgan options: bf16 moments run twice bit-equal; remat_d bit-equal to the run "
+        "without it with float32 and with bf16 moments")
+    return {"config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2",
+            "steps": steps, "runs": {label: {k: v for k, v in r.items() if k != "digest"}
+                                     for label, r in runs.items()},
+            "bit_equal": {"bf16_run_twice": True, "f32_remat_d": True, "bf16_remat_d": True}}
+
+
+def check_profile_trace(card: str, work: str) -> dict:
+    """SNDCGANEngine(profile=True) for two epochs of 2 steps at the headline
+    configuration: one trace, of epoch 1, under <dir>/traces, with CUDA
+    kernel events among which the dropout kernels' and the Adam kernel's
+    (their launches go through ctypes, outside PyTorch's dispatcher)."""
+    dev = torch.device("cuda", 0)
+    dataset = SyntheticImageDataset(2 * BATCH, (HEIGHT, WIDTH), seed=5)
+    out = f"{work}/profiled"
+    engine = SNDCGANEngine(out, dataset, BATCH, image_size=(HEIGHT, WIDTH, 3), device=dev,
+                           spectral_norm=True, loss="hinge", dtype=torch.bfloat16,
+                           base_width=BASE, live_output=f"{work}/live_profiled", profile=True)
+    engine.train(2, 10)
+    files = sorted(os.listdir(f"{out}/traces"))
+    require(files == ["epoch_1.rank0.json"], f"traces {files}, expected epoch_1.rank0.json")
+    path = f"{out}/traces/{files[0]}"
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    require(kernels, f"{path}: no CUDA kernel events")
+    dropout_events = [e for e in kernels if "lrd_" in e["name"]]
+    adam_events = [e for e in kernels if "adam_multi_kernel" in e["name"]]
+    require(dropout_events, f"{path}: no dropout kernel (lrd_*) events")
+    require(adam_events, f"{path}: no Adam kernel (adam_multi_kernel) events")
+    steps = engine.num_batches
+    record = {
+        "trace": "traces/epoch_1.rank0.json", "bytes": os.path.getsize(path),
+        "events": len(events), "kernel_events": len(kernels), "steps": steps,
+        "dropout_kernel_events": len(dropout_events),
+        "dropout_launches": 2 * steplib.N_SITES * steps,
+        "adam_kernel_events": len(adam_events), "adam_launches": 3 * steps,
+        "kernel_names": sorted({e["name"] for e in dropout_events + adam_events}),
+        "device_ms": {"dropout": sum(e["dur"] for e in dropout_events) / 1e3,
+                      "adam": sum(e["dur"] for e in adam_events) / 1e3},
+    }
+    log(f"profile: {record['trace']} ({record['bytes']:,} bytes, {len(events)} events, "
+        f"{len(kernels)} kernel events): {len(dropout_events)} dropout kernel events of "
+        f"{record['dropout_launches']} launches, {len(adam_events)} Adam kernel events of "
+        f"{record['adam_launches']} launches; names {record['kernel_names']} ({card})")
+    return record
 
 
 def trace_terms(feats: np.ndarray) -> float:
@@ -2875,6 +3076,7 @@ def main(argv=None) -> int:
         return 0
     kernels = check_dropout(dev, card)
     kernels.append(check_adam(dev, card))
+    kernels.append(check_adam_bf16(dev, card))
     kernels += check_instance_norm(card)
     kernels += check_split_instance_norm(card)
     check_small_step_against_cpu(dev)
@@ -2885,6 +3087,8 @@ def main(argv=None) -> int:
         slices = {"sndcgan": run_sndcgan_slice(card, work),
                   "cyclegan": run_cyclegan_slice(card, work), "wgan": run_wgan_slice(card)}
         run_twice = check_run_twice(card)
+        options = run_sndcgan_options(card)
+        profile = check_profile_trace(card, work)
         offline = run_sampling_and_fid(card, work, dev)
         evaluation = run_evaluation(card, work, dev, kernels)
         data_parallel = run_data_parallel(card, work, dev)
@@ -2902,6 +3106,9 @@ def main(argv=None) -> int:
         k["launches_by_path"]["data_parallel"] = data_parallel["launches"][k["name"]]
         k["launches_by_path"]["spatial"] = spatial["launches"][k["name"]]
         k["launches_by_path"]["cyclegan_spatial"] = cg_spatial["launches"][k["name"]]
+        for label in ("bf16", "bf16_remat_d", "f32_remat_d"):
+            k["launches_by_path"][f"sndcgan_{label}"] = options["runs"][label]["launches"][
+                k["name"]]
         if k["name"].startswith("leaky"):  # phase 8a: rank 1's rows, with their base
             base = data_parallel["dropout_base"]
             k["at_rank_rows_with_base"] = {
@@ -2909,10 +3116,12 @@ def main(argv=None) -> int:
                 **base["fwd" if k["name"].endswith("fwd") else "bwd"]}
             k["at_spatial_shard"] = spatial["dropout_shard"][k["name"]]  # phase 9a
         # The path that runs it; Adam runs on both, and its record's times
-        # are the CycleGAN apply's, as are its launches; the split norm runs
-        # on the CycleGAN spatial path alone.
+        # are the CycleGAN apply's, as are its launches; its bfloat16-moment
+        # form runs on the SNDCGAN step with opt_moments="bf16"; the split
+        # norm runs on the CycleGAN spatial path alone.
         k["launches"] = k["launches_by_path"][
             "sndcgan" if k["name"].startswith("leaky") else
+            "sndcgan_bf16" if k["name"] == "adam_bf16" else
             "cyclegan_spatial" if k["name"] in SPLIT_NAMES else "cyclegan"]
         require(k["launches"] > 0, f"{k['name']}: no launch on its path")
         for p, r in k.get("by_path", {}).items():
@@ -2923,7 +3132,7 @@ def main(argv=None) -> int:
             "adam_grad_copies": r["grad_copies"]}
         for p, r in slices.items()}, "sampling_and_fid": offline, "evaluation": evaluation,
         "data_parallel": data_parallel, "spatial": spatial, "cyclegan_spatial": cg_spatial,
-        "run_twice": run_twice, "card": card,
+        "run_twice": run_twice, "sndcgan_options": options, "profile": profile, "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

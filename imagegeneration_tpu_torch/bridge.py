@@ -2,6 +2,10 @@
 
 Takes and returns nested dicts of numpy arrays, so it needs no jax: a test
 or an import script pulls the JAX side to numpy (`jax.device_get`) first.
+bfloat16 leaves (Adam moments with `opt_moments="bf16"`) come from JAX as
+`ml_dtypes.bfloat16` arrays, which `torch.from_numpy` refuses: they cross
+as their uint16 bits, and `ml_dtypes` is imported only to give such a
+leaf back.
 Collections covered: flax `params`, `batch_stats` (BN mean/var), `spectral`
 (SN `u`), Adam `mu`/`nu`/`count` (optax.ScaleByAdamState) and RMSprop `nu`
 (optax.ScaleByRmsState), whose trees have the params' structure.
@@ -161,14 +165,23 @@ def _param_leaves(model: nn.Module) -> Iterator[Leaf]:
 
 @torch.no_grad()
 def copy_in(dst: torch.Tensor, kind: str, a: np.ndarray) -> None:
-    src = torch.from_numpy(to_torch_layout(kind, a))
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16
+        src = torch.from_numpy(to_torch_layout(kind, a.view(np.uint16))).view(torch.bfloat16)
+    else:
+        src = torch.from_numpy(to_torch_layout(kind, a))
     if src.shape != dst.shape:
         raise ValueError(f"shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
     dst.copy_(src)
 
 
 def _to_numpy(t: torch.Tensor, kind: str) -> np.ndarray:
-    return to_flax_layout(kind, t.detach().cpu().numpy())
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return to_flax_layout(kind, t.view(torch.uint16).numpy()).view(ml_dtypes.bfloat16)
+    return to_flax_layout(kind, t.numpy())
 
 
 def load_flax_variables(model: nn.Module, variables: dict[str, dict]) -> None:

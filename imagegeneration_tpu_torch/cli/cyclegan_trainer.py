@@ -3,7 +3,8 @@
   python -m imagegeneration_tpu_torch.cli.cyclegan_trainer <bSize> <epochs>
       [-x DATA1] [-y DATA2] [-d DIR] [-c FREQ] [-ct] [--bf16]
       [--mesh-data N] [--mesh-spatial K] [--host-sharded-data]
-      [--height H] [--width W] [--quirk-axis1] [--seed S] [--device {cuda,cpu}]
+      [--height H] [--width W] [--quirk-axis1] [--seed S] [--profile]
+      [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.cyclegan_trainer. Training
 runs on one CUDA device, or with `--mesh-data N [--mesh-spatial K]` on N x K
@@ -17,8 +18,9 @@ kernels (tests, debugging; with `--mesh-data`, gloo ranks). As in the reference,
 training resumes from the latest checkpoint in the output directory
 whether or not `-ct` is given (the flag is parsed and has no effect).
 `-c` paces the generator exports `gen_weights_{f,g}-<epoch>.msgpack`:
-every epoch that is a multiple of it writes them. `--profile` is refused:
-the profiler is not ported (tools/profile_step.py measures the step).
+every epoch that is a multiple of it writes them. `--profile` writes a
+torch.profiler trace of the run's second epoch to `<dir>/traces/` (one
+file per rank).
 """
 
 from __future__ import annotations
@@ -65,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="bug-compatible tfa InstanceNormalization(axis=1)")
     parser.add_argument("--seed", type=int, default=62)
     parser.add_argument("--profile", action="store_true", default=False,
-                        help="not supported: use imagegeneration_tpu_torch."
-                        "tools.profile_step")
+                        help="write a torch.profiler trace of the second epoch "
+                        "into <dir>/traces (one file per rank)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default; fails without a GPU) or cpu "
                         "(plain kernel versions, for tests and debugging)")
@@ -76,8 +78,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.profile:
-        parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
     launch.run(parser, args, _train, _spatial_check)
 
 
@@ -106,6 +106,7 @@ def _train(args: argparse.Namespace, mesh) -> None:
         seed=args.seed,
         mesh=mesh,
         host_sharded_data=args.host_sharded_data,
+        profile=args.profile,
     )
     engine.train(args.epochs, args.chps)
 

@@ -4,7 +4,8 @@
       [-cf N] [-d DIR] [-x DATA] [-r RATE] [-ld LR] [-lg LR] [-lo NAME] [-ct]
       [--spectral-norm] [--loss {bce,hinge}] [--d-updates {1,2}] [--bf16]
       [--mesh-data N] [--mesh-spatial K] [--host-sharded-data]
-      [--height H] [--width W] [--z Z] [--seed S] [--device {cuda,cpu}]
+      [--height H] [--width W] [--z Z] [--seed S] [--preview-every N]
+      [--profile] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.sndcgan_trainer. Training
 runs on one CUDA device, or with `--mesh-data N [--mesh-spatial K]` on N x K
@@ -13,8 +14,10 @@ of rows, each split into K blocks of image rows (cli/launch.py; the guard
 refuses fewer than 2 rows per shard at H/8, as the JAX trainer does). `--device cpu`
 runs the same code on the CPU with the plain versions of the kernels
 (tests, debugging; with `--mesh-data`, gloo ranks). `-lo` names the
-live-preview PDF (`<name>.pdf`, drawn every epoch when matplotlib is
-installed). As in the reference, `epochs + 1` epochs are trained.
+live-preview PDF (`<name>.pdf`, drawn every `--preview-every` epochs when
+matplotlib is installed). `--profile` writes a torch.profiler trace of the
+second epoch to `<dir>/traces/` (one file per rank). As in the reference,
+`epochs + 1` epochs are trained.
 """
 
 from __future__ import annotations
@@ -77,6 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--width", type=int, default=256)
     parser.add_argument("--z", type=int, dest="z_size", default=128)
     parser.add_argument("--seed", type=int, default=62)
+    parser.add_argument("--preview-every", type=int, default=1,
+                        help="render the live preview every N epochs")
+    parser.add_argument("--profile", action="store_true", default=False,
+                        help="write a torch.profiler trace of the second epoch "
+                        "into <dir>/traces (one file per rank)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default; fails without a GPU) or cpu "
                         "(plain kernel versions, for tests and debugging)")
@@ -120,6 +128,8 @@ def _train(args: argparse.Namespace, mesh) -> None:
         live_output=args.liveOutput,
         mesh=mesh,
         host_sharded_data=args.host_sharded_data,
+        profile=args.profile,
+        preview_frequency=args.preview_every,
     )
     # Reference quirk preserved: Trainer.py:37 trains epochs+1.
     engine.train(args.epochs + 1, args.ckptFreq)

@@ -3,7 +3,7 @@
   python -m imagegeneration_tpu_torch.cli.wgan_trainer <bSize> <epochs>
       [-d DIR] [-c INTERVAL] [-ct] [-x DATA] [--n-critic N] [--gp LAMBDA]
       [--bf16] [--mesh-data N] [--mesh-spatial K] [--host-sharded-data]
-      [--height H] [--width W] [--seed S] [--device {cuda,cpu}]
+      [--height H] [--width W] [--seed S] [--profile] [--device {cuda,cpu}]
 
 The flags are those of imagegeneration_tpu.cli.wgan_trainer: the dataset
 directory defaults to the reference's hardcoded "bilderNeuro", n_critic to
@@ -17,7 +17,8 @@ its shard of the files; cli/launch.py). `--device cpu` runs the same code on the
 exports as in the reference: each epoch writes `model_%04d.msgpack` under
 g_models/ and c_models/ and removes the previous epoch's unless that
 epoch is a multiple of `-c`; the train state is checkpointed every epoch.
-`--profile` is refused: it is not ported.
+`--profile` writes a torch.profiler trace of the second epoch to
+`<dir>/traces/` (one file per rank).
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--width", type=int, default=256)
     parser.add_argument("--seed", type=int, default=62)
     parser.add_argument("--profile", action="store_true", default=False,
-                        help="not supported: use imagegeneration_tpu_torch."
-                        "tools.profile_step --workload wgan")
+                        help="write a torch.profiler trace of the second epoch "
+                        "into <dir>/traces (one file per rank)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default; fails without a GPU) or cpu "
                         "(for tests and debugging)")
@@ -72,8 +73,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.profile:
-        parser.error("--profile is not ported; use imagegeneration_tpu_torch.tools.profile_step")
     launch.run(parser, args, _train, _spatial_check)
 
 
@@ -104,6 +103,7 @@ def _train(args: argparse.Namespace, mesh) -> None:
         seed=args.seed,
         mesh=mesh,
         host_sharded_data=args.host_sharded_data,
+        profile=args.profile,
     )
     engine.train(args.epochs)
 

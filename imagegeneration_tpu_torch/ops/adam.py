@@ -1,5 +1,5 @@
 """Keras-form Adam apply over a list of float32 leaves: one kernel launch
-per apply, in place.
+per apply, in place; the moments m and v float32 or bfloat16.
 
 Replaces the TPU kernel of imagegeneration_tpu/ops/pallas/adam.py
 (`_kernel` behind `fused_adam_leaf`, one leaf per call):
@@ -13,18 +13,26 @@ tf.keras (imagegeneration_tpu/train/common.py). alpha is computed in float32
 on the device from the device step counter and read by the kernel from
 device memory, so an apply never syncs the host.
 
+bfloat16 moments (`opt_moments="bf16"`, the JAX package's
+`moment_dtype=jnp.bfloat16`, which its Pallas kernel never sees: it takes
+the inline XLA formula, imagegeneration_tpu/train/common.py:125-138) are
+read as float32, updated in float32, the parameter update taken from the
+float32 values, and stored rounded to nearest even.
+
 On the H100 the apply is bound by device-memory bandwidth: 28 bytes per
-element (read p, g, m, v; write p, m, v). The kernel (`csrc/adam.cu`) makes
-that one pass over every leaf of the list in one launch, with 16-byte loads
-over each leaf's aligned body, and updates p, m and v in place, so the
-optimizer holds one copy of its state:
+element (read p, g, m, v; write p, m, v), 20 with bfloat16 moments. The
+kernel (`csrc/adam.cu`) makes that one pass over every leaf of the list in
+one launch, with 16-byte loads over each leaf's aligned body (8-byte ones
+for bfloat16 moments), and updates p, m and v in place, so the optimizer
+holds one copy of its state:
 
 - `launch_groups` is the launch plan, computed here and only checked by the
-  kernel: each leaf's float4 body (from its first 16-byte-aligned element,
-  in whole float4s; empty when p, g, m, v are not aligned alike), its
+  kernel: each leaf's 4-element body (from its first element at which p
+  and g are 16-byte aligned and m and v 4 elements' aligned: 16 bytes as
+  float32, 8 as bfloat16; in whole quads; empty when the four disagree), its
   chunks of CHUNK elements counted from the body's start, and the groups
   of at most TABLE_LEAVES leaves, one launch each.
-- `LeafTable` checks p, m and v once (device, float32, shape, one dense
+- `LeafTable` checks p, m and v once (device, dtype, shape, one dense
   layout) and keeps the kernel's parameter tables filled but for g's
   pointers; an apply checks each g and makes one ctypes call per group.
 - `adam_apply` brings a g whose strides differ from p's to p's layout (one
@@ -35,7 +43,8 @@ optimizer holds one copy of its state:
 The kernel rounds every operation explicitly (no FMA contraction), so it
 evaluates the same float32 expressions as `adam_leaf_plain`, which a CPU
 tensor takes leaf by leaf. A CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts kernel launches.
+`LAUNCHES` counts the float32-moment form's launches (`adam_multi_f32`),
+`BF16_LAUNCHES` the bfloat16-moment form's (`adam_multi_bf16`).
 """
 
 from __future__ import annotations
@@ -52,7 +61,9 @@ from imagegeneration_tpu_torch.ops import native
 KERAS_EPS = 1e-7
 
 LAUNCHES = {"adam": 0}
+BF16_LAUNCHES = {"adam_bf16": 0}
 GRAD_COPIES = {"adam": 0}
+MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 CHUNK = 4096  # elements per chunk, counted from a leaf's body (a multiple of 4)
 TABLE_LEAVES = 512  # leaves per launch (kMaxLeaves in csrc/adam.cu)
@@ -71,8 +82,10 @@ def adam_leaf_plain(
     p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     alpha: torch.Tensor, b1: float, b2: float, eps: float = KERAS_EPS,
 ) -> None:
-    m_new = b1 * m + (1.0 - b1) * g
-    v_new = b2 * v + (1.0 - b2) * (g * g)
+    """One leaf in place. m and v may be bfloat16 (both): read as float32,
+    updated and used in float32, stored rounded to nearest even."""
+    m_new = b1 * m.float() + (1.0 - b1) * g
+    v_new = b2 * v.float() + (1.0 - b2) * (g * g)
     # float32 sqrt correctly rounded, as __fsqrt_rn and XLA give it: the
     # vectorized CPU torch.sqrt can be off by an ulp; a float64 sqrt
     # rounded to float32 never is.
@@ -96,8 +109,8 @@ def adam_plain(
 # -------------------------------------------------------------- launch plan
 @dataclasses.dataclass(frozen=True)
 class LeafSpan:
-    """One leaf of a launch: n elements; [body_begin, body_end) moves as
-    float4 (empty: body_begin = body_end = 0); `chunks` chunks."""
+    """One leaf of a launch: n elements; [body_begin, body_end) moves in
+    quads (empty: body_begin = body_end = 0); `chunks` chunks."""
 
     n: int
     body_begin: int
@@ -105,14 +118,20 @@ class LeafSpan:
     chunks: int
 
 
-def leaf_span(n: int, addresses: Sequence[int], chunk: int = CHUNK) -> LeafSpan:
-    """The span of a leaf of n float32 elements whose p, g, m, v start at
-    `addresses`: the body starts at the first element whose address is a
-    multiple of 16 in all four (so they must agree modulo 16) and holds
-    whole float4s; the chunks cover the elements from the body's start."""
-    mod = addresses[0] % 16
-    head = (16 - mod) % 16 // 4
-    if mod % 4 or any(a % 16 != mod for a in addresses) or n - head < _VEC:
+def leaf_span(n: int, addresses: Sequence[int], chunk: int = CHUNK,
+              moment_bytes: int = 4) -> LeafSpan:
+    """The span of a leaf of n elements whose p, g (float32), m and v
+    (`moment_bytes` wide: 4 float32, 2 bfloat16) start at `addresses`. The
+    body starts at the first element whose address is a multiple of four
+    elements' bytes in all four tensors (16 for float32, 8 for bfloat16),
+    so each must sit at the same element phase of that width, and holds
+    whole quads; the chunks cover the elements from the body's start."""
+    widths = (4, 4, moment_bytes, moment_bytes)
+    rems = [a % (_VEC * w) for a, w in zip(addresses, widths)]
+    phases = {r // w for r, w in zip(rems, widths)}
+    aligned = len(phases) == 1 and all(r % w == 0 for r, w in zip(rems, widths))
+    head = (_VEC - phases.pop()) % _VEC if aligned else 0
+    if not aligned or n - head < _VEC:
         head, quads = 0, 0
     else:
         quads = (n - head) // _VEC
@@ -123,7 +142,7 @@ def leaf_span(n: int, addresses: Sequence[int], chunk: int = CHUNK) -> LeafSpan:
 def chunk_bounds(span: LeafSpan, k: int, chunk: int = CHUNK) -> tuple[int, int, int, int]:
     """(start, vec_start, vec_stop, stop) of chunk k of a leaf, as the kernel
     computes them: [start, vec_start) and [vec_stop, stop) are scalar,
-    [vec_start, vec_stop) whole float4s of the body."""
+    [vec_start, vec_stop) whole quads of the body."""
     start = 0 if k == 0 else span.body_begin + k * chunk
     stop = span.n if k == span.chunks - 1 else span.body_begin + (k + 1) * chunk
     vec_start = max(start, span.body_begin)
@@ -143,16 +162,17 @@ class Group:
 
 def launch_groups(
     numels: Sequence[int], addresses: Sequence[Sequence[int]],
-    table_leaves: int = TABLE_LEAVES, chunk: int = CHUNK,
+    table_leaves: int = TABLE_LEAVES, chunk: int = CHUNK, moment_bytes: int = 4,
 ) -> list[Group]:
     """The launches of one apply: the non-empty leaves in list order, in
     groups of at most `table_leaves`. `addresses[i]` are the data pointers
-    of leaf i's p, g, m and v. An empty list is no launch."""
+    of leaf i's p, g, m and v; m and v are `moment_bytes` wide. An empty
+    list is no launch."""
     if chunk < _VEC or chunk % _VEC:
         raise ValueError(f"chunk must be a positive multiple of {_VEC}, got {chunk}")
     if not 1 <= table_leaves <= TABLE_LEAVES:
         raise ValueError(f"a table holds 1 to {TABLE_LEAVES} leaves, not {table_leaves}")
-    spans = [(i, leaf_span(n, a, chunk)) for i, (n, a) in
+    spans = [(i, leaf_span(n, a, chunk, moment_bytes)) for i, (n, a) in
              enumerate(zip(numels, addresses, strict=True)) if n > 0]
     groups = []
     for at in range(0, len(spans), table_leaves):
@@ -200,10 +220,11 @@ def _lib() -> ctypes.CDLL:
     """The built library, its entry points typed and its table layout
     checked against ctypes' once per process."""
     lib = native.load("adam")
-    lib.adam_multi_f32.restype = ctypes.c_int
-    lib.adam_multi_f32.argtypes = [ctypes.POINTER(AdamTable), ctypes.c_void_p]
+    for entry in (lib.adam_multi_f32, lib.adam_multi_bf16):
+        entry.restype = ctypes.c_int
+        entry.argtypes = [ctypes.POINTER(AdamTable), ctypes.c_void_p]
     lib.adam_grid_ctas.restype = ctypes.c_int
-    lib.adam_grid_ctas.argtypes = []
+    lib.adam_grid_ctas.argtypes = [ctypes.c_int]
     lib.adam_table_layout.restype = ctypes.c_int
     lib.adam_table_layout.argtypes = [ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
     want = table_layout()
@@ -215,9 +236,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def grid_ctas() -> int:
-    """CTAs of the kernel's persistent grid on the current device."""
-    n = _lib().adam_grid_ctas()
+def grid_ctas(moments: torch.dtype = torch.float32) -> int:
+    """CTAs of the persistent grid of the kernel's form for these moments
+    on the current device."""
+    n = _lib().adam_grid_ctas(int(moments == torch.bfloat16))
     if n < 0:
         native.check(_lib(), "adam_error_string", -n, "adam occupancy query")
     return n
@@ -241,10 +263,10 @@ def _dense(t: torch.Tensor) -> bool:
 
 
 class LeafTable:
-    """p, m and v of one optimizer state on the card, checked once (CUDA,
-    float32, shapes, one dense layout shared by each leaf's three), and the
-    kernel's parameter tables for them with every entry but g's pointer
-    filled.
+    """p, m and v of one optimizer state on the card, checked once (CUDA;
+    p float32, m and v all float32 or all bfloat16; shapes; one dense layout
+    shared by each leaf's three), and the kernel's parameter tables for them
+    with every entry but g's pointer filled.
 
     p, m and v must keep their storage (the optimizer state copies into
     them in place); `adam_apply` checks p's pointers on every apply."""
@@ -254,12 +276,17 @@ class LeafTable:
         if not params or not (len(params) == len(m) == len(v)):
             raise ValueError("params, m and v must be non-empty and of equal length")
         self.device = params[0].device
-        for name, ts in (("p", params), ("m", m), ("v", v)):
+        self.moment_dtype = m[0].dtype
+        if self.moment_dtype not in MOMENT_DTYPES:
+            raise ValueError(f"adam kernel: moments must be float32 or bfloat16, got "
+                             f"{self.moment_dtype}")
+        for name, ts, dtype in (("p", params, torch.float32), ("m", m, self.moment_dtype),
+                                ("v", v, self.moment_dtype)):
             for t, p in zip(ts, params):
                 if t.device != self.device or t.device.type != "cuda":
                     raise ValueError(f"adam kernel: {name} must be on the CUDA device of p")
-                if t.dtype != torch.float32:
-                    raise ValueError(f"adam kernel: {name} must be float32, got {t.dtype}")
+                if t.dtype != dtype:
+                    raise ValueError(f"adam kernel: {name} must be {dtype}, got {t.dtype}")
                 if t.shape != p.shape or not _same_layout(t, p.shape, p.stride()):
                     raise ValueError(
                         f"adam kernel: {name} shape {tuple(t.shape)} strides {t.stride()} "
@@ -282,7 +309,7 @@ class LeafTable:
         """The groups for these g pointers, each with its filled table."""
         groups = launch_groups(
             self.numels, list(zip(self.p_ptrs, g_ptrs, self.m_ptrs, self.v_ptrs)),
-            chunk=self.chunk)
+            chunk=self.chunk, moment_bytes=self.moment_dtype.itemsize)
         return [(group, fill_table(group, self.p_ptrs, self.m_ptrs, self.v_ptrs, self.chunk))
                 for group in groups]
 
@@ -303,8 +330,8 @@ def adam_kernel(
     table: LeafTable, grads: Sequence[torch.Tensor], alpha: torch.Tensor,
     b1: float, b2: float, eps: float = KERAS_EPS,
 ) -> None:
-    """One launch per group of `table`: g must match p in device, dtype,
-    shape and memory order."""
+    """One launch per group of `table`, of the kernel's form for its moments:
+    g must match p in device, dtype, shape and memory order."""
     if len(grads) != len(table.numels):
         raise ValueError(f"adam kernel: {len(grads)} grads for {len(table.numels)} leaves")
     if alpha.device != table.device or alpha.dtype != torch.float32 or alpha.numel() != 1:
@@ -325,14 +352,18 @@ def adam_kernel(
     if not launches:
         return
     lib = _lib()
+    if table.moment_dtype == torch.bfloat16:
+        entry, counts, key = lib.adam_multi_bf16, BF16_LAUNCHES, "adam_bf16"
+    else:
+        entry, counts, key = lib.adam_multi_f32, LAUNCHES, "adam"
     stream = torch.cuda.current_stream(table.device).cuda_stream
     for group, t in launches:
         t.g[:len(group.leaves)] = [g_ptrs[i] for i in group.leaves]
         t.alpha = alpha.data_ptr()
         t.b1, t.b2, t.one_minus_b1, t.one_minus_b2, t.eps = b1, b2, 1.0 - b1, 1.0 - b2, eps
-        rc = lib.adam_multi_f32(ctypes.byref(t), stream)
+        rc = entry(ctypes.byref(t), stream)
         native.check(lib, "adam_error_string", rc, "adam apply")
-        LAUNCHES["adam"] += 1
+        counts[key] += 1
 
 
 def _in_layout(g: torch.Tensor, shape: torch.Size, stride: tuple[int, ...]) -> torch.Tensor:
@@ -358,7 +389,8 @@ def adam_apply(
     b2: float = 0.999,
     table: LeafTable | None = None,
 ) -> None:
-    """One Keras-form Adam step over lists of float32 leaves, in place.
+    """One Keras-form Adam step over lists of float32 leaves (float32 or
+    bfloat16 moments), in place.
 
     `count` (0-d integer tensor on the leaves' device) is incremented first,
     as optax's safe_increment does, and alpha is derived from it. On the

@@ -43,7 +43,8 @@ FAMILIES = {
     "wgan": (wgan_step, bridge.load_jax_wgan_state, bridge.jax_wgan_state),
     "cyclegan": (cyclegan_step, bridge.load_jax_cyclegan_state, bridge.jax_cyclegan_state),
 }
-LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, inorm.LAUNCHES, inorm.SPLIT_LAUNCHES)
+LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, adam.BF16_LAUNCHES, inorm.LAUNCHES,
+                   inorm.SPLIT_LAUNCHES)
 
 
 def launches() -> dict[str, int]:

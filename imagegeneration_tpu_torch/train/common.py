@@ -23,7 +23,8 @@ step, whose parameters and optimizer states are float32): the leaves are
 float64 tensors holding float32 values (`place`), so a gradient is
 the float64 sum, averaged over the ranks in float64 and rounded to
 float32 once, in the apply, as the JAX step rounds its float64 sum; the
-optimizer states and arithmetic stay float32.
+optimizer states and arithmetic stay float32 (bfloat16 Adam moments stay
+bfloat16, rounded as on the card: ops/adam.adam_leaf_plain).
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ def reduce_grads(grads, group):
 @dataclasses.dataclass
 class AdamState:
     """optax.ScaleByAdamState's fields: step count and the two moments, one
-    float32 tensor per parameter, in the order of the parameter list."""
+    tensor per parameter (float32, or bfloat16 with `opt_moments="bf16"`),
+    in the order and layout of the parameter list."""
 
     count: torch.Tensor
     mu: list[torch.Tensor]
@@ -103,15 +105,18 @@ class AdamState:
                 dst.copy_(src)
 
 
-def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
+def adam_init(params: Sequence[torch.Tensor],
+              moment_dtype: torch.dtype = torch.float32) -> AdamState:
+    """Zero moments of `moment_dtype` (float32 or bfloat16), each in its
+    parameter's layout."""
     device = params[0].device
-    return AdamState(
-        count=torch.zeros((), dtype=torch.int64, device=device),
-        mu=[torch.zeros_like(p, dtype=torch.float32, memory_format=torch.preserve_format)
-            for p in params],
-        nu=[torch.zeros_like(p, dtype=torch.float32, memory_format=torch.preserve_format)
-            for p in params],
-    )
+
+    def zeros():
+        return [torch.zeros_like(p, dtype=moment_dtype, memory_format=torch.preserve_format)
+                for p in params]
+
+    return AdamState(count=torch.zeros((), dtype=torch.int64, device=device),
+                     mu=zeros(), nu=zeros())
 
 
 def adam_apply(

@@ -21,6 +21,10 @@ on the ranks of a data-parallel group:
   (:414-420);
 - after `train()`: the loss plot `plot_line_plot_loss.png`.
 
+`profile=True` traces the second epoch of the `train()` call with
+torch.profiler into `<path>/traces/` (core/metrics.ProfilerHook; one file
+per rank).
+
 The preview sheet and the loss plot need matplotlib; without it (the GPU
 machine) the engine prints one line when it is built and draws neither.
 
@@ -88,7 +92,9 @@ class CycleGANEngine:
         mesh=None,
         host_sharded_data: bool = False,
         spatial: bool | None = None,
+        profile: bool = False,
     ) -> None:
+        self.profile = profile
         w, h = image_size
         self.cfg = steplib.CycleGANTrainConfig(
             model=modellib.CycleGANConfig(
@@ -184,9 +190,13 @@ class CycleGANEngine:
         epoch, the generators exported every `checkpoint_frequency`."""
         start_time = perf_counter()
         watch = metricslib.Stopwatch()
+        profiler = metricslib.ProfilerHook(self.path, self.profile, self.device,
+                                           0 if self.mesh is None else self.mesh.rank)
+        first_real_epoch = self.epoch + 1  # the second epoch of this call
         for _ in range(epochs):
             watch.epoch_start()
             epoch = self.epoch
+            profiler.maybe_start(epoch, first_real_epoch)
             self._say(f"####### Epoch {epoch} #######")
             perms = [ds.permutation(epoch) for ds in self.feed.datasets]
             self.state, metrics = self.feed.run(self.state, perms)
@@ -194,6 +204,7 @@ class CycleGANEngine:
             # The epoch's one host sync: the device finishes its steps here.
             agg = {k: float(v.float().mean()) for k, v in metrics.items()}
             n_steps = self.num_batches
+            profiler.maybe_stop()
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
             self.last_digest = dp.check_replicated(self.state, self.mesh)
             if self.feed.dropped:

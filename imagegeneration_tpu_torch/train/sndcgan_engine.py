@@ -8,13 +8,18 @@ on the ranks of a data-parallel group:
   `losses.pickle`, keeps `max_to_keep=2` checkpoints and restores the
   latest one when `continue_`;
 - `train(num_epochs, checkpoint_frequency)` runs epochs [start,
-  num_epochs); every epoch it appends a line to `perf.jsonl` and draws a
-  3-image live preview into `<live_output>.pdf` (SNDCGAN.py:311-314);
+  num_epochs); every epoch it appends a line to `perf.jsonl`, and every
+  `preview_frequency` epochs (epoch % preview_frequency == 0; 1, the
+  reference's every epoch, by default) it draws a 3-image live preview
+  into `<live_output>.pdf` (SNDCGAN.py:311-314);
   every `checkpoint_frequency` epochs it checkpoints the whole train state,
   appends + pickles the loss history, writes the params-only exports
   `models/generator/gen_model-<e>.msgpack` ({params, batch_stats}) and
   `models/discriminator/disc_model-<e>.msgpack` ({params, spectral}) and
   redraws `plot_line_plot_loss.png` (:317-333).
+
+`profile=True` traces the run's second epoch with torch.profiler into
+`<dir>/traces/` (core/metrics.ProfilerHook; one file per rank).
 
 The preview and the loss plot need matplotlib; without it (the GPU
 machine) the engine prints one line when it is built and draws neither.
@@ -94,7 +99,11 @@ class SNDCGANEngine:
         mesh=None,
         host_sharded_data: bool = False,
         spatial: bool | None = None,
+        profile: bool = False,
+        preview_frequency: int = 1,
     ) -> None:
+        self.profile = profile
+        self.preview_frequency = max(1, preview_frequency)
         self.cfg = steplib.SNDCGANTrainConfig(
             model=modellib.SNDCGANConfig(
                 image_size=image_size, z_size=z_size, dropout_rate=dropout,
@@ -187,10 +196,13 @@ class SNDCGANEngine:
     def train(self, num_epochs: int, checkpoint_frequency: int = 5) -> None:
         start_time = perf_counter()
         watch = metricslib.Stopwatch()
+        profiler = metricslib.ProfilerHook(self.dir_path, self.profile, self.device,
+                                           0 if self.mesh is None else self.mesh.rank)
         local = {k: [] for k in LOSS_KEYS}
 
         for epoch in range(self.start_epoch, num_epochs):
             watch.epoch_start()
+            profiler.maybe_start(epoch, self.start_epoch + 1)
             if self.resident:
                 perm = self.chain.numpy_rng("data", epoch).permutation(len(self.dataset.images))
             else:
@@ -200,6 +212,7 @@ class SNDCGANEngine:
             n_steps = self.num_batches
             # The epoch's one host sync: the device finishes its steps here.
             agg = {k: float(v.float().mean()) for k, v in metrics.items()}
+            profiler.maybe_stop()
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
             self.last_digest = dp.check_replicated(self.state, self.mesh)
             if self.feed.dropped:
@@ -227,7 +240,9 @@ class SNDCGANEngine:
                 )
             )
             self._say(info_text)
-            if self.plots:  # the per-epoch preview (SNDCGAN.py:311-314)
+            # The reference's per-epoch preview (SNDCGAN.py:311-314), every
+            # preview_frequency epochs.
+            if self.plots and epoch % self.preview_frequency == 0:
                 gen = self.chain.generator("preview", self.device, step=epoch)
                 z = rnglib.uniform_z(gen, 3, self.cfg.model.z_size, self.device)
                 previewlib.live_preview(self.sample(z), info_text, self.live_preview_file)

@@ -23,6 +23,19 @@ returns new arrays); `train_step` returns the same state object.
 No host sync happens inside a step: the step counter, the key words, Adam's
 alpha and the metrics all stay on the device.
 
+Two options of the JAX step's config: `opt_moments="bf16"` stores Adam's m
+and v in bfloat16 (the update arithmetic stays float32; the Adam kernel's
+bfloat16-moment form, ops/adam.py), and `remat_d=True` runs D on the fake
+batch in the G pass and, with d_updates=2, the D-fake pass under
+`torch.utils.checkpoint.checkpoint` (where the JAX step puts
+`jax.checkpoint`): its activations are recomputed in the backward instead
+of kept. The recompute draws the same dropout masks, from the key words
+passed in, and writes no spectral-norm `u` (both passes run with
+update_sn=False), so the state is bit-equal to a run without it; with
+d_updates=2 the dropout forward kernel runs 14 more times a step (21 + 14
+forwards, 21 backwards) and, under a spatial partition, those passes' halo
+exchanges run again.
+
 Data parallelism (`group`, a core.mesh.DataGroup; parallel/dp.py): each
 rank takes its block of rows of the global batch. `z` is drawn for the
 global batch from `z_gen`, seeded alike on every rank, and each rank keeps
@@ -45,8 +58,10 @@ gradients are summed over the world and divided by the data size.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from imagegeneration_tpu_torch.core import rng as rnglib
 from imagegeneration_tpu_torch.core.data import normalize
@@ -71,6 +86,12 @@ class SNDCGANTrainConfig:
     # D optimizer applies per batch: 2 = the reference's (real, then the
     # stale fake on the real-updated D); 1 = one combined update.
     d_updates: int = 2
+    # Recompute D's activations on the fake batch in the backwards of the G
+    # pass and the D-fake pass instead of keeping them (the same state).
+    remat_d: bool = False
+    # Adam m/v storage: "f32" (the Keras trajectory) or "bf16" (float32
+    # arithmetic, moments rounded to bfloat16 after each apply).
+    opt_moments: str = "f32"
     seed: int = rnglib.DEFAULT_MODEL_SEED
 
     def __post_init__(self) -> None:
@@ -78,6 +99,12 @@ class SNDCGANTrainConfig:
             raise ValueError(f"unknown loss {self.loss!r}")
         if self.d_updates not in (1, 2):
             raise ValueError(f"d_updates must be 1 or 2, got {self.d_updates}")
+        if self.opt_moments not in ("f32", "bf16"):
+            raise ValueError(f"opt_moments must be 'f32' or 'bf16', got {self.opt_moments!r}")
+
+    @property
+    def moment_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.opt_moments == "bf16" else torch.float32
 
 
 @dataclasses.dataclass
@@ -125,8 +152,8 @@ def init_state(cfg: SNDCGANTrainConfig, device: torch.device | str) -> SNDCGANSt
         step=torch.zeros((), dtype=torch.int64, device=device),
         gen=gen,
         disc=disc,
-        g_opt=common.adam_init(list(gen.parameters())),
-        d_opt=common.adam_init(list(disc.parameters())),
+        g_opt=common.adam_init(list(gen.parameters()), cfg.moment_dtype),
+        d_opt=common.adam_init(list(disc.parameters()), cfg.moment_dtype),
         z_gen=chain.generator("z", device),
     )
 
@@ -175,9 +202,19 @@ def make_train_step(cfg: SNDCGANTrainConfig, group=None):
         def apply(params, grads, opt, lr):
             common.adam_apply(params, grads, opt, lr, group=group)
 
+        def d_on_fake(x, kw_pass):
+            """D on a fake batch, at the current `u` (not written); under
+            remat_d recomputed in the backward (no torch RNG inside: the
+            masks come from kw_pass)."""
+            run = functools.partial(disc, update_sn=False, rows=rows)
+            if cfg.remat_d:
+                return checkpoint(run, x, kw_pass, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return run(x, kw_pass)
+
         # ---- Generator update (D at the old `u`, not written).
         fake = gen(z, train=True)
-        logits_g = disc(fake, kw_g, update_sn=False, rows=rows)
+        logits_g = d_on_fake(fake, kw_g)
         if hinge:
             g_loss = common.hinge_g_loss(logits_g)
         else:
@@ -200,7 +237,7 @@ def make_train_step(cfg: SNDCGANTrainConfig, group=None):
             d_grads = torch.autograd.grad(d_loss_real, d_params)
             apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
             # ---- D update #2: stale fake batch on the real-updated D.
-            logits_fake = disc(fake, kw_fake, update_sn=False, rows=rows)
+            logits_fake = d_on_fake(fake, kw_fake)
             d_loss_fake = loss_fake(logits_fake)
             d_grads = torch.autograd.grad(d_loss_fake, d_params)
             apply(d_params, d_grads, state.d_opt, cfg.lr_disc)

@@ -26,6 +26,10 @@ on the ranks of a data-parallel group:
 - after `train()`, the loss plot `plot_line_plot_loss_<epoch>.png` with the
   reference's series labels (WGAN.py:270-277).
 
+`learning_rate` is RMSprop's (the reference's 5e-5 by default), and
+`profile=True` traces the run's second epoch with torch.profiler into
+`<path>/traces/` (core/metrics.ProfilerHook; one file per rank).
+
 The sample sheet and the loss plot need matplotlib; without it (the GPU
 machine) the engine prints one line when it is built and draws neither.
 
@@ -82,6 +86,7 @@ class WGANEngine:
         save_interval: int = 20,
         *,
         device: torch.device,
+        learning_rate: float = 5e-5,
         gp_lambda: float = 0.0,
         base_width: int = 512,
         dtype: torch.dtype = torch.float32,
@@ -89,12 +94,15 @@ class WGANEngine:
         mesh=None,
         host_sharded_data: bool = False,
         spatial: bool | None = None,
+        profile: bool = False,
     ) -> None:
+        self.profile = profile
         self.cfg = steplib.WGANTrainConfig(
             model=modellib.WGANConfig(image_size=image_size, base_width=base_width,
                                       dtype=dtype),
             batch_size=batch_size,
             n_critic=critic_learn_iterations,
+            learning_rate=learning_rate,
             gp_lambda=gp_lambda,
             seed=seed,
         )
@@ -214,9 +222,13 @@ class WGANEngine:
         self._c1_tmp, self._c2_tmp = [], []
         start_time = perf_counter()
         watch = metricslib.Stopwatch()
+        profiler = metricslib.ProfilerHook(self.path, self.profile, self.device,
+                                           0 if self.mesh is None else self.mesh.rank)
+        first_real_epoch = self.epoch + 2  # epochs count from 1: the run's second
         for _ in range(epochs - self.epoch):
             self.epoch += 1
             watch.epoch_start()
+            profiler.maybe_start(self.epoch, first_real_epoch)
             self._say(f"####### Epoch {self.epoch} "
                       f"Time: {strftime('%H:%M:%S', gmtime(perf_counter() - start_time))} #######")
             self.state, metrics = self.feed.run(
@@ -227,6 +239,7 @@ class WGANEngine:
                 [metrics[k].float() for k in steplib.METRIC_KEYS]).cpu().numpy()
             self._fold_metrics(c1, c2, g, did)
             n_steps = len(c1)
+            profiler.maybe_stop()
             perf = watch.epoch_report(n_steps, n_steps * self.batch_size)
             self.last_digest = dp.check_replicated(self.state, self.mesh)
             if self.feed.dropped:

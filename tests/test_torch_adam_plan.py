@@ -190,3 +190,129 @@ def test_cpu_walk_of_the_plan_is_bit_identical(offsets, chunk):
     for (p, _, m, v), (pw, mw, vw) in zip(leaves, want):
         for got, exp in ((p, pw), (m, mw), (v, vw)):
             assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+# ------------------------------------------------- bfloat16 moments (opt_moments="bf16")
+def _views_bf16(n, offsets, seed=0):
+    """p, g (float32) and m, v (bfloat16) of n elements, each a view
+    starting `offsets[i]` elements into its own fresh storage."""
+    p, g, m, v = _views(n, offsets, seed)
+    out = [p, g]
+    for i, t in ((2, m), (3, v)):
+        base = torch.zeros(n + 8, dtype=torch.bfloat16)
+        base[offsets[i]:offsets[i] + n] = t
+        out.append(base[offsets[i]:offsets[i] + n])
+    return out
+
+
+@pytest.mark.parametrize("chunk", [4, 64, adam.CHUNK])
+@pytest.mark.parametrize("offsets", [(0, 0, 0, 0), (1, 1, 1, 1), (3, 3, 3, 3), (0, 0, 4, 0),
+                                     (2, 2, 6, 2), (0, 1, 0, 0), (1, 1, 2, 1), (0, 0, 2, 0)])
+def test_bf16_plan_covers_every_element_once(offsets, chunk):
+    """bfloat16 m and v: every element once, the quads from an element at
+    which p and g are 16-byte and m and v 8-byte aligned."""
+    leaves = [_views_bf16(n, offsets, seed=n) for n in NS]
+    groups = adam.launch_groups(list(NS), [_addresses(leaf) for leaf in leaves], chunk=chunk,
+                                moment_bytes=2)
+    assert len(groups) == 1
+    for leaf, (seen, segments) in zip(leaves, _coverage(groups[0], chunk)):
+        assert (seen == 1).all()
+        for vec_start, vec_stop in segments:
+            assert (vec_stop - vec_start) % 4 == 0
+            for t in leaf:
+                assert (t.data_ptr() + t.element_size() * vec_start) % (4 * t.element_size()) == 0
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("offsets,head", [
+    ((0, 0, 0, 0), 0), ((1, 1, 1, 1), 3), ((3, 3, 3, 3), 1),
+    # m and v 8 bytes past a 16-byte boundary: a float32 moment there would
+    # leave the leaf scalar, a bfloat16 quad needs only 8 bytes
+    ((0, 0, 4, 4), 0), ((2, 2, 6, 2), 2), ((1, 1, 5, 1), 3)])
+def test_bf16_head_body_tail(n, offsets, head):
+    leaf = _views_bf16(n, offsets)
+    span = adam.leaf_span(n, _addresses(leaf), moment_bytes=2)
+    if n - head < 4:
+        assert (span.body_begin, span.body_end) == (0, 0)
+    else:
+        assert span.body_begin == head
+        assert (span.body_end - head) % 4 == 0 and 0 <= n - span.body_end < 4
+        for t in leaf:
+            assert (t.data_ptr() + t.element_size() * head) % (4 * t.element_size()) == 0
+    assert span.chunks == max(1, -(-(n - span.body_begin) // adam.CHUNK))
+
+
+@pytest.mark.parametrize("offsets", [(0, 0, 1, 0), (0, 0, 0, 2), (1, 1, 2, 1), (1, 0, 1, 1),
+                                     (2, 2, 2, 3)])
+def test_bf16_leaf_aligned_unlike_goes_scalar(offsets):
+    """m or v at another element phase of its 8-byte quads than p and g (or
+    p and g apart): no body."""
+    leaf = _views_bf16(4097, offsets)
+    span = adam.leaf_span(4097, _addresses(leaf), moment_bytes=2)
+    assert (span.body_begin, span.body_end, span.chunks) == (0, 0, 2)
+
+
+def test_bf16_moment_at_odd_byte_goes_scalar():
+    """An address that is not a whole bfloat16 element never starts a body."""
+    span = adam.leaf_span(64, (0, 0, 1, 0), moment_bytes=2)
+    assert (span.body_begin, span.body_end) == (0, 0)
+
+
+@pytest.mark.parametrize("chunk", [4, 64, 1024])
+@pytest.mark.parametrize("offsets", [(0, 0, 0, 0), (3, 3, 3, 3), (0, 0, 4, 0), (1, 1, 2, 1)])
+def test_bf16_cpu_walk_of_the_plan_is_bit_identical(offsets, chunk):
+    """With bfloat16 m and v, each chunk's head, body and tail through
+    `adam_leaf_plain` give the bits of whole-leaf `adam_leaf_plain`; p and
+    the float32 parameters' update read the float32 moments, which are
+    stored rounded to nearest even."""
+    alpha = adam.adam_alpha(torch.tensor(3), 2e-4, 0.9, 0.999)
+    leaves = [_views_bf16(n, offsets, seed=n) for n in NS]
+    for leaf in leaves:
+        leaf[3].abs_()
+    want = []
+    for p, g, m, v in leaves:
+        pw, mw, vw = p.clone(), m.clone(), v.clone()
+        adam.adam_leaf_plain(pw, g, mw, vw, alpha, 0.9, 0.999)
+        assert mw.dtype == vw.dtype == torch.bfloat16
+        want.append((pw, mw, vw))
+    groups = adam.launch_groups([leaf[0].numel() for leaf in leaves],
+                                [_addresses(leaf) for leaf in leaves], table_leaves=3,
+                                chunk=chunk, moment_bytes=2)
+    for group in groups:
+        for i, span in zip(group.leaves, group.spans):
+            p, g, m, v = leaves[i]
+            for k in range(span.chunks):
+                bounds = adam.chunk_bounds(span, k, chunk)
+                for a, b in zip(bounds, bounds[1:]):
+                    if b > a:
+                        adam.adam_leaf_plain(p[a:b], g[a:b], m[a:b], v[a:b], alpha, 0.9, 0.999)
+    for (p, _, m, v), (pw, mw, vw) in zip(leaves, want):
+        assert torch.equal(p.view(torch.int32), pw.view(torch.int32))
+        for got, exp in ((m, mw), (v, vw)):
+            assert torch.equal(got.view(torch.int16), exp.view(torch.int16))
+
+
+def test_bf16_plain_matches_the_float32_formula_rounded():
+    """The bfloat16-moment update is the float32 update from the widened
+    moments, its m and v rounded to nearest even: p bit-equal to the
+    float32 form's on the same (widened) moments."""
+    gen = torch.Generator().manual_seed(4)
+    p = torch.randn(1000, generator=gen)
+    g = torch.randn(1000, generator=gen)
+    m16 = torch.randn(1000, generator=gen).to(torch.bfloat16)
+    v16 = torch.rand(1000, generator=gen).to(torch.bfloat16)
+    alpha = adam.adam_alpha(torch.tensor(5), 2e-4, 0.9, 0.999)
+    p32, m32, v32 = p.clone(), m16.float(), v16.float()
+    adam.adam_leaf_plain(p32, g, m32, v32, alpha, 0.9, 0.999)
+    adam.adam_leaf_plain(p, g, m16, v16, alpha, 0.9, 0.999)
+    assert torch.equal(p.view(torch.int32), p32.view(torch.int32))
+    assert torch.equal(m16.view(torch.int16), m32.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(v16.view(torch.int16), v32.to(torch.bfloat16).view(torch.int16))
+
+
+def test_bf16_entry_point_in_the_source():
+    """Both forms are exported, and counted apart."""
+    text = SOURCE.read_text()
+    assert "int adam_multi_f32(const void* table_ptr, void* stream)" in text
+    assert "int adam_multi_bf16(const void* table_ptr, void* stream)" in text
+    assert adam.LAUNCHES.keys() == {"adam"} and adam.BF16_LAUNCHES.keys() == {"adam_bf16"}

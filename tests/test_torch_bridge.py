@@ -107,3 +107,46 @@ def test_conv_convt_to_rgb_dense_bn_match_flax():
         {"params": {"b": v["params"]}, "batch_stats": {"b": v["batch_stats"]}})
     np.testing.assert_allclose(_nhwc(t(_nchw(x), use_running_average=True)),
                                np.asarray(bn.apply(v, x)), **TOL)
+
+
+def test_bf16_moments_round_trip_is_exact():
+    """bfloat16 Adam moments (`opt_moments="bf16"`, ml_dtypes arrays on the
+    JAX side) through load_jax_train_state / jax_train_state, bit for bit."""
+    import ml_dtypes
+
+    from imagegeneration_tpu.train import sndcgan_step as jstep
+    from imagegeneration_tpu_torch.train import sndcgan_step as tstep
+
+    jcfg = jstep.SNDCGANTrainConfig(
+        model=jmodels.SNDCGANConfig(image_size=IMAGE, base_width=16, spectral_norm=True),
+        batch_size=2, opt_moments="bf16")
+    state = jax.device_get(jstep.init_state(jcfg))
+    rng = np.random.default_rng(5)
+
+    def draw(x):
+        return rng.normal(size=np.shape(x)).astype(ml_dtypes.bfloat16)
+
+    opt = lambda o: {"count": np.asarray(3), "mu": jax.tree.map(draw, o.mu),  # noqa: E731
+                     "nu": jax.tree.map(lambda x: np.abs(draw(x)), o.nu)}
+    want = {"step": np.asarray(3), "g_params": state.g_params,
+            "g_batch_stats": state.g_batch_stats, "g_opt": opt(state.g_opt),
+            "d_params": state.d_params, "d_spectral": state.d_spectral,
+            "d_opt": opt(state.d_opt)}
+    port = tstep.init_state(tstep.SNDCGANTrainConfig(
+        model=tmodels.SNDCGANConfig(image_size=IMAGE, base_width=16, spectral_norm=True),
+        batch_size=2, opt_moments="bf16"), "cpu")
+    bridge.load_jax_train_state(port, want)
+    assert {t.dtype for t in port.g_opt.mu + port.d_opt.nu} == {torch.bfloat16}
+    got = bridge.jax_train_state(port)
+    for key in ("g_opt", "d_opt"):
+        for m in ("mu", "nu"):
+            leaves = jax.tree.leaves(got[key][m])
+            assert {x.dtype for x in leaves} == {np.dtype(ml_dtypes.bfloat16)}
+            la = jax.tree_util.tree_leaves_with_path(got[key][m])
+            lb = jax.tree_util.tree_leaves_with_path(want[key][m])
+            assert [p for p, _ in la] == [p for p, _ in lb]
+            for (path, x), (_, y) in zip(la, lb):
+                np.testing.assert_array_equal(x.view(np.uint16), y.view(np.uint16),
+                                              err_msg=f"{key}.{m}{jax.tree_util.keystr(path)}")
+    _tree_equal(got["g_params"], want["g_params"])
+    _tree_equal(got["d_params"], want["d_params"])

@@ -233,12 +233,12 @@ def test_engine_resident_and_streaming_agree(tmp_path, monkeypatch):
 
 def test_cli_refuses_mesh_and_profile_flags(tmp_path, capsys):
     # data and spatial parallelism are ported (tests/test_torch_dp.py,
-    # tests/test_torch_spatial_cyclegan.py); what stays refused: a spatial
-    # partition the guard refuses (16 rows: 1 row per shard of 4 at H/4),
-    # --profile (not ported), host sharding without ranks, and more ranks
-    # than visible cards, which is never shrunk
+    # tests/test_torch_spatial_cyclegan.py), and --profile
+    # (test_cli_accepts_profile); what stays refused: a spatial partition
+    # the guard refuses (16 rows: 1 row per shard of 4 at H/4), host
+    # sharding without ranks, and more ranks than visible cards, which is
+    # never shrunk
     for flags, says in ((["--mesh-spatial", "4", "--height", "16"], "WRONG below 2"),
-                        (["--profile"], "not ported"),
                         (["--host-sharded-data"], "needs --mesh-data")):
         with pytest.raises(SystemExit):
             cyclegan_trainer.main(["1", "1", "-d", str(tmp_path), *flags])
@@ -248,3 +248,39 @@ def test_cli_refuses_mesh_and_profile_flags(tmp_path, capsys):
             cyclegan_trainer.main(["1", "1", "-d", str(tmp_path), "--mesh-data", "2"])
     args = cyclegan_trainer.build_parser().parse_args(["4", "2", "-ct"])
     assert args.continue_ and (args.height, args.width, args.device) == (128, 128, "cuda")
+
+
+def test_cli_accepts_profile(tmp_path, monkeypatch):
+    """--profile reaches the engine (whose trace test_engine_profile_traces_
+    the_second_epoch holds)."""
+    seen = {}
+
+    class Engine:
+        def __init__(self, *args, **kwargs):
+            seen["profile"] = kwargs["profile"]
+
+        def train(self, epochs, checkpoint_frequency):
+            seen["epochs"] = epochs
+
+    monkeypatch.setattr(cyclegan_engine, "CycleGANEngine", Engine)
+    cyclegan_trainer.main(["2", "2", "-d", str(tmp_path), "--device", "cpu", "--profile"])
+    assert seen == {"profile": True, "epochs": 2}
+    cyclegan_trainer.main(["2", "2", "-d", str(tmp_path), "--device", "cpu"])
+    assert seen == {"profile": False, "epochs": 2}
+
+
+@pytest.mark.usefixtures("no_figures")
+def test_engine_profile_traces_the_second_epoch(tmp_path):
+    """profile=True traces the second epoch of the train() call (the JAX
+    engine's maybe_start(i, 1)), named by its epoch, into <path>/traces; a
+    train() of one epoch writes none."""
+    eng = cyclegan_engine.CycleGANEngine(
+        *_datasets(), str(tmp_path / "run"), 1, IMAGE[:2], device=torch.device("cpu"),
+        base_width=8, n_res_blocks=1, profile=True)
+    eng.train(1)
+    assert not (tmp_path / "run" / "traces").exists()
+    eng.train(2)  # epochs 1 and 2: traces epoch 2
+    traces = sorted(p.name for p in (tmp_path / "run" / "traces").iterdir())
+    assert traces == ["epoch_2.rank0.json"]
+    events = json.loads((tmp_path / "run" / "traces" / traces[0]).read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" and e.get("cat") == "cpu_op" for e in events)

@@ -675,7 +675,8 @@ def _sharded_worker(group, family, root, folders):
         from imagegeneration_tpu_torch.train.wgan_engine import WGANEngine
 
         engine = WGANEngine(folders[0], (16, 16, 3), 4, 2, path_like=root, base_width=16,
-                            device=torch.device("cpu"), mesh=group, host_sharded_data=True)
+                            device=torch.device("cpu"), mesh=group, host_sharded_data=True,
+                            profile=True)
         datasets = [engine.dataset]
         engine.train(2)
     else:
@@ -683,7 +684,7 @@ def _sharded_worker(group, family, root, folders):
 
         engine = CycleGANEngine(*folders, root, 4, (96, 96), device=torch.device("cpu"),
                                 base_width=8, n_res_blocks=1, mesh=group,
-                                host_sharded_data=True)
+                                host_sharded_data=True, profile=True)
         datasets = [engine.loader.ds_x, engine.loader.ds_y]
         engine.train(2, 1)
     return {"rank": group.rank, "sizes": [len(d) for d in datasets],
@@ -699,7 +700,8 @@ def test_host_sharded_engines_partition_the_files(family, tmp_path, capfd):
     rank only; both ranks take the smaller shard's 2 batches of 2 rows, and
     the 3 rows of each domain the epoch leaves out are printed once per
     epoch by rank 0 (the reference's num_local_batches silently drops them,
-    and rows= with drop_remainder=False mis-partitions)."""
+    and rows= with drop_remainder=False mis-partitions). With profile=True
+    every rank writes its own trace of the run's second epoch."""
     folders = [str(tmp_path / f"d{i}") for i in range(1 if family == "wgan" else 2)]
     for i, f in enumerate(folders):
         _write_folder(f, 11, i)
@@ -717,6 +719,9 @@ def test_host_sharded_engines_partition_the_files(family, tmp_path, capfd):
         assert not set(a) & set(b) and len(a) + len(b) == 11
     assert out[0]["digest"] == out[1]["digest"]
     assert printed.count(f"host-sharded data: {3 * n_domains} rows left out this epoch") == 2
+    second = 2 if family == "wgan" else 1  # WGAN counts epochs from 1
+    assert sorted(os.listdir(tmp_path / "run" / "traces")) == [
+        f"epoch_{second}.rank{r}.json" for r in (0, 1)]
 
 
 def test_trainer_cli_runs_two_cpu_ranks(tmp_path):

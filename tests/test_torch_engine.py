@@ -147,3 +147,70 @@ def test_training_entry_points_hold_cudnn_to_deterministic_algorithms(monkeypatc
     assert platform.configure_numerics() == {
         "cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False,
         "cudnn.deterministic": True, "cudnn.benchmark": False}
+
+
+def _one_trace(run_dir, epoch):
+    """The run's traces: exactly one, of `epoch`, with events in it."""
+    traces = sorted(p.name for p in (Path(run_dir) / "traces").iterdir())
+    assert traces == [f"epoch_{epoch}.rank0.json"]
+    events = json.loads((Path(run_dir) / "traces" / traces[0]).read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" and e.get("cat") == "cpu_op" for e in events)
+
+
+def test_engine_profile_traces_the_second_epoch(tmp_path, monkeypatch):
+    """profile=True: one torch.profiler trace, of the run's second epoch,
+    under <dir>/traces (CPU activity here); a resumed run traces its own
+    second epoch; one epoch writes none."""
+    ds = datalib.SyntheticImageDataset(4, (16, 16))
+    kwargs = dict(image_size=(16, 16, 3), base_width=16, device=torch.device("cpu"),
+                  live_output=str(tmp_path / "live"), profile=True)
+    monkeypatch.setattr(sndcgan_engine.previewlib, "matplotlib_available", lambda s: False)
+    eng = sndcgan_engine.SNDCGANEngine(str(tmp_path / "p"), ds, 2, **kwargs)
+    eng.train(2, 1)
+    _one_trace(tmp_path / "p", 1)
+    resumed = sndcgan_engine.SNDCGANEngine(str(tmp_path / "p"), ds, 2, continue_=True, **kwargs)
+    (tmp_path / "p" / "traces" / "epoch_1.rank0.json").unlink()
+    resumed.train(4, 1)  # epochs 2 and 3: the run's second is 3
+    _one_trace(tmp_path / "p", 3)
+    one = sndcgan_engine.SNDCGANEngine(str(tmp_path / "q"), ds, 2, **kwargs)
+    one.train(1, 1)
+    assert not (tmp_path / "q" / "traces").exists()
+
+
+def test_preview_frequency_draws_every_nth_epoch(tmp_path, monkeypatch):
+    """preview_frequency=2 draws the live preview at epochs 0 and 2 only
+    (epoch % 2 == 0, as the JAX engine); 0 or less is 1, every epoch."""
+    drawn = []
+    monkeypatch.setattr(sndcgan_engine.previewlib, "matplotlib_available", lambda s: True)
+    monkeypatch.setattr(sndcgan_engine.previewlib, "live_preview",
+                        lambda samples, text, out: drawn.append((samples.shape, out)))
+    monkeypatch.setattr(sndcgan_engine.SNDCGANEngine, "plot_history", lambda self: None)
+    ds = datalib.SyntheticImageDataset(2, (16, 16))
+    live = str(tmp_path / "live")
+    for freq, want in ((2, [0, 2]), (0, [0, 1, 2, 3])):
+        drawn.clear()
+        eng = sndcgan_engine.SNDCGANEngine(
+            str(tmp_path / f"f{freq}"), ds, 2, image_size=(16, 16, 3), base_width=16,
+            device=torch.device("cpu"), live_output=live, preview_frequency=freq)
+        eng.train(4, 10)
+        assert len(drawn) == len(want) and eng.preview_frequency == max(1, freq)
+        assert all(d == ((3, 16, 16, 3), live + ".pdf") for d in drawn)
+    args = sndcgan_trainer.build_parser().parse_args(["2", "1"])
+    assert args.preview_every == 1 and not args.profile
+
+
+def test_cli_profile_and_preview_every(tmp_path, png_folder, monkeypatch):
+    """--profile and --preview-every reach the engine: a 2-epoch CLI run
+    writes the second epoch's trace."""
+    seen = {}
+    real = sndcgan_engine.SNDCGANEngine
+
+    def engine(*args, **kwargs):
+        seen.update(profile=kwargs["profile"], preview=kwargs["preview_frequency"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(sndcgan_engine, "SNDCGANEngine", engine)
+    out = tmp_path / "train"
+    _cli(out, png_folder, 1, "--profile", "--preview-every", "3")
+    assert seen == {"profile": True, "preview": 3}
+    _one_trace(out, 1)

@@ -212,6 +212,61 @@ def test_adam_multi_tensor_equals_plain(cuda, case):
     assert launches == -(-len(shapes) // adam.TABLE_LEAVES)
 
 
+def adam_bf16_against_plain(cuda, p, g, m, v, b1=0.9):
+    """The bfloat16-moment form (m and v of the inputs rounded to bfloat16)
+    against the plain version leaf by leaf, bit for bit; returns the
+    launches of that form, and checks the float32 form launched none."""
+    m, v = ([t.to(torch.bfloat16) for t in ts] for ts in (m, v))
+    alpha = adam.adam_alpha(torch.tensor(2, device=cuda), 1e-3, b1, 0.999)
+    pk, mk, vk = ([t.clone() for t in ts] for ts in (p, m, v))
+    before, f32_before = adam.BF16_LAUNCHES["adam_bf16"], adam.LAUNCHES["adam"]
+    adam.adam_kernel(adam.LeafTable(pk, mk, vk), g, alpha, b1, 0.999)
+    launches = adam.BF16_LAUNCHES["adam_bf16"] - before
+    assert adam.LAUNCHES["adam"] == f32_before
+    adam.adam_plain(p, g, m, v, alpha, b1, 0.999)
+    for a, b in zip(pk, p):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(mk + vk, m + v):
+        assert a.dtype == torch.bfloat16 and torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return launches
+
+
+@pytest.mark.parametrize("case", ["ragged", "misaligned", "moments_8_bytes_off",
+                                  "aligned_unlike", "channels_last", "longer_than_a_table"])
+def test_adam_bf16_moments_equal_plain(cuda, case):
+    """The bfloat16-moment form over ragged leaves, views at odd offsets,
+    moments 8 bytes past p's 16-byte phase (a body for bfloat16, none for
+    float32), moments at another element phase than p (scalar), channels_last
+    conv weights, and more leaves than one table holds."""
+    ns = [1, 2, 3, 4, 5, 7, 4095, 4096, 4097, 9001, 3 * adam.CHUNK + 5, 300_001]
+    shapes = [(n,) for n in ns]
+    if case == "ragged":
+        p, g, m, v = adam_inputs(cuda, shapes)
+    elif case == "misaligned":
+        p, g, m, v = adam_inputs(cuda, shapes, [i % 4 for i in range(len(ns))])
+    elif case in ("moments_8_bytes_off", "aligned_unlike"):
+        p, g, m, v = adam_inputs(cuda, shapes)
+        pad = 4 if case == "moments_8_bytes_off" else 1  # bfloat16 elements
+        m, v = ([torch.cat([t.new_zeros(pad), t]).to(torch.bfloat16)[pad:] for t in ts]
+                for ts in (m, v))
+    elif case == "channels_last":
+        shapes = [(64, 3, 3, 3), (128, 64, 4, 4), (3, 64, 3, 3), (256, 256, 3, 3), (64,)]
+        p, g, m, v = adam_inputs(cuda, shapes, channels_last=(0, 1, 2, 3))
+    else:
+        shapes = [((i * 37) % 301 + 1,) for i in range(adam.TABLE_LEAVES + 90)]
+        p, g, m, v = adam_inputs(cuda, shapes, [i % 4 for i in range(len(shapes))])
+    launches = adam_bf16_against_plain(cuda, p, g, m, v, b1=0.5)
+    assert launches == -(-len(shapes) // adam.TABLE_LEAVES)
+
+
+def test_adam_bf16_table_refuses_mixed_moments(cuda):
+    p, g, m, v = adam_inputs(cuda, [(5,), (7,)])
+    with pytest.raises(ValueError, match="bfloat16"):
+        adam.LeafTable(p, [t.to(torch.bfloat16) for t in m], v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        adam.LeafTable(p, [t.half() for t in m], [t.half() for t in v])
+
+
 def test_adam_kernel_is_deterministic(cuda):
     """Two calls on the same inputs give the same bits."""
     p, g, m, v = adam_inputs(cuda, [(4097,), (128, 64, 4, 4), (3,)], channels_last=(1,))

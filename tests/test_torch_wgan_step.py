@@ -147,7 +147,7 @@ def _leaves(got, want, name):
         yield where, np.abs(a - b), b
 
 
-def _check_params(got, want, name, applies):
+def _check_params(got, want, name, applies, flip=FLIP):
     for where, err, b in _leaves(got, want, name):
         n = applies(where)
         if n == 0:
@@ -155,7 +155,7 @@ def _check_params(got, want, name, applies):
             continue
         out = err > 1e-5 + 1e-5 * np.abs(b)
         assert out.mean() <= 0.005, f"{where}: {out.mean():.4%} beyond 1e-5"
-        assert err.max(initial=0) <= n * FLIP + 1e-5, f"{where}: {err.max()}"
+        assert err.max(initial=0) <= n * flip + 1e-5, f"{where}: {err.max()}"
 
 
 def _feeds_bn(where):
@@ -539,11 +539,10 @@ def test_engine_resident_and_streaming_agree(tmp_path, monkeypatch):
 # --------------------------------------------------------------------- CLI
 def test_cli_refuses_mesh_and_profile_flags(tmp_path, capsys):
     # data and spatial parallelism are ported (tests/test_torch_dp.py,
-    # tests/test_torch_spatial.py); what stays refused: a spatial axis
-    # without a data axis, --profile (not ported), host sharding without
-    # ranks, and more ranks than visible cards, which is never shrunk
+    # tests/test_torch_spatial.py), and --profile (test_cli_accepts_profile);
+    # what stays refused: a spatial axis without a data axis, host sharding
+    # without ranks, and more ranks than visible cards, which is never shrunk
     for flags, says in ((["--mesh-spatial", "2"], "needs --mesh-data >= 1"),
-                        (["--profile"], "not ported"),
                         (["--host-sharded-data"], "needs --mesh-data")):
         with pytest.raises(SystemExit):
             wgan_trainer.main(["1", "1", "-d", str(tmp_path), *flags])
@@ -576,3 +575,92 @@ def test_cli_trains_an_image_folder_on_the_cpu(tmp_path):
     assert (out / "plot_line_plot_loss_1.png").exists()
     assert [p.name for p in (out / "g_models").iterdir()] == ["model_0001.msgpack"]
     assert [p.name for p in (out / "c_models").iterdir()] == ["model_0001.msgpack"]
+
+
+def test_cli_accepts_profile(tmp_path, monkeypatch):
+    """--profile reaches the engine (whose trace test_engine_profile_traces_
+    the_second_epoch holds)."""
+    seen = {}
+
+    class Engine:
+        def __init__(self, *args, **kwargs):
+            seen["profile"] = kwargs["profile"]
+
+        def train(self, epochs):
+            seen["epochs"] = epochs
+
+    monkeypatch.setattr(wgan_engine, "WGANEngine", Engine)
+    wgan_trainer.main(["2", "2", "-d", str(tmp_path), "--device", "cpu", "--profile"])
+    assert seen == {"profile": True, "epochs": 2}
+    wgan_trainer.main(["2", "2", "-d", str(tmp_path), "--device", "cpu"])
+    assert seen == {"profile": False, "epochs": 2}
+
+
+@pytest.mark.usefixtures("no_figures")
+def test_engine_profile_traces_the_second_epoch(tmp_path):
+    """Epochs count from 1: profile=True traces epoch 2 of a fresh run into
+    <path>/traces, one file; a resumed run traces its own second epoch."""
+    eng = wgan_engine.WGANEngine(
+        datalib.SyntheticImageDataset(2, IMAGE[:2]), IMAGE, B, critic_learn_iterations=1,
+        path_like=str(tmp_path / "w"), device=torch.device("cpu"), base_width=16,
+        profile=True)
+    eng.train(2)
+    traces = sorted(p.name for p in (tmp_path / "w" / "traces").iterdir())
+    assert traces == ["epoch_2.rank0.json"]
+    events = json.loads((tmp_path / "w" / "traces" / traces[0]).read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" and e.get("cat") == "cpu_op" for e in events)
+    resumed = wgan_engine.WGANEngine(
+        datalib.SyntheticImageDataset(2, IMAGE[:2]), IMAGE, B, critic_learn_iterations=1,
+        path_like=str(tmp_path / "w"), load=True, device=torch.device("cpu"),
+        base_width=16, profile=True)
+    resumed.train(4)  # epochs 3 and 4
+    traces = sorted(p.name for p in (tmp_path / "w" / "traces").iterdir())
+    assert traces == ["epoch_2.rank0.json", "epoch_4.rank0.json"]
+
+
+LR_OTHER = 1e-3
+
+
+@pytest.mark.usefixtures("no_figures")
+def test_engine_learning_rate_reaches_the_step_and_matches_jax(tmp_path):
+    """The engine's learning_rate is RMSprop's in its step (the reference's
+    5e-5 by default): one float64 step at 1e-3 with a gan update (n_critic
+    1), from the JAX state, against the JAX step at 1e-3."""
+    default = _engine(tmp_path / "d")
+    assert default.cfg.learning_rate == LR
+    eng = wgan_engine.WGANEngine(
+        datalib.SyntheticImageDataset(2, IMAGE[:2]), IMAGE, B, critic_learn_iterations=1,
+        path_like=str(tmp_path / "w"), device=torch.device("cpu"), base_width=16,
+        learning_rate=LR_OTHER, dtype=torch.float64)
+    assert eng.cfg.learning_rate == LR_OTHER
+    old_x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        cfg = jstep.WGANTrainConfig(
+            model=JaxModelConfig(**MODEL, dtype=jax.numpy.float64), batch_size=B,
+            n_critic=1, learning_rate=LR_OTHER)
+        states, metrics = _jax_steps(cfg, 1, seed_gan_nu=True)
+    finally:
+        jax.config.update("jax_enable_x64", old_x64)
+    assert metrics[0]["did_gan_update"] == 1.0
+    batches, z_fake, z_gan = _inputs(1)
+    state = _port_state(eng.cfg, states[0])
+    state, m = tstep.make_train_step(eng.cfg)(
+        state, torch.from_numpy(batches[0]), torch.from_numpy(z_fake[0]),
+        torch.from_numpy(z_gan[0]))
+    for k, v in metrics[0].items():
+        assert float(m[k]) == pytest.approx(v, rel=1e-4, abs=1e-6), k
+    got, want = bridge.jax_wgan_state(state), states[1]
+    flip = 2 * np.sqrt(10.0) * LR_OTHER
+    _check_params(got["c_params"], want["c_params"], "c_params",
+                  lambda w: 2 + ("_bn" in w), flip)
+    _check_params(got["g_params"], want["g_params"], "g_params", lambda w: 1, flip)
+    for key in ("g_batch_stats", "c_batch_stats"):
+        _check_stats(got[key], want[key], key)
+    _check_nu(got["c_opt"]["nu"], want["c_opt"]["nu"], "c_nu", True)
+    _check_nu(got["gan_opt"]["nu"], want["gan_opt"]["nu"], "gan_nu", False)
+    # the step moved the weights by the larger rate: RMSprop's first steps
+    # move an entry by ~sqrt(10) * lr
+    moved = max(np.abs(np.asarray(a) - np.asarray(b)).max() for a, b in zip(
+        jax.tree.leaves(want["g_params"]), jax.tree.leaves(states[0]["g_params"])))
+    assert moved > 10 * np.sqrt(10.0) * LR

@@ -210,6 +210,23 @@ Phases (any failure raises, and the exit code is non-zero):
    and 9c, `--plant {local_in_stats,d_grad_every_peer,inner_reflect}` 9e,
    with that fault planted in the ranks, and passes when it moves them
    past SP_BOUND or CG_SP_BOUND (how the bounds were shown to catch them).
+10. The reference-weights migration (compat/keras_import.py) at the
+   reference shapes, without h5py (the card's machine has none), with the
+   launch counters zeroed before and read after: the Keras layer lists of
+   a reference SNDCGAN generator (256x144, base 512; its Dense kernel is
+   128 x 294,912) and of the CycleGAN generator (128x128, base 64, 9 res
+   blocks; per-channel norms and tfa axis=1 per-H norms), made from a
+   numpy seed as the .h5 readers return them, go through the port's
+   mapping functions, `export_params` and `load_params` into models on the
+   card (the base width from the export, `bridge.sndcgan_base_width`), the
+   export and the card's weights bit-equal to the tree; the SNDCGAN export
+   is sampled by the sampling CLI on the card and on the CPU, and each
+   CycleGAN export translates one batch on the card and on the CPU, each
+   within MIGRATION_BOUND; exactly 24 InstanceNorm forwards (the
+   per-channel translation) and no other kernel. It prints its seconds and
+   peak device memory beside the card; the launches are every kernel's
+   `launches_by_path["migration"]`. `--only-phase 10` runs the build and
+   phase 10 alone.
 
 Output: progress lines, then a JSON line with one record per kernel, the
 card's `name, power.limit` line, and as the last line
@@ -324,6 +341,12 @@ IN_EVAL_SHAPES = [(PD_IMAGES, *s[1:]) for s in IN_SHAPES]
 IN_EVAL_TIMED = IN_EVAL_SHAPES[0]
 IN_PER_TRANSLATION = 6 + 2 * CG_RES  # InstanceNorm forwards per generator pass
 EVAL_RTOL = 1e-4
+# Migration phase (10): one batch of samples (SNDCGAN, in [0, 1]) or
+# translations (CycleGAN, in [-1, 1]) from imported weights on the card
+# against the same batch on the CPU, max absolute difference: float32 in
+# other summation orders (TF32 off).
+MIGRATION_BATCH = 4
+MIGRATION_BOUND = 1e-4
 # Data-parallel phase: ranks, global batches per epoch, and the bounds of
 # the small 2-rank float32 steps against one process on the card, as
 # (metric error relative to max(1, |v|), state error per collection
@@ -3021,14 +3044,199 @@ def run_cyclegan_four_cards(card: str, work: str, ecfg: dict, phases, ref: dict,
     return {**four, "errors": err, "one_card": ref["perf"]}
 
 
+# ----------------------------------------------------------------- phase 10
+def keras_kernel(rng, shape: tuple, fan_in: int) -> np.ndarray:
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(fan_in**-0.5)
+
+
+def keras_sndcgan_generator_layers(rng) -> list:
+    """The reference SNDCGAN generator's Keras layers (SNDCGAN.py:25-66) at
+    256x144, base 512, as `keras_import.read_h5_layers` returns them from a
+    reference .h5: [(layer, {weight: array})] in model order, an empty dict
+    for a layer without weights. Kernels N(0, 1/fan_in), BatchNorm
+    statistics away from their init. A 4x4 stride-2 ConvTranspose sums 2x2
+    taps of each input channel into an output, so its fan-in is 4 x in."""
+    def bn(c: int) -> dict:
+        return {"gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                "beta": rng.normal(0, 0.1, c).astype(np.float32),
+                "moving_mean": rng.normal(0, 0.1, c).astype(np.float32),
+                "moving_variance": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+
+    stem = BASE * (HEIGHT // 8) * (WIDTH // 8)
+    layers = [("dense", {"kernel": keras_kernel(rng, (128, stem), 128)}),
+              ("batch_normalization", bn(stem)), ("re_lu", {}), ("reshape", {})]
+    feats = BASE
+    for i, out in enumerate((BASE // 2, BASE // 4, BASE // 8)):
+        layers += [(f"conv2d_transpose_{i}",
+                    {"kernel": keras_kernel(rng, (4, 4, out, feats), 4 * feats)}),
+                   (f"batch_normalization_{i + 1}", bn(out)), (f"re_lu_{i + 1}", {})]
+        feats = out
+    return layers + [("conv2d_transpose_3",
+                      {"kernel": keras_kernel(rng, (3, 3, 3, feats), 9 * feats)})]
+
+
+def keras_cyclegan_generator_stream(rng, per_h: bool) -> list:
+    """The reference CycleGAN generator's save_weights stream
+    (CycleGAN.py:161-183) at 128x128, base 64, 9 res blocks, as
+    `keras_import._read_save_weights_h5` returns it: [(weight path, array)],
+    per layer conv kernel (Conv2DTranspose: (k, k, out, in)), conv bias, IN
+    gamma, IN beta; with `per_h`, tfa InstanceNormalization(axis=1)
+    artifacts, one gamma/beta per row of the norm's input."""
+    h, b = CG_SIZE, CG_BASE
+    specs = ([(7, 3, b, h, False), (3, b, 2 * b, h // 2, False),
+              (3, 2 * b, 4 * b, h // 4, False)]
+             + [(3, 4 * b, 4 * b, h // 4, False)] * (2 * CG_RES)
+             + [(3, 4 * b, 2 * b, h // 2, True), (3, 2 * b, b, h, True), (7, b, 3, h, False)])
+    stream = []
+    for i, (k, cin, cout, rows, transpose) in enumerate(specs):
+        n = rows if per_h else cout
+        shape = (k, k, cout, cin) if transpose else (k, k, cin, cout)
+        stream += [(f"layer_{i}/kernel:0", keras_kernel(rng, shape, k * k * cin)),
+                   (f"layer_{i}/bias:0", rng.normal(0, 0.1, cout).astype(np.float32)),
+                   (f"layer_{i}/gamma:0", rng.uniform(0.5, 1.5, n).astype(np.float32)),
+                   (f"layer_{i}/beta:0", rng.normal(0, 0.1, n).astype(np.float32))]
+    return stream
+
+
+def flat_leaves(tree, at: str = "") -> dict:
+    if not isinstance(tree, dict):
+        return {at: tree}
+    return {p: a for k, v in tree.items() for p, a in flat_leaves(v, f"{at}/{k}").items()}
+
+
+def check_bit_equal(what: str, got: dict, want: dict) -> int:
+    """Every leaf of `want` in `got` with its shape, dtype and bytes; the
+    number of leaves."""
+    got, want = flat_leaves(got), flat_leaves(want)
+    require(sorted(got) == sorted(want), f"{what}: leaves {sorted(set(got) ^ set(want))}")
+    for path, a in want.items():
+        b = got[path]
+        require(b.shape == a.shape and b.dtype == a.dtype and b.tobytes() == a.tobytes(),
+                f"{what}: {path} differs")
+    return len(want)
+
+
+def migrate(tree: dict, export: str, model: torch.nn.Module, what: str) -> dict:
+    """Export a mapped tree, read it back and bridge it into `model` on the
+    card; the export and the card's weights bit-equal to the tree."""
+    ckptlib.export_params(export, tree)
+    loaded = load_params(export)
+    n = check_bit_equal(f"{what}: the export read back", loaded, tree)
+    bridge.load_flax_variables(model, loaded)
+    on_card = bridge.flax_variables(model)
+    check_bit_equal(f"{what}: the weights on the card", on_card,
+                    {c: t for c, t in tree.items() if t})
+    return {"leaves": n, "export_bytes": os.path.getsize(export)}
+
+
+def run_migration(card: str, work: str, dev: torch.device) -> dict:
+    """Phase 10: the reference-weights migration at the reference shapes,
+    without h5py. The Keras layer lists of a reference SNDCGAN generator
+    (256x144, base 512: its Dense kernel is 128 x 294,912) and of a CycleGAN
+    generator (128x128, base 64, 9 res blocks; per-channel and per-H norms)
+    go through the port's mapping functions, `export_params`, `load_params`
+    and the bridge onto the card (weights bit-equal to the tree); the
+    SNDCGAN export is sampled by the sampling CLI on the card and on the
+    CPU, the CycleGAN exports translate one batch on the card and on the
+    CPU, each within MIGRATION_BOUND; the launch counters zeroed before and
+    read after (24 InstanceNorm forwards: the per-channel translation on
+    the card; the per-H norm is plain torch)."""
+    from imagegeneration_tpu_torch.compat import keras_import
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_launches()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(10)
+    run = f"{work}/migration"
+    image = (HEIGHT, WIDTH, 3)
+    tree = keras_import.sndcgan_generator_tree(keras_sndcgan_generator_layers(rng))
+    base = bridge.sndcgan_base_width(tree)
+    require(base == BASE, f"imported base width {base}")
+    gen = Generator(SNDCGANConfig(image_size=image, base_width=base), torch.Generator()).to(dev)
+    out = {"sndcgan": migrate(tree, f"{run}/models/generator/gen_model-0.msgpack", gen,
+                              "sndcgan-gen")}
+    del gen
+    t_map = time.perf_counter()
+    args = (MIGRATION_BATCH, run, 1, "grid", 0, image, 128, 62)
+    epochs, on_card = generator_output.output_results_models(*args, device=dev,
+                                                             return_samples=True)
+    t_card = time.perf_counter()
+    _, on_cpu = generator_output.output_results_models(*args, device="cpu",
+                                                       return_samples=True)
+    t_cpu = time.perf_counter()
+    a, b = on_card[0], on_cpu[0]
+    err = float(np.abs(a - b).max())
+    require(epochs == [0] and a.shape == (MIGRATION_BATCH, *image) and bool(np.isfinite(a).all())
+            and 0.0 <= a.min() and a.max() <= 1.0, f"samples of the imported generator: "
+            f"epochs {epochs}, shape {a.shape}, range [{a.min()}, {a.max()}]")
+    require(err <= MIGRATION_BOUND, f"sndcgan-gen: card samples {err:.3g} from the CPU's "
+            f"(bound {MIGRATION_BOUND})")
+    out["sndcgan"].update({"max_abs_err": err, "range": [float(a.min()), float(a.max())],
+                           "std": float(a.std()), "card_s": t_card - t_map,
+                           "cpu_s": t_cpu - t_card})
+    log(f"phase 10 sndcgan-gen {HEIGHT}x{WIDTH} base {base}: {out['sndcgan']['leaves']} leaves, "
+        f"export {out['sndcgan']['export_bytes']} bytes, bit-equal read back and on the card; "
+        f"sampling CLI, {MIGRATION_BATCH} samples, card vs CPU max abs {err:.3g} (bound "
+        f"{MIGRATION_BOUND}), samples in [{a.min():.4f}, {a.max():.4f}] std {a.std():.4f}; "
+        f"map+export+load+bridge {t_map - t0:.2f} s, card {t_card - t_map:.2f} s, CPU "
+        f"{t_cpu - t_card:.2f} s")
+    x = torch.from_numpy(rng.uniform(-1, 1, (MIGRATION_BATCH, 3, CG_SIZE, CG_SIZE)).astype(
+        np.float32)).contiguous(memory_format=torch.channels_last)
+    for per_h in (False, True):
+        label = "per_h" if per_h else "per_channel"
+        t1 = time.perf_counter()
+        tree = keras_import.cyclegan_generator_tree(keras_cyclegan_generator_stream(rng, per_h))
+        cfg = CycleGANConfig(image_size=(CG_SIZE, CG_SIZE, 3), base_width=CG_BASE,
+                             n_res_blocks=CG_RES, quirk_axis1=per_h)
+        export = f"{run}/models/generator_g/gen_weights_g-{int(per_h)}.msgpack"
+        gen = CycleGANGenerator(cfg, torch.Generator()).to(dev).eval()
+        rec = migrate(tree, export, gen, f"cyclegan-gen {label}")
+        cpu_gen = CycleGANGenerator(cfg, torch.Generator()).eval()
+        bridge.load_flax_variables(cpu_gen, load_params(export))
+        with torch.no_grad():
+            y = gen(x.to(dev)).cpu()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            want = cpu_gen(x)
+        err = float((y - want).abs().max())
+        require(y.shape == x.shape and bool(torch.isfinite(y).all()),
+                f"cyclegan-gen {label}: translation {tuple(y.shape)}")
+        require(err <= MIGRATION_BOUND, f"cyclegan-gen {label}: card translation {err:.3g} "
+                f"from the CPU's (bound {MIGRATION_BOUND})")
+        rec.update({"max_abs_err": err, "std": float(y.std()), "card_s": t2 - t1,
+                    "cpu_s": time.perf_counter() - t2})
+        out[f"cyclegan_{label}"] = rec
+        log(f"phase 10 cyclegan-gen {label} {CG_SIZE}x{CG_SIZE} base {CG_BASE} {CG_RES} res "
+            f"blocks: {rec['leaves']} leaves, bit-equal read back and on the card; one batch "
+            f"of {MIGRATION_BATCH} card vs CPU max abs {err:.3g} (bound {MIGRATION_BOUND}), "
+            f"std {rec['std']:.4f}; map+export+load+bridge+card {t2 - t1:.2f} s, CPU "
+            f"{rec['cpu_s']:.2f} s")
+        del gen
+    launches = read_launches()
+    want = no_launches()
+    want["instance_norm_fwd"] = IN_PER_TRANSLATION
+    require(launches == want, f"phase 10: launches {launches}, expected {want}")
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    log(f"phase 10 (reference-weights migration): {seconds:.1f} s, peak device memory "
+        f"{peak / 2**30:.3f} GiB over the {held / 2**30:.3f} GiB held before it; launches "
+        f"{launches} ({card})")
+    return {**out, "launches": launches, "seconds": seconds, "peak_bytes": peak,
+            "bound": MIGRATION_BOUND}
+
+
 def parse_args(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    parser.add_argument("--only-phase", choices=["9", "9d", "9e", "9f"], default=None,
+    parser.add_argument("--only-phase", choices=["9", "9d", "9e", "9f", "10"], default=None,
                         help="build the kernels and run phase 9a-9d (SNDCGAN and WGAN "
                         "spatial) alone, its 4-card part 9d, phase 9e (CycleGAN spatial), "
-                        "or its 4-card part 9f, each with the one-card run it is held to")
+                        "or its 4-card part 9f, each with the one-card run it is held to, "
+                        "or phase 10 (the reference-weights migration)")
     parser.add_argument("--plant", choices=SP_FAULTS + CG_FAULTS, default=None,
                         help="phase 9b/9c (SP_FAULTS) or 9e (CG_FAULTS) with this fault "
                         "planted in the spatial ranks; passes when it moves them past "
@@ -3070,6 +3278,9 @@ def main(argv=None) -> int:
                     cyclegan_replayed_step(work, ecfg, dev))
             elif args.only_phase == "9e" or args.plant in CG_FAULTS:
                 spatial = run_cyclegan_spatial(card, work, dev, args.plant)
+            elif args.only_phase == "10":
+                print(json.dumps({"migration": run_migration(card, work, dev), "card": card}))
+                return 0
             else:
                 spatial = run_spatial(card, work, dev, args.plant)
         print(json.dumps({"spatial": spatial, "card": card}))
@@ -3094,6 +3305,7 @@ def main(argv=None) -> int:
         data_parallel = run_data_parallel(card, work, dev)
         spatial = run_spatial(card, work, dev)
         cg_spatial = run_cyclegan_spatial(card, work, dev)
+        migration = run_migration(card, work, dev)
     names = {k["name"] for k in kernels}
     for p, r in slices.items():
         require(set(r["launches"]) == names, f"{p}: counters {sorted(r['launches'])} "
@@ -3106,6 +3318,7 @@ def main(argv=None) -> int:
         k["launches_by_path"]["data_parallel"] = data_parallel["launches"][k["name"]]
         k["launches_by_path"]["spatial"] = spatial["launches"][k["name"]]
         k["launches_by_path"]["cyclegan_spatial"] = cg_spatial["launches"][k["name"]]
+        k["launches_by_path"]["migration"] = migration["launches"][k["name"]]
         for label in ("bf16", "bf16_remat_d", "f32_remat_d"):
             k["launches_by_path"][f"sndcgan_{label}"] = options["runs"][label]["launches"][
                 k["name"]]
@@ -3132,7 +3345,8 @@ def main(argv=None) -> int:
             "adam_grad_copies": r["grad_copies"]}
         for p, r in slices.items()}, "sampling_and_fid": offline, "evaluation": evaluation,
         "data_parallel": data_parallel, "spatial": spatial, "cyclegan_spatial": cg_spatial,
-        "run_twice": run_twice, "sndcgan_options": options, "profile": profile, "card": card,
+        "run_twice": run_twice, "sndcgan_options": options, "profile": profile,
+        "migration": migration, "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

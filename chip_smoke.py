@@ -21,11 +21,19 @@ Phases (any failure raises, and the exit code is non-zero):
    `warm_ms`:
    - SNDCGAN (256x144, batch 32, base_width 512, bf16): the fused LeakyReLU
      + hash dropout forward and backward at each of the four distinct
-     discriminator site shapes (timed at the largest);
+     discriminator site shapes, bit-equal to the plain versions, the
+     forward through its vector path; both timed at every site, L2 flushed
+     and warm, beside a PyTorch call that moves the same bytes (`copy_`,
+     `torch.add`), against a bound that prices the mask's integer work at
+     the int32 rate (64 lanes an SM) beside the bytes. Phase 5 requires
+     every forward of the SNDCGAN slice to take the vector path
+     (`dropout.FWD_PATHS`);
    - Keras Adam: one multi-tensor launch over every generator and
      discriminator leaf of each slice, with that slice's b1 (SNDCGAN 0.9,
      CycleGAN 0.5), bit-identical to the plain version leaf by leaf; timed
-     per slice, with the host time per apply of the slice's own applies;
+     per slice, with the host time per apply of the slice's own applies,
+     beside the library call of the same update (torch._fused_adam_ with
+     eps rescaled, tools/adam_times.py), first held to the plain version;
    - the Adam kernel's bfloat16-moment form (`opt_moments="bf16"`) at the
      29 SNDCGAN leaves: p, m and v bit-equal to the plain version leaf by
      leaf; timed with the L2 flushed and warm, beside the float32 form on
@@ -283,6 +291,7 @@ from imagegeneration_tpu_torch.ops import instance_norm as inorm
 from imagegeneration_tpu_torch.ops.sqrtm import sqrtm_newton_schulz
 from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.tools import dp_parity
+from imagegeneration_tpu_torch.tools import adam_times, dropout_times
 from imagegeneration_tpu_torch.tools import in_plans as in_plans_tool
 from imagegeneration_tpu_torch.tools import split_times
 from imagegeneration_tpu_torch.tools.devtime import L2Flush, device_ms
@@ -442,7 +451,7 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def zero_launches() -> None:
-    for counts in (*LAUNCH_COUNTERS, adam.GRAD_COPIES):
+    for counts in (*LAUNCH_COUNTERS, adam.GRAD_COPIES, dropout.FWD_PATHS):
         for k in counts:
             counts[k] = 0
 
@@ -465,24 +474,37 @@ def max_ulp_f32(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((key(a) - key(b)).abs().max())
 
 
-def disc_site_shapes() -> list[tuple[int, int, int, int]]:
-    """The distinct (B, C, H, W) dropout-site shapes of the headline D."""
-    shapes, h, w = [], HEIGHT, WIDTH
+def site_launches() -> dict[tuple[int, int, int, int], int]:
+    """Dropout launches per headline step at each distinct (B, C, H, W) site
+    shape of the headline D, in trunk order: one per trunk layer of that
+    shape in each of the step's three D passes."""
+    per_shape, h, w = {}, HEIGHT, WIDTH
     for filters, _, (sh, sw) in DISC_TRUNK:
         h, w = -(-h // sh), -(-w // sw)
-        if (BATCH, filters, h, w) not in shapes:
-            shapes.append((BATCH, filters, h, w))
-    return shapes
+        shape = (BATCH, filters, h, w)
+        per_shape[shape] = per_shape.get(shape, 0) + steplib.N_SITES // len(DISC_TRUNK)
+    return per_shape
+
+
+def disc_site_shapes() -> list[tuple[int, int, int, int]]:
+    """The distinct (B, C, H, W) dropout-site shapes of the headline D."""
+    return list(site_launches())
 
 
 def check_dropout(dev: torch.device, card: str) -> list[dict]:
-    """Kernel vs plain at every distinct D site shape of the headline step
-    (bf16, channels_last); timed at the largest, (32, 64, 144, 256)."""
+    """Kernel vs plain, bit for bit, at every distinct D site shape of the
+    headline step (bf16, channels_last), each forward through the vector
+    path; both kernels timed at every site, L2 flushed and warm, beside the
+    plain version and a PyTorch call that moves the same bytes (the
+    forward's `copy_`, the backward's `torch.add(x, g, out=dx)`: the card's
+    practical ceiling); the record's times are the largest site's."""
     kw = KeyChain(7).dropout_kw(torch.zeros((), dtype=torch.int64, device=dev), 1)[0]
     cut = dropout.dropout_cut(0.5)
     names = ("leaky_relu_dropout_fwd", "leaky_relu_dropout_bwd")
+    shapes, per_step = disc_site_shapes(), site_launches()
+    flush = L2Flush(dev)
+    sites = {name: [] for name in names}
     max_err = dict.fromkeys(names, 0.0)
-    shapes = disc_site_shapes()
     for shape in shapes:
         gen = torch.Generator(device=dev).manual_seed(sum(shape))
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -497,51 +519,62 @@ def check_dropout(dev: torch.device, card: str) -> list[dict]:
                 f"dropout mask differs from plain at {shape}")
         frac = keep_kernel.float().mean().item()
         require(abs(frac - 0.5) < 1e-3, f"dropout keep fraction {frac} at {shape}")
+        vector = dropout.FWD_PATHS["vector"]
         for name, kernel, plain in (
             (names[0], lambda: dropout.fwd_kernel(x, kw, cut),
              lambda: dropout.fwd_plain(x, kw, cut)),
             (names[1], lambda: dropout.bwd_kernel(x, g, kw, cut),
              lambda: dropout.bwd_plain(x, g, kw, cut)),
         ):
-            yk, yp = kernel().float(), plain().float()
-            err = (yk - yp).abs()
-            require(torch.equal(yk == 0, yp == 0), f"{name} {shape}: zero pattern differs")
-            require(bool((err <= yp.abs() * BF16_ULP).all()),
-                    f"{name} {shape}: beyond 1 bf16 ulp")
-            max_err[name] = max(max_err[name], err.max().item())
-        log(f"dropout kernels at {shape}: mask identical, max abs err "
-            f"fwd {max_err[names[0]]:.3g} bwd {max_err[names[1]]:.3g}")
-
-    # Timed at the largest site shape.
-    b, c, h, w = shapes[0]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(shapes[0], generator=gen, device=dev).to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
-    g = torch.randn(shapes[0], generator=gen, device=dev).to(torch.bfloat16)
-    g = g.contiguous(memory_format=torch.channels_last)
-    out = []
-    for name, kernel, plain, line in (
-        (names[0], lambda: dropout.fwd_kernel(x, kw, cut),
-         lambda: dropout.fwd_plain(x, kw, cut), 50),
-        (names[1], lambda: dropout.bwd_kernel(x, g, kw, cut),
-         lambda: dropout.bwd_plain(x, g, kw, cut), 61),
-    ):
-        times = timing(kernel, plain)
-        n_tensors = 2 if name == names[0] else 3  # x, y / x, g, dx
-        out.append({
+            yk, yp = kernel(), plain()
+            max_err[name] = max(max_err[name], (yk.float() - yp.float()).abs().max().item())
+            require(torch.equal(yk.view(torch.int16), yp.view(torch.int16)),
+                    f"{name} {shape}: not bit-equal to the plain version")
+            del yk, yp
+        require(dropout.FWD_PATHS["vector"] == vector + 1,
+                f"the forward at {shape} did not take the vector path")
+        out = torch.empty_like(x)
+        for name, kernel, plain, ceiling, n_tensors in (
+            (names[0], lambda: dropout.fwd_kernel(x, kw, cut),
+             lambda: dropout.fwd_plain(x, kw, cut), lambda: out.copy_(x), 2),
+            (names[1], lambda: dropout.bwd_kernel(x, g, kw, cut),
+             lambda: dropout.bwd_plain(x, g, kw, cut), lambda: torch.add(x, g, out=out), 3),
+        ):
+            times = timing(kernel, plain, flush=flush)
+            times["copy_ms"] = device_ms(ceiling, 20, flush=flush)
+            times["copy_warm_ms"] = device_ms(ceiling, 20)
+            site = {"shape_nchw": list(shape), "launches_per_step": per_step[shape], **times,
+                    **dropout_times.bound(n_tensors, x.numel(), x.element_size())}
+            site["share"] = site["bound_ms"] / site["ms"]
+            sites[name].append(site)
+            log(f"{name} at {shape} bf16 ({site['launches_per_step']} a step): "
+                f"{times['ms']:.4f} ms flushed, {times['warm_ms']:.4f} warm; bound "
+                f"{site['bound_ms']:.4f} (bytes {site['bytes_ms']:.4f}, int32 "
+                f"{site['int_ms']:.4f}), {100 * site['share']:.0f}%; copy of the same bytes "
+                f"{times['copy_ms']:.4f} / {times['copy_warm_ms']:.4f}; plain "
+                f"{times['plain_ms']:.4f} ms ({card})")
+        del x, g, out, keep_kernel, keep_plain
+    del flush
+    records = []
+    for name, line in ((names[0], 50), (names[1], 61)):
+        largest = sites[name][0]
+        records.append({
             "name": name, "route": "cuda",
             "source": "imagegeneration_tpu_torch/csrc/leaky_relu_dropout.cu",
             "replaces": f"imagegeneration_tpu/ops/pallas/dropout.py:{line}",
-            "max_abs_err": max_err[name], "tolerance": "1 bf16 ulp, mask exact",
+            "max_abs_err": max_err[name], "tolerance": "bit-equal to the plain version",
             "checked_shapes_nchw": [list(s) for s in shapes],
-            **times, "timed_shape_nhwc": [b, h, w, c], "dtype": "bfloat16",
-            # ~20 integer and float operations per element (hash, select, scale)
-            **bound(n_tensors * x.numel() * x.element_size(), 20 * x.numel()),
+            **{k: v for k, v in largest.items() if k != "shape_nchw"},
+            "timed_shape_nhwc": [largest["shape_nchw"][i] for i in (0, 2, 3, 1)],
+            "dtype": "bfloat16", "sites": sites[name],
+            "ms_per_step": sum(s["ms"] * s["launches_per_step"] for s in sites[name]),
+            "bound_ms_per_step": sum(s["bound_ms"] * s["launches_per_step"]
+                                     for s in sites[name]),
             "library_note": "no PyTorch call computes this hash-masked dropout",
         })
-        log(f"{name} at {shapes[0]}: kernel {times['ms']:.4f} ms, plain "
-            f"{times['plain_ms']:.4f} ms device time ({card})")
-    return out
+        log(f"{name}: {records[-1]['ms_per_step']:.4f} ms a step at the four sites "
+            f"(flushed), bound {records[-1]['bound_ms_per_step']:.4f} ({card})")
+    return records
 
 
 def adam_leaves(path: str, dev: torch.device) -> tuple[list[list[torch.Tensor]], float]:
@@ -611,19 +644,28 @@ def check_adam_path(path: str, dev: torch.device, card: str) -> dict:
         worst = max(worst, max_ulp_f32(a, b))
         max_err = max(max_err, (a - b).abs().max().item())
     require(worst == 0, f"adam kernel {worst} ulp from plain on {path} leaves (bound 0)")
+    # The one PyTorch call of the same update (tools/adam_times.py), held to
+    # the plain version first.
+    lib_distance = adam_times.library_distance(leaves, grads, ms_, vs_, b1, adam)
+    require(max(lib_distance.values()) <= adam_times.LIBRARY_MAX_ULP,
+            f"adam library call {lib_distance} ulps from plain on {path} leaves")
+    pl, ml, vl = ([t.clone() for t in ts] for ts in (leaves, ms_, vs_))
 
     times = timing(lambda: adam.adam_kernel(table, grads, alpha, b1, 0.999),
-                   lambda: adam.adam_plain(pk, grads, mk, vk, alpha, b1, 0.999), iters=10)
+                   lambda: adam.adam_plain(pk, grads, mk, vk, alpha, b1, 0.999),
+                   adam_times.library_call(pl, grads, ml, vl, b1), iters=10)
     host = adam_host_us(models, b1, dev)
     n = sum(p.numel() for p in leaves)
     log(f"adam on {path} ({len(leaves)} leaves, {n:,} elements, b1={b1}): one launch "
         f"({len(table.launches)} group, {adam.grid_ctas()} CTAs, chunk {adam.CHUNK}) "
-        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms device time, max {worst} "
-        f"ulp; host {host['host_us_per_apply']:.1f} us per apply of the step's "
+        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, library call "
+        f"{times['library_ms']:.4f} ms ({lib_distance} ulps of its terms from plain) device "
+        f"time, max {worst} ulp; host {host['host_us_per_apply']:.1f} us per apply of the step's "
         f"{len(models)} models ({card})")
     # read p, g, m, v and write p, m, v; ~12 float32 operations each
     return {"b1": b1, "leaves": len(leaves), "elements": n, "max_abs_err": max_err,
-            "max_ulp": worst, "launches_per_apply_all_leaves": len(table.launches),
+            "max_ulp": worst, "library_distance_ulps": lib_distance,
+            "launches_per_apply_all_leaves": len(table.launches),
             "grid_ctas": adam.grid_ctas(), "chunk": adam.CHUNK, **times, **host,
             **bound(28 * n, 12 * n)}
 
@@ -643,9 +685,11 @@ def check_adam(dev: torch.device, card: str) -> dict:
         "max_ulp": max(r["max_ulp"] for r in by_path.values()), "tolerance": "0 ulp",
         **{k: main[k] for k in keys}, "by_path": by_path,
         "ms_is_per": "one launch over every CycleGAN G and D leaf (b1 0.5)",
-        "library_note": "torch.optim.Adam adds eps to sqrt(v_hat) after bias-"
-                        "correcting m and v; Keras adds it to sqrt(v) and folds the "
-                        "correction into the step size, a different update",
+        "library_call": adam_times.LIBRARY,
+        "library_note": "torch._fused_adam_ with eps / sqrt(1 - b2^t) is the Keras "
+                        "update: (sqrt(v) / sqrt(1 - b2^t) + eps') = (sqrt(v) + eps) / "
+                        "sqrt(1 - b2^t); held to the plain version in ulps of each "
+                        "element's terms (tools/adam_times.library_distance)",
     }
 
 
@@ -1280,6 +1324,7 @@ def run_sndcgan_slice(card: str, work: str) -> dict:
     require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
     resumed.train(2, 1)  # epoch 1
     launches = read_launches()
+    fwd_paths = dict(dropout.FWD_PATHS)
     states[1] = model_states(resumed.state)
     copies = adam.GRAD_COPIES["adam"]
     second = resumed.last_epoch_metrics
@@ -1297,16 +1342,20 @@ def run_sndcgan_slice(card: str, work: str) -> dict:
         "adam": 3 * steps,  # G, then D twice (d_updates=2): one launch each
     }
     require(launches == want, f"launch counts {launches}, expected {want}")
+    # every forward of the main path on the dropout kernel's vector path
+    want_paths = {"vector": steplib.N_SITES * steps, "scalar": 0}
+    require(fwd_paths == want_paths, f"dropout forward paths {fwd_paths}, expected {want_paths}")
     want_copies = GRAD_COPIES_PER_STEP["sndcgan"] * steps
     require(copies == want_copies, f"adam gradient copies {copies}, expected {want_copies}")
     log(f"sndcgan slice: {steps} steps over 2 epochs (one resumed), losses {second}")
-    log(f"sndcgan slice: launches {launches}, adam gradient layout copies {copies}")
+    log(f"sndcgan slice: launches {launches}, dropout forward paths {fwd_paths}, adam "
+        f"gradient layout copies {copies}")
     log(f"sndcgan slice: exports gen_model-{{0,1}} and disc_model-{{0,1}} loaded into "
         f"fresh models: {n_exported} tensors bit-equal to the engine's state at each epoch")
     log(f"sndcgan slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
         f"{perf[-1]['images_per_sec']:.1f} images/s at {WIDTH}x{HEIGHT} bs{BATCH} "
         f"base {BASE} SN hinge bf16 ({card})")
-    return {"launches": launches, "grad_copies": copies, "perf": perf,
+    return {"launches": launches, "fwd_paths": fwd_paths, "grad_copies": copies, "perf": perf,
             "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2"}
 
 
@@ -1593,11 +1642,15 @@ def check_profile_trace(card: str, work: str) -> dict:
         "kernel_names": sorted({e["name"] for e in dropout_events + adam_events}),
         "device_ms": {"dropout": sum(e["dur"] for e in dropout_events) / 1e3,
                       "adam": sum(e["dur"] for e in adam_events) / 1e3},
+        "dropout_ms_per_step": {
+            part: sum(e["dur"] for e in dropout_events if f"lrd_{part}" in e["name"]) / 1e3
+            / steps for part in ("fwd", "bwd")},
     }
     log(f"profile: {record['trace']} ({record['bytes']:,} bytes, {len(events)} events, "
         f"{len(kernels)} kernel events): {len(dropout_events)} dropout kernel events of "
         f"{record['dropout_launches']} launches, {len(adam_events)} Adam kernel events of "
-        f"{record['adam_launches']} launches; names {record['kernel_names']} ({card})")
+        f"{record['adam_launches']} launches; names {record['kernel_names']}; dropout ms a "
+        f"step {record['dropout_ms_per_step']} ({card})")
     return record
 
 
@@ -2387,11 +2440,16 @@ def check_dropout_spatial(dev: torch.device, card: str) -> dict:
          lambda: dropout.bwd_plain(xs, gs, kw, cut, 0, hblock),
          lambda: dropout.bwd_kernel(xr, gr, kw, cut, base_r, total), 3),
     ):
+        vector = dropout.FWD_PATHS["vector"]
+        shard()
+        if name.endswith("fwd"):
+            require(dropout.FWD_PATHS["vector"] == vector + 1,
+                    "phase 9a: the forward on an H-shard did not take the vector path")
         times = timing(shard, plain, flush=flush)
         times["contiguous_ms"] = device_ms(contiguous, 20, flush=flush)
         times["contiguous_warm_ms"] = device_ms(contiguous, 20)
         out[name] = {"shape_nchw": list(xs.shape), "image_rows": [hh, h], **times,
-                     **bound(n_tensors * xs.numel() * xs.element_size(), 20 * xs.numel())}
+                     **dropout_times.bound(n_tensors, xs.numel(), xs.element_size())}
         log(f"phase 9a: {name} on image rows [{hh}, {h}) of {shape} bf16: "
             f"{times['ms']:.4f} ms flushed, {times['warm_ms']:.4f} warm; contiguous "
             f"call of as many elements {times['contiguous_ms']:.4f} / "
@@ -3328,6 +3386,8 @@ def main(argv=None) -> int:
                 "shape_nchw": base["timed_shape_nchw"],
                 **base["fwd" if k["name"].endswith("fwd") else "bwd"]}
             k["at_spatial_shard"] = spatial["dropout_shard"][k["name"]]  # phase 9a
+            if k["name"].endswith("fwd"):
+                k["fwd_paths"] = slices["sndcgan"]["fwd_paths"]
         # The path that runs it; Adam runs on both, and its record's times
         # are the CycleGAN apply's, as are its launches; its bfloat16-moment
         # form runs on the SNDCGAN step with opt_moments="bf16"; the split

@@ -38,15 +38,21 @@ On the H100 both passes are bound by device-memory bandwidth (forward reads
 x and writes y; backward reads x and g and writes dx); the kernel
 (`csrc/leaky_relu_dropout.cu`) keeps the mask out of device memory and
 reads the key words from a device tensor, so a launch never syncs the host.
+The forward launches from a plan (`launch_plan`): 16-byte vectors, U of
+them in flight a thread, over a (row, offset) grid of single-trip CTAs that
+needs no division on a shard; or the kernel's scalar branch, for data that is not 16-byte
+aligned or rows that do not fall on vector boundaries.
 
 `leaky_relu_dropout` is the wrapper. A CPU tensor takes the plain PyTorch
 version below (the same function, emulating uint32 in int64 ops); a CUDA
-tensor launches the kernel or raises. `LAUNCHES` counts kernel launches.
+tensor launches the kernel or raises. `LAUNCHES` counts kernel launches,
+`FWD_PATHS` the forward's by path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -58,6 +64,7 @@ NEGATIVE_SLOPE = 0.1
 _U32 = 0xFFFFFFFF
 
 LAUNCHES = {"leaky_relu_dropout_fwd": 0, "leaky_relu_dropout_bwd": 0}
+FWD_PATHS = {"vector": 0, "scalar": 0}
 
 
 def dropout_cut(rate: float) -> int:
@@ -152,11 +159,110 @@ def bwd_plain(
     return _nchw(dx.to(x.dtype))
 
 
+# -------------------------------------------------------------- launch plan
+THREADS = 256  # a forward CTA's threads (kFwdThreads in the source)
+SMS = 132  # the H100 SXM's SMs
+CTAS_PER_SM = 4  # forward CTAs resident per SM: one wave is SMS * CTAS_PER_SM
+DEEP_WAVES = 16  # waves of single-trip CTAs at 4 vectors a thread that take 4
+VECTOR_BYTES = 16
+UNROLLS = (2, 4)  # vectors a thread loads before it hashes any
+MAX_ROWS = 65535  # a grid's y extent
+_ELEMENT_SIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one forward launch covers a tensor of `rows` rows of `row_len`
+    elements (one row for a contiguous tensor, one per batch row of a
+    spatial shard), `ctas_x` CTAs of THREADS threads along each row.
+
+    path "vector": each thread loads `unroll` vectors of `vec` elements (16
+    bytes) before it hashes any; a one-row launch ends in a scalar tail of
+    `tail` elements. path "scalar": one element a thread a trip (`vec` 1,
+    `unroll` 1)."""
+
+    path: str
+    vec: int
+    unroll: int
+    rows: int
+    row_len: int
+    tail: int
+    ctas_x: int
+
+    @property
+    def ctas(self) -> int:
+        return self.ctas_x * self.rows
+
+    def args(self) -> list[int]:
+        """The plan's entry-point arguments: unroll (0 selects the scalar
+        kernel), then the CTAs along a row."""
+        return [self.unroll if self.path == "vector" else 0, self.ctas_x]
+
+
+def launch_plan(numel: int, dtype: torch.dtype,
+                rowmap: tuple[int, int, int, int] | None = None, aligned: bool = True,
+                base: int = 0, *, unroll: int | None = None,
+                ctas_x: int | None = None) -> LaunchPlan:
+    """The forward's launch over `numel` elements of `dtype` whose global
+    indices start at `base` (with `rowmap` = (h_local, h_global, h0, wc), a
+    shard of image rows; `row_map`), from data that is 16-byte aligned or
+    not (`aligned`: the input's address; the output is allocated aligned).
+
+    - path: "vector" when the data is aligned, there is at least one
+      vector, the first global index is a multiple of the vector (so every
+      vector's elements share fmix32's upper half), and on a shard each row
+      and its global stride are whole vectors (W*C a multiple of 8 bf16 or
+      4 float32, as at every site with C >= 64); else "scalar".
+    - unroll: 4 when the launch at 4 vectors a thread still has
+      DEEP_WAVES waves (SMS * CTAS_PER_SM CTAs each) of CTAs, else 2, so
+      that a smaller tensor spreads over more CTAs.
+    - ctas_x: one CTA for each THREADS * unroll vectors (or THREADS
+      elements) of a row, each making a single trip: on the H100 such
+      grids ran 4-5% faster than one persistent wave walking the tensor
+      (tools/dropout_times.py --sweep), level with a `copy_` of the bytes.
+
+    `unroll` and `ctas_x` override the choice (the timing tool's sweep);
+    with fewer CTAs than the single trips, each walks its row."""
+    if dtype not in _ELEMENT_SIZE:
+        raise TypeError(f"the forward takes float32 or bfloat16, got {dtype}")
+    if not 0 <= numel < 2**32:
+        raise ValueError(f"element count {numel} outside [0, 2**32)")
+    if unroll is not None and unroll not in UNROLLS:
+        raise ValueError(f"unroll must be one of {UNROLLS}, got {unroll}")
+    if ctas_x is not None and ctas_x < 1:
+        raise ValueError(f"ctas_x must be >= 1, got {ctas_x}")
+    h, h_global, h0, wc = rowmap or (1, 1, 0, max(numel, 1))
+    if h < 1 or wc < 1 or h0 < 0 or h0 + h > h_global or numel % (h * wc):
+        raise ValueError(f"row block {rowmap} does not fit {numel} elements")
+    if h == h_global:  # a whole map: one contiguous row
+        rows, row_len, row_stride = 1, numel, numel
+    else:
+        rows, row_len, row_stride = numel // (h * wc), h * wc, h_global * wc
+    if rows > MAX_ROWS:
+        raise ValueError(f"{rows} rows exceed a launch's {MAX_ROWS}")
+    first = base + h0 * wc
+    vec = VECTOR_BYTES // _ELEMENT_SIZE[dtype]
+    vector = (aligned and numel >= vec and first % vec == 0
+              and (rows == 1 or (row_len % vec == 0 and row_stride % vec == 0)))
+    if vector:
+        vectors = row_len // vec
+        if unroll is None:
+            deep = rows * -(-vectors // (THREADS * 4))
+            unroll = 4 if deep >= DEEP_WAVES * SMS * CTAS_PER_SM else 2
+        items, tail = vectors, row_len - vectors * vec
+    else:
+        vec = unroll = 1
+        items, tail = row_len, 0
+    if ctas_x is None:
+        ctas_x = max(1, -(-items // (THREADS * unroll)))
+    return LaunchPlan(path="vector" if vector else "scalar", vec=vec, unroll=unroll,
+                      rows=rows, row_len=row_len, tail=tail, ctas_x=ctas_x)
+
+
 # ------------------------------------------------------------------- kernel
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# n, base, h_local, h_global, h0, wc, cut, scale, slope, stream
-_ARGS_TAIL = [ctypes.c_int64] + [ctypes.c_uint32] * 6 + [ctypes.c_float, ctypes.c_float,
-                                                          ctypes.c_void_p]
+# n, base, h_local, h_global, h0, wc, cut, scale, slope
+_ARGS = [ctypes.c_int64] + [ctypes.c_uint32] * 6 + [ctypes.c_float, ctypes.c_float]
 
 
 @functools.cache
@@ -166,10 +272,12 @@ def _lib() -> ctypes.CDLL:
     for suffix in _DTYPES.values():
         fwd = getattr(lib, f"lrd_fwd_{suffix}")
         fwd.restype = ctypes.c_int
-        fwd.argtypes = [ctypes.c_void_p] * 3 + _ARGS_TAIL
+        # ... then the plan's unroll and CTAs along a row, and the stream
+        fwd.argtypes = ([ctypes.c_void_p] * 3 + _ARGS
+                        + [ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p])
         bwd = getattr(lib, f"lrd_bwd_{suffix}")
         bwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 4 + _ARGS_TAIL
+        bwd.argtypes = [ctypes.c_void_p] * 4 + _ARGS + [ctypes.c_void_p]
     return lib
 
 
@@ -217,16 +325,24 @@ def _check_kernel_args(x: torch.Tensor, kw: torch.Tensor, base: int,
 
 
 def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
-               total: int | None = None, hblock: tuple[int, int] | None = None) -> torch.Tensor:
+               total: int | None = None, hblock: tuple[int, int] | None = None,
+               plan: LaunchPlan | None = None) -> torch.Tensor:
+    """The forward kernel, launched from `plan` (default: `launch_plan` for
+    x; another plan must be one x allows, or the entry point refuses it)."""
     index = _check_kernel_args(x, kw, base, total, hblock)
     lib = _lib()
     y = torch.empty_like(x, memory_format=torch.channels_last)
+    if plan is None:
+        plan = launch_plan(x.numel(), x.dtype, row_map(x, hblock),
+                           x.data_ptr() % VECTOR_BYTES == 0, base)
     rc = getattr(lib, f"lrd_fwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), y.data_ptr(), kw.data_ptr(), x.numel(), *index, cut,
-        keep_scale(cut), NEGATIVE_SLOPE, torch.cuda.current_stream(x.device).cuda_stream,
+        keep_scale(cut), NEGATIVE_SLOPE, *plan.args(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout forward")
     LAUNCHES["leaky_relu_dropout_fwd"] += 1
+    FWD_PATHS[plan.path] += 1
     return y
 
 

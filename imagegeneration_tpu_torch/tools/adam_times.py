@@ -27,6 +27,21 @@ g, m, v in each leaf's own layout. For each slice:
   the alpha chain alone (`count.add_` and `adam_alpha`).
 - `by_chunk` (one-launch route only): warm ms for each chunk size of
   CHUNKS.
+- `library`: the one PyTorch call that computes the same update (never
+  used by the port), `torch._fused_adam_` with lr, the same betas, and eps
+  rescaled to eps / sqrt(1 - b2^t): its denominator sqrt(v) / sqrt(1 -
+  b2^t) + eps' is then (sqrt(v) + eps) / sqrt(1 - b2^t), and its step
+  lr * sqrt(1 - b2^t) / (1 - b1^t) * m / (sqrt(v) + eps), the Keras form.
+  Its m and v after one apply are first held to the plain version
+  (`adam_plain`) within LIBRARY_MAX_ULP float32 ulps of each element's
+  largest term (b * m or (1 - b) * g; likewise for v) plus the library's
+  constant: it forms 1 - b from b rounded to float32, the plain version
+  rounds 1 - b itself (1 - 0.999f is 1.3e-5 off 0.001, 1 - 0.9f 2.4e-7 off
+  0.1), times g (g^2 for v). p is held within as many ulps of max(|p|, the
+  update's scale alpha * that m term / (sqrt(v) + eps)) plus the float32
+  rounding of b2^t that 1 - b2^t magnifies (2^-23 / (1 - b2^t) of the
+  update, on either side: both compute the bias correction in float32).
+  Then it is timed as the kernel is (`warm_ms`).
 
 Prints one line per measurement, the card's name and power limit, and as
 the last line the results as one JSON object (also written to --out).
@@ -36,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -44,10 +60,63 @@ QUEUED = (1, 2, 10)
 CHUNKS = (1024, 2048, 4096, 8192, 16384)
 PROFILED_APPLIES = 10
 HOST_ROUNDS = 20
+STEP = 3  # the Adam step count t of the timed applies
+LIBRARY = ("torch._fused_adam_(p, g, m, v, [], steps, lr=lr, beta1=b1, beta2=0.999, "
+           "weight_decay=0, eps=1e-7 / sqrt(1 - 0.999**t), amsgrad=False, maximize=False)")
+# Beyond its constants (the module note), the library rounds the moments
+# and the step (lr / (1 - b1^t), then m / (sqrt(v) / sqrt(1 - b2^t) +
+# eps')) in another order than the plain version: a few float32 ulps of
+# the terms. A wrong update (Keras's eps unscaled, a moment's b swapped) is
+# off by orders of magnitude more.
+LIBRARY_MAX_ULP = 4
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def library_call(p: list, g: list, m: list, v: list, b1: float, lr: float = 2e-4):
+    """The library call over the leaves (in place) at step STEP, as a
+    callable (the module note; never used by the port)."""
+    import torch
+
+    steps = [torch.tensor(float(STEP), device=t.device) for t in p]
+    eps = 1e-7 / math.sqrt(1.0 - 0.999**STEP)  # Keras's eps, rescaled
+    return lambda: torch._fused_adam_(p, g, m, v, [], steps, lr=lr, beta1=b1, beta2=0.999,
+                                      weight_decay=0.0, eps=eps, amsgrad=False,
+                                      maximize=False)
+
+
+def library_distance(p: list, g: list, m: list, v: list, b1: float, adam) -> dict:
+    """One library apply and one plain apply (`adam.adam_plain`) from copies
+    of p, m, v: each result's largest distance in units of its bound's
+    terms (the module note), by p, m and v."""
+    import torch
+
+    def ulp(x):
+        x = x.abs()
+        return torch.nextafter(x, torch.full_like(x, math.inf)) - x
+
+    lib = [[t.clone() for t in ts] for ts in (p, m, v)]
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    library_call(lib[0], g, lib[1], lib[2], b1)()
+    alpha = adam.adam_alpha(torch.tensor(STEP, device=p[0].device), 2e-4, b1, 0.999)
+    adam.adam_plain(ref[0], g, ref[1], ref[2], alpha, b1, 0.999)
+    cancel = 2.0**-23 / (1.0 - 0.999**STEP)
+    one_minus = {b: abs((1.0 - float(torch.tensor(b, dtype=torch.float32)))
+                        - float(torch.tensor(1.0 - b, dtype=torch.float32)))
+                 for b in (b1, 0.999)}
+    out = {"p": 0.0, "m": 0.0, "v": 0.0}
+    for i, gi in enumerate(g):
+        sm = torch.maximum((b1 * m[i]).abs(), ((1 - b1) * gi).abs())
+        sv = torch.maximum((0.999 * v[i]).abs(), (0.001 * gi * gi).abs())
+        update = alpha * sm / (ref[2][i].sqrt() + adam.KERAS_EPS)
+        sp = ulp(torch.maximum(p[i].abs(), update)) + cancel * (ref[0][i] - p[i]).abs()
+        scales = (("p", sp, 0), ("m", ulp(sm) + one_minus[b1] * gi.abs(), 1),
+                  ("v", ulp(sv) + one_minus[0.999] * gi * gi, 2))
+        for k, scale, j in scales:
+            out[k] = max(out[k], float(((lib[j][i] - ref[j][i]).abs() / scale).max()))
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -131,7 +200,7 @@ def main(argv: list[str] | None = None) -> int:
         models, b1 = models_of(path)
         leaves = [t for ms in models for t in ms]
         p, g, m, v = inputs(leaves, 1)
-        alpha = adam.adam_alpha(torch.tensor(3, device=dev), 2e-4, b1, 0.999)
+        alpha = adam.adam_alpha(torch.tensor(STEP, device=dev), 2e-4, b1, 0.999)
         fn = apply_fn(p, g, m, v, alpha, b1)
         n = sum(t.numel() for t in leaves)
         before = adam.LAUNCHES["adam"]
@@ -142,6 +211,12 @@ def main(argv: list[str] | None = None) -> int:
                "warm_ms": {str(k): device_ms(fn, k) for k in QUEUED},
                "profiler": profiled(fn)}
         rec["profiler"]["kernel_events_expected"] = PROFILED_APPLIES * launches
+        rec["library"] = {"call": LIBRARY, "max_ulp": library_distance(p, g, m, v, b1, adam)}
+        if max(rec["library"]["max_ulp"].values()) > LIBRARY_MAX_ULP:
+            raise RuntimeError(f"{path}: the library call is {rec['library']['max_ulp']} "
+                               f"ulps from the plain version, over {LIBRARY_MAX_ULP}")
+        rec["library"]["warm_ms"] = {str(k): device_ms(library_call(p, g, m, v, b1), k)
+                                     for k in QUEUED}
         if one_launch:
             rec["by_chunk"] = {str(c): device_ms(apply_fn(p, g, m, v, alpha, b1, c), 10)
                                for c in CHUNKS}
@@ -175,7 +250,8 @@ def main(argv: list[str] | None = None) -> int:
         results[path] = rec
         log(f"{path} ({len(leaves)} leaves, {n:,} elements, bound {rec['bound_ms']:.4f} ms): "
             f"warm {', '.join(f'{k} queued {t:.4f}' for k, t in rec['warm_ms'].items())} "
-            f"ms per apply; profiler {rec['profiler']}; host "
+            f"ms per apply; library call {rec['library']['warm_ms']} ms, "
+            f"{rec['library']['max_ulp']} ulps from plain; profiler {rec['profiler']}; host "
             f"{rec['host_us_per_apply']:.1f} us per apply "
             f"{ {k: [round(h, 1) for h in v] for k, v in host.items()} }"
             + (f"; by chunk {rec['by_chunk']}" if one_launch else "") + f" ({card})")

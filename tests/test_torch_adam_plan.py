@@ -316,3 +316,32 @@ def test_bf16_entry_point_in_the_source():
     assert "int adam_multi_f32(const void* table_ptr, void* stream)" in text
     assert "int adam_multi_bf16(const void* table_ptr, void* stream)" in text
     assert adam.LAUNCHES.keys() == {"adam"} and adam.BF16_LAUNCHES.keys() == {"adam_bf16"}
+
+
+@pytest.mark.parametrize("b1", [0.9, 0.5])
+def test_library_call_beside_the_kernel_is_the_keras_update(b1):
+    """tools/adam_times.library_call (torch._fused_adam_ with eps /
+    sqrt(1 - b2^t); the kernel's `library_ms` yardstick, never used by the
+    port) gives the plain version's p, m and v within LIBRARY_MAX_ULP ulps
+    of each element's terms, on the CPU's fused Adam; with Keras's eps
+    unscaled it does not (torch.optim.Adam's update)."""
+    from imagegeneration_tpu_torch.tools import adam_times
+
+    gen = torch.Generator().manual_seed(6)
+    p = [torch.randn(300, 37, generator=gen),
+         torch.randn(64, 3, 3, 3, generator=gen).contiguous(memory_format=torch.channels_last)]
+    g = [torch.randn(t.shape, generator=gen).contiguous(memory_format=fmt)
+         for t, fmt in zip(p, (torch.contiguous_format, torch.channels_last))]
+    m = [torch.randn_like(t) for t in p]
+    v = [torch.rand_like(t) * 1e-8 for t in p]  # sqrt(v) near eps: eps's place shows
+    dist = adam_times.library_distance(p, g, m, v, b1, adam)
+    assert max(dist.values()) <= adam_times.LIBRARY_MAX_ULP, dist
+    # torch.optim.Adam's own eps placement moves p by far more
+    q, mq, vq = ([t.clone() for t in ts] for ts in (p, m, v))
+    steps = [torch.tensor(float(adam_times.STEP)) for _ in p]
+    torch._fused_adam_(q, g, mq, vq, [], steps, lr=2e-4, beta1=b1, beta2=0.999,
+                       weight_decay=0.0, eps=adam.KERAS_EPS, amsgrad=False, maximize=False)
+    ref = [t.clone() for t in p]
+    adam.adam_plain(ref, g, [t.clone() for t in m], [t.clone() for t in v],
+                    adam.adam_alpha(torch.tensor(adam_times.STEP), 2e-4, b1, 0.999), b1, 0.999)
+    assert max((a - b).abs().max().item() for a, b in zip(q, ref)) > 1e-6

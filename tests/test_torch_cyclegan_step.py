@@ -19,14 +19,21 @@ Tolerances:
 - metrics: rtol 1e-4 over three steps; a wrong loss, pull or update order
   moves them by O(1).
 - parameters after three steps: 1e-5 (abs + rel). The conv biases that
-  feed an instance norm have an exact gradient of 0, so each side moves
-  them by Adam on rounding noise (about lr * sign(noise) per step); for
-  those only the bound 2 * lr * steps holds.
+  feed a per-channel instance norm have an exact gradient of 0, so each
+  side moves them by Adam on rounding noise (about lr * sign(noise) per
+  step); for those only the bound 2 * lr * steps holds.
 - Adam moments after the first step (the three pulls' gradients): 1e-4 of
   the leaf's largest magnitude. For the zero-gradient biases, whose values
   are rounding noise on both sides, the noise must stay below 1e-6 of the
   model's largest mu (1e-12 of its largest nu, ~ g^2).
 - counts and step: exact.
+
+Every test runs twice, with the per-channel norm and with `quirk_axis1`
+(the reference's tfa `axis=1` norm on NHWC: each image row normalized over
+(W, C) with per-row parameters, the form that imported reference weights
+take). A conv bias before a per-row norm is not in the norm's null space:
+only the mean of its gradient over the channels is 0, so under the quirk
+no leaf is exempt and every bias is held to the bounds above.
 """
 
 import json
@@ -73,15 +80,21 @@ def _as_dict(s):
     return out
 
 
+@pytest.fixture(scope="module", params=[False, True], ids=["per_channel", "quirk_axis1"])
+def quirk(request):
+    return request.param
+
+
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(quirk):
     """(state before, state after step 1, state after the last step,
     metrics per step) of the JAX step in float64, as numpy trees."""
     old_x64 = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", True)
     try:
         cfg = jstep.CycleGANTrainConfig(
-            model=JaxModelConfig(**MODEL, dtype=jax.numpy.float64), batch_size=1)
+            model=JaxModelConfig(**MODEL, quirk_axis1=quirk, dtype=jax.numpy.float64),
+            batch_size=1)
         state0 = jstep.init_state(cfg)
         step = jax.jit(jstep.make_train_step(cfg))
         state, states, metrics = state0, [], []
@@ -95,9 +108,10 @@ def jax_run():
 
 
 @pytest.fixture(scope="module")
-def port_run(jax_run):
+def port_run(jax_run, quirk):
     """The port's counterpart of `jax_run`, from the bridged initial state."""
-    cfg = tstep.CycleGANTrainConfig(model=CycleGANConfig(**MODEL), batch_size=1)
+    cfg = tstep.CycleGANTrainConfig(model=CycleGANConfig(**MODEL, quirk_axis1=quirk),
+                                    batch_size=1)
     state = tstep.init_state(cfg, "cpu")
     bridge.load_jax_cyclegan_state(state, jax_run[0])
     step = tstep.make_train_step(cfg)
@@ -120,29 +134,30 @@ def _leaves(got, want, name):
         yield where, np.abs(a - b), b
 
 
-def _feeds_norm(where: str) -> bool:
-    """A conv bias followed by an instance norm (exact gradient 0): in the
-    generators stem_conv, down*, up*, to_rgb and the res blocks' conv1; in
-    the discriminators (dx, dy) conv1-3."""
-    if not where.endswith("_0']['bias']"):
+def _feeds_norm(where: str, quirk: bool) -> bool:
+    """A conv bias followed by a per-channel instance norm (exact gradient
+    0): in the generators stem_conv, down*, up*, to_rgb and the res blocks'
+    conv1; in the discriminators (dx, dy) conv1-3. None under the quirk,
+    whose per-row norm passes a per-channel bias's gradient on."""
+    if quirk or not where.endswith("_0']['bias']"):
         return False
     if where.startswith("d"):
         return re.search(r"\['conv[123]'\]", where) is not None
     return re.search(r"\['(stem_conv|down\d|up\d|to_rgb|conv1)'\]", where) is not None
 
 
-def _check_params(got, want, name):
+def _check_params(got, want, name, quirk):
     for where, err, b in _leaves(got, want, name):
         assert err.max(initial=0) <= 2 * LR * STEPS + 1e-5, where
-        if not _feeds_norm(where):
+        if not _feeds_norm(where, quirk):
             bad = err > 1e-5 + 1e-5 * np.abs(b)
             assert not bad.any(), f"{where}: {bad.sum()} of {bad.size} off, max {err.max()}"
 
 
-def _check_moments(got, want, name, noise):
+def _check_moments(got, want, name, noise, quirk):
     tree_max = max(np.abs(np.asarray(b)).max() for b in jax.tree.leaves(want))
     for where, err, b in _leaves(got, want, name):
-        bound = noise * tree_max if _feeds_norm(where) else 1e-4 * np.abs(b).max()
+        bound = noise * tree_max if _feeds_norm(where, quirk) else 1e-4 * np.abs(b).max()
         assert err.max(initial=0) <= bound, f"{where}: {err.max()} > {bound}"
 
 
@@ -155,20 +170,20 @@ def test_three_step_metrics_match_jax(jax_run, port_run):
 
 
 @pytest.mark.parametrize("key", ["gg", "gf", "dx", "dy"])
-def test_three_step_params_match_jax(jax_run, port_run, key):
+def test_three_step_params_match_jax(jax_run, port_run, quirk, key):
     want, got = jax_run[2], port_run[1]
     assert int(got["step"]) == int(want["step"]) == STEPS
     assert int(got[f"{key}_opt"]["count"]) == int(want[f"{key}_opt"]["count"]) == STEPS
-    _check_params(got[f"{key}_params"], want[f"{key}_params"], f"{key}_params")
+    _check_params(got[f"{key}_params"], want[f"{key}_params"], f"{key}_params", quirk)
 
 
 @pytest.mark.parametrize("key", ["gg", "gf", "dx", "dy"])
-def test_first_step_moments_match_jax(jax_run, port_run, key):
+def test_first_step_moments_match_jax(jax_run, port_run, quirk, key):
     """The moments after one step are the three pulls' gradients: each of
     the four models gets its own (pull 3 gives both discriminators')."""
     want, got = jax_run[1][f"{key}_opt"], port_run[0][f"{key}_opt"]
-    _check_moments(got["mu"], want["mu"], f"{key}_opt.mu", 1e-6)
-    _check_moments(got["nu"], want["nu"], f"{key}_opt.nu", 1e-12)
+    _check_moments(got["mu"], want["mu"], f"{key}_opt.mu", 1e-6, quirk)
+    _check_moments(got["nu"], want["nu"], f"{key}_opt.nu", 1e-12, quirk)
 
 
 # ------------------------------------------------------------------ engine

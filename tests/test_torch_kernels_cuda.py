@@ -132,6 +132,122 @@ def test_dropout_kernels_on_an_h_shard_equal_the_whole_array(cuda, dtype, shape)
                                                       (h0, shape[2])))
 
 
+# The forward's launch plans (ops/dropout.launch_plan): the SNDCGAN
+# headline's four sites, whole, and config 5's four sites as H-shards of 2.
+DROPOUT_SITES = [(32, 64, 144, 256), (32, 128, 72, 128), (32, 256, 36, 64), (32, 512, 18, 32)]
+CONFIG5_SITES = [(16, 64, 288, 512), (16, 128, 144, 256), (16, 256, 72, 128), (16, 512, 36, 64)]
+KW = (0x9E3779B9, 0x7F4A7C15)
+
+
+def dropout_input(cuda, shape, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def forward_against_plain(x, kw, cut, base=0, total=None, hblock=None, path="vector",
+                          plan=None):
+    """The forward kernel bit-equal to the plain version, through `path`."""
+    before = dict(dropout.FWD_PATHS)
+    y = dropout.fwd_kernel(x, kw, cut, base, total, hblock, plan)
+    assert dropout.FWD_PATHS[path] == before[path] + 1
+    assert torch.equal(y.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32),
+                       dropout.fwd_plain(x, kw, cut, base, hblock).view(
+                           torch.int16 if x.dtype == torch.bfloat16 else torch.int32))
+    return y
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DROPOUT_SITES)
+def test_dropout_forward_equals_plain_at_the_headline_sites(cuda, shape, dtype, rate):
+    """Every main-path site, whole (one row, the vector path), and a
+    data-parallel rank's half of it with its row base."""
+    x = dropout_input(cuda, shape, dtype, sum(shape))
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(rate)
+    forward_against_plain(x, kw, cut)
+    b = shape[0] // 2
+    forward_against_plain(x[b:], kw, cut, dropout.rows_base(x, b), x.numel())
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONFIG5_SITES)
+def test_dropout_forward_equals_plain_on_the_config5_shards(cuda, shape, dtype, rate):
+    """Config 5's sites on 2 spatial ranks (image rows [0, H/2) and [H/2,
+    H): one grid row per batch row), and on data 2 x spatial 2 (batch rows
+    [B/2, B) as well, with their row base); equal to the whole array's
+    elements too."""
+    x = dropout_input(cuda, shape, dtype, sum(shape) + 1)
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(rate)
+    full = dropout.fwd_kernel(x, kw, cut)
+    b, _, h, _ = shape
+    hh = h // 2
+    for first, s in ((0, 0), (0, 1), (b // 2, 1)):
+        rows, hrows = slice(first, b), slice(s * hh, (s + 1) * hh)
+        xs = x[rows, :, hrows].contiguous(memory_format=torch.channels_last)
+        y = forward_against_plain(xs, kw, cut, dropout.rows_base(xs, first, h), x.numel(),
+                                  (s * hh, h))
+        assert torch.equal(y, full[rows, :, hrows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_forward_tails_and_misaligned_views(cuda, dtype):
+    """Tails of 1 to 7 elements (1 to 3 in float32) past the last vector
+    of a one-row launch; the same data as a view 1 to 7 elements past a
+    16-byte boundary (the scalar path); and a shard whose rows are not whole
+    vectors (W*C = 21, the scalar path)."""
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(0.5)
+    vec = 128 // torch.finfo(dtype).bits
+    for tail in range(1, vec):
+        n = 37 * vec + tail
+        x = dropout_input(cuda, (1, 1, 1, n), dtype, tail)
+        assert dropout.launch_plan(n, dtype).tail == tail
+        forward_against_plain(x, kw, cut)
+        for off in range(1, vec):
+            buf = dropout_input(cuda, (1, 1, 1, n + off), dtype, off)
+            view = buf.view(-1)[off:].view(1, 1, 1, n)
+            assert view.data_ptr() % 16 != 0
+            forward_against_plain(view, kw, cut, path="scalar")
+    x = dropout_input(cuda, (4, 3, 10, 7), dtype, 9)
+    xs = x[:, :, 5:].contiguous(memory_format=torch.channels_last)
+    forward_against_plain(xs, kw, cut, 0, x.numel(), (5, 10), path="scalar")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_forward_plans_give_the_same_bits(cuda, dtype):
+    """Every unroll and CTA count the plan could choose, on a whole map
+    and on a shard, equal the plain version."""
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(0.5)
+    x = dropout_input(cuda, (6, 64, 18, 33), dtype, 3)
+    xs = x[:, :, 9:].contiguous(memory_format=torch.channels_last)
+    for unroll in dropout.UNROLLS:
+        for ctas_x in (1, 7, 132, 1000):
+            plan = dropout.launch_plan(x.numel(), dtype, unroll=unroll, ctas_x=ctas_x)
+            forward_against_plain(x, kw, cut, plan=plan)
+            plan = dropout.launch_plan(xs.numel(), dtype, dropout.row_map(xs, (9, 18)),
+                                       unroll=unroll, ctas_x=ctas_x)
+            forward_against_plain(xs, kw, cut, 0, x.numel(), (9, 18), plan=plan)
+
+
+def test_dropout_forward_refuses_a_plan_the_tensor_does_not_allow(cuda):
+    """The vector kernel on a view off 16 bytes is a CUDA invalid-value
+    error, before any launch, and nothing is counted."""
+    buf = dropout_input(cuda, (1, 1, 1, 65), torch.bfloat16, 0)
+    view = buf.view(-1)[1:].view(1, 1, 1, 64)
+    kw = torch.tensor(KW, device=cuda)
+    plan = dropout.launch_plan(64, torch.bfloat16, None, True)
+    assert plan.path == "vector"
+    before = (dict(dropout.LAUNCHES), dict(dropout.FWD_PATHS))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        dropout.fwd_kernel(view, kw, 128, plan=plan)
+    assert (dropout.LAUNCHES, dropout.FWD_PATHS) == before
+
+
 def test_dropout_kernel_refuses_nchw_and_bad_keys(cuda):
     x = torch.randn(2, 8, 3, 5, device=cuda)
     kw = torch.tensor([1, 2], device=cuda)

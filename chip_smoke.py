@@ -25,9 +25,10 @@ Phases (any failure raises, and the exit code is non-zero):
      forward through its vector path; both timed at every site, L2 flushed
      and warm, beside a PyTorch call that moves the same bytes (`copy_`,
      `torch.add`), against a bound that prices the mask's integer work at
-     the int32 rate (64 lanes an SM) beside the bytes. Phase 5 requires
-     every forward of the SNDCGAN slice to take the vector path
-     (`dropout.FWD_PATHS`);
+     the int32 rate (64 lanes an SM) beside the bytes; each pass at every
+     site through its vector path. Phase 5 requires every forward and
+     every backward of the SNDCGAN slice to take the vector path
+     (`dropout.FWD_PATHS`, `dropout.BWD_PATHS`);
    - Keras Adam: one multi-tensor launch over every generator and
      discriminator leaf of each slice, with that slice's b1 (SNDCGAN 0.9,
      CycleGAN 0.5), bit-identical to the plain version leaf by leaf; timed
@@ -66,7 +67,13 @@ Phases (any failure raises, and the exit code is non-zero):
    (PERF.md §6). The same four WGAN steps in bfloat16 (`--bf16`), with the
    clip and with the penalty, on the card alone: finite float32 losses,
    the cadence, float32 state and the clip (their numbers are held against
-   the JAX bfloat16 step on the CPU, tests/test_torch_wgan_step.py).
+   the JAX bfloat16 step on the CPU, tests/test_torch_wgan_step.py). Four
+   bfloat16 CycleGAN steps (`--bf16`, 96x96, base 8, 2 res blocks, batch
+   1) on the card and on the CPU from one state: finite float32 metrics,
+   float32 state, InstanceNorm kernels launched forward and backward, and
+   each metric's distance from the CPU's float32 step within CG_BF16_BOUND
+   times the CPU bf16 step's (the form and bound of the CPU gate that
+   holds the bf16 step to JAX, tests/test_torch_cyclegan_bf16.py).
 5. Each training slice through its entry point, one after the other, the
    launch counters zeroed just before and read just after; every kernel
    of the path must have run exactly as often as the step's structure
@@ -167,7 +174,8 @@ Phases (any failure raises, and the exit code is non-zero):
    (bench.py:360-411: 512x288, batch 16, base 512, SN, hinge, bf16,
    dropout 0.5):
    a. the dropout kernels on H-shards: at each of the four config-5 site
-      shapes, bf16 and f32, forward and backward, the kernel on image rows
+      shapes, bf16 and f32, forward and backward (each through its vector
+      path), the kernel on image rows
       [s*H/2, (s+1)*H/2) (and on batch rows [B/2, B) of image rows [H/2,
       H)) with the row-block index mapping is bit-equal to the plain
       version with the same mapping and to those elements of the whole
@@ -322,6 +330,10 @@ IN_SPLIT_FREQUENT = IN_SPLIT_SHAPES[2]
 # partial's chunks and Chan's merge sum in another order than the
 # single-pass kernel's clusters).
 SPLIT_WHOLE_REL = 1e-6
+# The CPU gate's bound (tests/test_torch_cyclegan_bf16.BOUND): a metric of
+# the bf16 CycleGAN step on the card may sit this many times as far from the
+# float32 step (on the CPU) as the CPU's bf16 step does.
+CG_BF16_BOUND = 2.0
 EPS = 1e-3  # tfa InstanceNormalization's epsilon, the models' value
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
@@ -451,7 +463,7 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def zero_launches() -> None:
-    for counts in (*LAUNCH_COUNTERS, adam.GRAD_COPIES, dropout.FWD_PATHS):
+    for counts in (*LAUNCH_COUNTERS, adam.GRAD_COPIES, dropout.FWD_PATHS, dropout.BWD_PATHS):
         for k in counts:
             counts[k] = 0
 
@@ -493,7 +505,7 @@ def disc_site_shapes() -> list[tuple[int, int, int, int]]:
 
 def check_dropout(dev: torch.device, card: str) -> list[dict]:
     """Kernel vs plain, bit for bit, at every distinct D site shape of the
-    headline step (bf16, channels_last), each forward through the vector
+    headline step (bf16, channels_last), each pass through its vector
     path; both kernels timed at every site, L2 flushed and warm, beside the
     plain version and a PyTorch call that moves the same bytes (the
     forward's `copy_`, the backward's `torch.add(x, g, out=dx)`: the card's
@@ -519,7 +531,7 @@ def check_dropout(dev: torch.device, card: str) -> list[dict]:
                 f"dropout mask differs from plain at {shape}")
         frac = keep_kernel.float().mean().item()
         require(abs(frac - 0.5) < 1e-3, f"dropout keep fraction {frac} at {shape}")
-        vector = dropout.FWD_PATHS["vector"]
+        vector = (dropout.FWD_PATHS["vector"], dropout.BWD_PATHS["vector"])
         for name, kernel, plain in (
             (names[0], lambda: dropout.fwd_kernel(x, kw, cut),
              lambda: dropout.fwd_plain(x, kw, cut)),
@@ -531,8 +543,9 @@ def check_dropout(dev: torch.device, card: str) -> list[dict]:
             require(torch.equal(yk.view(torch.int16), yp.view(torch.int16)),
                     f"{name} {shape}: not bit-equal to the plain version")
             del yk, yp
-        require(dropout.FWD_PATHS["vector"] == vector + 1,
-                f"the forward at {shape} did not take the vector path")
+        require((dropout.FWD_PATHS["vector"], dropout.BWD_PATHS["vector"])
+                == (vector[0] + 1, vector[1] + 1),
+                f"the forward or backward at {shape} did not take the vector path")
         out = torch.empty_like(x)
         for name, kernel, plain, ceiling, n_tensors in (
             (names[0], lambda: dropout.fwd_kernel(x, kw, cut),
@@ -1279,6 +1292,65 @@ def check_small_wgan_bf16_steps(dev: torch.device) -> None:
             f"updates {did}, float32 state, c_loss_real {[round(v, 4) for v in losses]}")
 
 
+def check_small_cyclegan_bf16_steps(dev: torch.device) -> dict:
+    """Four bfloat16 CycleGAN steps (96x96, base 8, 2 res blocks, batch 1) on
+    the card, and the same steps on the CPU in bfloat16 and in float32, from
+    one seeded state: finite float32 metrics, float32 parameters and Adam
+    moments, the InstanceNorm kernels launched forward and backward, and
+    each metric's distance from the CPU float32 step (summed over the
+    steps) within CG_BF16_BOUND times the CPU bf16 step's: the CPU gate's
+    form, the CPU's bf16 step in the place of JAX's and its float32 step in
+    the place of the float64 reference. Returns each metric's ratio."""
+    gen = torch.Generator().manual_seed(8)
+    batches = torch.randint(0, 256, (4, 2, 1, 96, 96, 3), generator=gen, dtype=torch.uint8)
+    model = dict(image_size=(96, 96, 3), base_width=8, n_res_blocks=2)
+    seed = cyclegan_step.init_state(cyclegan_step.CycleGANTrainConfig(
+        model=CycleGANConfig(**model)), "cpu").state_dict()
+    cpu = torch.device("cpu")
+    runs = {}
+    for label, d, dtype in (("card", dev, torch.bfloat16), ("cpu", cpu, torch.bfloat16),
+                            ("cpu_f32", cpu, torch.float32)):
+        cfg = cyclegan_step.CycleGANTrainConfig(model=CycleGANConfig(**model, dtype=dtype))
+        state = cyclegan_step.init_state(cfg, d)
+        state.load_state_dict(seed)
+        step = cyclegan_step.make_train_step(cfg)
+        zero_launches()
+        metrics = []
+        for bx, by in batches:
+            state, m = step(state, bx.to(d), by.to(d))
+            require(all(v.dtype == torch.float32 for v in m.values()),
+                    f"bf16 cyclegan {label}: metric dtypes")
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[label] = (state, metrics, read_launches())
+    state, metrics, launches = runs["card"]
+    require(all(math.isfinite(v) for m in metrics for v in m.values()),
+            f"bf16 cyclegan steps on the card: {metrics}")
+    tensors = [t for name in ("gen_g", "gen_f", "disc_x", "disc_y")
+               for t in getattr(state, name).parameters()]
+    for opt in (state.gg_opt, state.gf_opt, state.dx_opt, state.dy_opt):
+        tensors += [*opt.mu, *opt.nu]
+    require({t.dtype for t in tensors} == {torch.float32}, "bf16 cyclegan state dtype")
+    require(launches["instance_norm_fwd"] > 0 and launches["instance_norm_bwd"] > 0,
+            f"bf16 cyclegan steps launched {launches}")
+
+    def distance(a, b, k):
+        return sum(abs(x[k] - y[k]) for x, y in zip(a, b))
+
+    cpu_bf16, cpu_f32 = runs["cpu"][1], runs["cpu_f32"][1]
+    ratios = {k: distance(metrics, cpu_f32, k) / distance(cpu_bf16, cpu_f32, k)
+              for k in metrics[0]}
+    worst = max(ratios, key=ratios.get)
+    require(ratios[worst] <= CG_BF16_BOUND,
+            f"bf16 cyclegan metric {worst}: the card {ratios[worst]:.3g} x as far from "
+            f"float32 as the CPU bf16 step (bound {CG_BF16_BOUND})")
+    log(f"small bfloat16 CycleGAN steps on the card: finite float32 metrics, float32 "
+        f"state, InstanceNorm launches fwd {launches['instance_norm_fwd']} bwd "
+        f"{launches['instance_norm_bwd']}; per metric the card "
+        f"{min(ratios.values()):.3g}-{ratios[worst]:.3g} ({worst}) x as far from the CPU's "
+        f"float32 step as the CPU bf16 step (bound {CG_BF16_BOUND})")
+    return ratios
+
+
 def model_states(state) -> dict[str, dict[str, torch.Tensor]]:
     """CPU copies of the generator's and discriminator's tensors."""
     return {name: {k: v.detach().cpu().clone()
@@ -1324,7 +1396,7 @@ def run_sndcgan_slice(card: str, work: str) -> dict:
     require(int(resumed.state.step) == EPOCH_BATCHES, "resumed step counter")
     resumed.train(2, 1)  # epoch 1
     launches = read_launches()
-    fwd_paths = dict(dropout.FWD_PATHS)
+    fwd_paths, bwd_paths = dict(dropout.FWD_PATHS), dict(dropout.BWD_PATHS)
     states[1] = model_states(resumed.state)
     copies = adam.GRAD_COPIES["adam"]
     second = resumed.last_epoch_metrics
@@ -1342,20 +1414,22 @@ def run_sndcgan_slice(card: str, work: str) -> dict:
         "adam": 3 * steps,  # G, then D twice (d_updates=2): one launch each
     }
     require(launches == want, f"launch counts {launches}, expected {want}")
-    # every forward of the main path on the dropout kernel's vector path
+    # every forward and backward of the main path on the vector path
     want_paths = {"vector": steplib.N_SITES * steps, "scalar": 0}
     require(fwd_paths == want_paths, f"dropout forward paths {fwd_paths}, expected {want_paths}")
+    require(bwd_paths == want_paths, f"dropout backward paths {bwd_paths}, expected {want_paths}")
     want_copies = GRAD_COPIES_PER_STEP["sndcgan"] * steps
     require(copies == want_copies, f"adam gradient copies {copies}, expected {want_copies}")
     log(f"sndcgan slice: {steps} steps over 2 epochs (one resumed), losses {second}")
-    log(f"sndcgan slice: launches {launches}, dropout forward paths {fwd_paths}, adam "
-        f"gradient layout copies {copies}")
+    log(f"sndcgan slice: launches {launches}, dropout forward paths {fwd_paths}, backward "
+        f"paths {bwd_paths}, adam gradient layout copies {copies}")
     log(f"sndcgan slice: exports gen_model-{{0,1}} and disc_model-{{0,1}} loaded into "
         f"fresh models: {n_exported} tensors bit-equal to the engine's state at each epoch")
     log(f"sndcgan slice: epoch 1 {perf[-1]['steps_per_sec']:.3f} steps/s, "
         f"{perf[-1]['images_per_sec']:.1f} images/s at {WIDTH}x{HEIGHT} bs{BATCH} "
         f"base {BASE} SN hinge bf16 ({card})")
-    return {"launches": launches, "fwd_paths": fwd_paths, "grad_copies": copies, "perf": perf,
+    return {"launches": launches, "fwd_paths": fwd_paths, "bwd_paths": bwd_paths,
+            "grad_copies": copies, "perf": perf,
             "config": f"{HEIGHT}x{WIDTH} bs{BATCH} base{BASE} SN hinge bf16 d_updates=2"}
 
 
@@ -2405,8 +2479,12 @@ def check_dropout_spatial(dev: torch.device, card: str) -> dict:
                 gs = g[rows, :, hrows].contiguous(memory_format=torch.channels_last)
                 base, hblock = dropout.rows_base(xs, first, h), (s * hh, h)
                 at = f"{shape} {dtype} rows [{first}, {b}) image rows [{s * hh}, {(s + 1) * hh})"
+                vector = (dropout.FWD_PATHS["vector"], dropout.BWD_PATHS["vector"])
                 y = dropout.fwd_kernel(xs, kw, cut, base, x.numel(), hblock)
                 dx = dropout.bwd_kernel(xs, gs, kw, cut, base, x.numel(), hblock)
+                require((dropout.FWD_PATHS["vector"], dropout.BWD_PATHS["vector"])
+                        == (vector[0] + 1, vector[1] + 1),
+                        f"dropout on an H-shard {at}: not on the vector path")
                 require(torch.equal(y, full_y[rows, :, hrows]),
                         f"dropout fwd on an H-shard {at}: differs from the whole array's")
                 require(torch.equal(dx, full_dx[rows, :, hrows]),
@@ -2440,11 +2518,11 @@ def check_dropout_spatial(dev: torch.device, card: str) -> dict:
          lambda: dropout.bwd_plain(xs, gs, kw, cut, 0, hblock),
          lambda: dropout.bwd_kernel(xr, gr, kw, cut, base_r, total), 3),
     ):
-        vector = dropout.FWD_PATHS["vector"]
+        paths = dropout.FWD_PATHS if name.endswith("fwd") else dropout.BWD_PATHS
+        vector = paths["vector"]
         shard()
-        if name.endswith("fwd"):
-            require(dropout.FWD_PATHS["vector"] == vector + 1,
-                    "phase 9a: the forward on an H-shard did not take the vector path")
+        require(paths["vector"] == vector + 1,
+                f"phase 9a: {name} on an H-shard did not take the vector path")
         times = timing(shard, plain, flush=flush)
         times["contiguous_ms"] = device_ms(contiguous, 20, flush=flush)
         times["contiguous_warm_ms"] = device_ms(contiguous, 20)
@@ -3352,6 +3430,7 @@ def main(argv=None) -> int:
     check_small_cyclegan_step_against_cpu(dev)
     check_small_wgan_steps_against_cpu(dev)
     check_small_wgan_bf16_steps(dev)
+    cg_bf16 = check_small_cyclegan_bf16_steps(dev)
     with tempfile.TemporaryDirectory() as work:
         slices = {"sndcgan": run_sndcgan_slice(card, work),
                   "cyclegan": run_cyclegan_slice(card, work), "wgan": run_wgan_slice(card)}
@@ -3386,8 +3465,8 @@ def main(argv=None) -> int:
                 "shape_nchw": base["timed_shape_nchw"],
                 **base["fwd" if k["name"].endswith("fwd") else "bwd"]}
             k["at_spatial_shard"] = spatial["dropout_shard"][k["name"]]  # phase 9a
-            if k["name"].endswith("fwd"):
-                k["fwd_paths"] = slices["sndcgan"]["fwd_paths"]
+            part = "fwd" if k["name"].endswith("fwd") else "bwd"
+            k[f"{part}_paths"] = slices["sndcgan"][f"{part}_paths"]
         # The path that runs it; Adam runs on both, and its record's times
         # are the CycleGAN apply's, as are its launches; its bfloat16-moment
         # form runs on the SNDCGAN step with opt_moments="bf16"; the split
@@ -3406,6 +3485,7 @@ def main(argv=None) -> int:
         for p, r in slices.items()}, "sampling_and_fid": offline, "evaluation": evaluation,
         "data_parallel": data_parallel, "spatial": spatial, "cyclegan_spatial": cg_spatial,
         "run_twice": run_twice, "sndcgan_options": options, "profile": profile,
+        "cyclegan_bf16_ratios": cg_bf16,
         "migration": migration, "card": card,
         "seconds": time.perf_counter() - t0}))
     print(card)

@@ -35,18 +35,19 @@ and the row block are launch arguments (host ints), so a launch still
 never syncs the host.
 
 On the H100 both passes are bound by device-memory bandwidth (forward reads
-x and writes y; backward reads x and g and writes dx); the kernel
-(`csrc/leaky_relu_dropout.cu`) keeps the mask out of device memory and
-reads the key words from a device tensor, so a launch never syncs the host.
-The forward launches from a plan (`launch_plan`): 16-byte vectors, U of
-them in flight a thread, over a (row, offset) grid of single-trip CTAs that
-needs no division on a shard; or the kernel's scalar branch, for data that is not 16-byte
-aligned or rows that do not fall on vector boundaries.
+x and writes y; backward reads x and g and writes dx); the kernels
+(`csrc/leaky_relu_dropout.cu`) keep the mask out of device memory and read
+the key words from a device tensor, so a launch never syncs the host. Both
+passes launch from one plan (`launch_plan`): 16-byte vectors, U of them in
+flight a thread (of x, and of g in the backward), over a (row, offset) grid
+of single-trip CTAs that needs no division on a shard; or the pass's scalar
+kernel, for data that is not 16-byte aligned or rows that do not fall on
+vector boundaries. The plan reads the card's SM count (`sm_count`).
 
 `leaky_relu_dropout` is the wrapper. A CPU tensor takes the plain PyTorch
 version below (the same function, emulating uint32 in int64 ops); a CUDA
 tensor launches the kernel or raises. `LAUNCHES` counts kernel launches,
-`FWD_PATHS` the forward's by path.
+`FWD_PATHS` and `BWD_PATHS` each pass's by path.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ _U32 = 0xFFFFFFFF
 
 LAUNCHES = {"leaky_relu_dropout_fwd": 0, "leaky_relu_dropout_bwd": 0}
 FWD_PATHS = {"vector": 0, "scalar": 0}
+BWD_PATHS = {"vector": 0, "scalar": 0}
 
 
 def dropout_cut(rate: float) -> int:
@@ -160,9 +162,9 @@ def bwd_plain(
 
 
 # -------------------------------------------------------------- launch plan
-THREADS = 256  # a forward CTA's threads (kFwdThreads in the source)
-SMS = 132  # the H100 SXM's SMs
-CTAS_PER_SM = 4  # forward CTAs resident per SM: one wave is SMS * CTAS_PER_SM
+THREADS = 256  # a CTA's threads (kThreads in the source)
+H100_SXM_SMS = 132  # the plan's SM count where no card is given (tools, tests)
+CTAS_PER_SM = 4  # CTAs resident per SM: one wave is sms * CTAS_PER_SM
 DEEP_WAVES = 16  # waves of single-trip CTAs at 4 vectors a thread that take 4
 VECTOR_BYTES = 16
 UNROLLS = (2, 4)  # vectors a thread loads before it hashes any
@@ -170,9 +172,15 @@ MAX_ROWS = 65535  # a grid's y extent
 _ELEMENT_SIZE = {torch.float32: 4, torch.bfloat16: 2}
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How one forward launch covers a tensor of `rows` rows of `row_len`
+    """How one launch of either pass covers a tensor of `rows` rows of `row_len`
     elements (one row for a contiguous tensor, one per batch row of a
     spatial shard), `ctas_x` CTAs of THREADS threads along each row.
 
@@ -201,12 +209,13 @@ class LaunchPlan:
 
 def launch_plan(numel: int, dtype: torch.dtype,
                 rowmap: tuple[int, int, int, int] | None = None, aligned: bool = True,
-                base: int = 0, *, unroll: int | None = None,
+                base: int = 0, *, sms: int = H100_SXM_SMS, unroll: int | None = None,
                 ctas_x: int | None = None) -> LaunchPlan:
-    """The forward's launch over `numel` elements of `dtype` whose global
-    indices start at `base` (with `rowmap` = (h_local, h_global, h0, wc), a
-    shard of image rows; `row_map`), from data that is 16-byte aligned or
-    not (`aligned`: the input's address; the output is allocated aligned).
+    """The launch of either pass over `numel` elements of `dtype` whose
+    global indices start at `base` (with `rowmap` = (h_local, h_global, h0,
+    wc), a shard of image rows; `row_map`), from data that is 16-byte
+    aligned or not (`aligned`: the inputs' addresses, x and in the backward
+    g; the output is allocated aligned), on a card of `sms` SMs.
 
     - path: "vector" when the data is aligned, there is at least one
       vector, the first global index is a multiple of the vector (so every
@@ -214,8 +223,9 @@ def launch_plan(numel: int, dtype: torch.dtype,
       and its global stride are whole vectors (W*C a multiple of 8 bf16 or
       4 float32, as at every site with C >= 64); else "scalar".
     - unroll: 4 when the launch at 4 vectors a thread still has
-      DEEP_WAVES waves (SMS * CTAS_PER_SM CTAs each) of CTAs, else 2, so
-      that a smaller tensor spreads over more CTAs.
+      DEEP_WAVES waves (sms * CTAS_PER_SM CTAs each) of CTAs, else 2, so
+      that a smaller tensor spreads over more CTAs. The bits do not depend
+      on it, nor on the SM count.
     - ctas_x: one CTA for each THREADS * unroll vectors (or THREADS
       elements) of a row, each making a single trip: on the H100 such
       grids ran 4-5% faster than one persistent wave walking the tensor
@@ -224,7 +234,7 @@ def launch_plan(numel: int, dtype: torch.dtype,
     `unroll` and `ctas_x` override the choice (the timing tool's sweep);
     with fewer CTAs than the single trips, each walks its row."""
     if dtype not in _ELEMENT_SIZE:
-        raise TypeError(f"the forward takes float32 or bfloat16, got {dtype}")
+        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if not 0 <= numel < 2**32:
         raise ValueError(f"element count {numel} outside [0, 2**32)")
     if unroll is not None and unroll not in UNROLLS:
@@ -248,7 +258,7 @@ def launch_plan(numel: int, dtype: torch.dtype,
         vectors = row_len // vec
         if unroll is None:
             deep = rows * -(-vectors // (THREADS * 4))
-            unroll = 4 if deep >= DEEP_WAVES * SMS * CTAS_PER_SM else 2
+            unroll = 4 if deep >= DEEP_WAVES * sms * CTAS_PER_SM else 2
         items, tail = vectors, row_len - vectors * vec
     else:
         vec = unroll = 1
@@ -270,14 +280,13 @@ def _lib() -> ctypes.CDLL:
     """The built library, its entry points typed once per process."""
     lib = native.load("leaky_relu_dropout")
     for suffix in _DTYPES.values():
-        fwd = getattr(lib, f"lrd_fwd_{suffix}")
-        fwd.restype = ctypes.c_int
-        # ... then the plan's unroll and CTAs along a row, and the stream
-        fwd.argtypes = ([ctypes.c_void_p] * 3 + _ARGS
-                        + [ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p])
-        bwd = getattr(lib, f"lrd_bwd_{suffix}")
-        bwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 4 + _ARGS + [ctypes.c_void_p]
+        # x (and g), the output and kw; _ARGS; the plan's unroll and CTAs
+        # along a row; the stream
+        for part, pointers in (("fwd", 3), ("bwd", 4)):
+            fn = getattr(lib, f"lrd_{part}_{suffix}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * pointers + _ARGS
+                           + [ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p])
     return lib
 
 
@@ -324,6 +333,14 @@ def _check_kernel_args(x: torch.Tensor, kw: torch.Tensor, base: int,
     return (base, *(row_map(x, hblock) or (h, h, 0, w * c)))
 
 
+def plan_for(x: torch.Tensor, inputs: tuple[torch.Tensor, ...], base: int,
+             hblock: tuple[int, int] | None, sms: int) -> LaunchPlan:
+    """`launch_plan` for a pass over x that reads `inputs` (the forward x,
+    the backward x and g) on a card of `sms` SMs."""
+    aligned = all(t.data_ptr() % VECTOR_BYTES == 0 for t in inputs)
+    return launch_plan(x.numel(), x.dtype, row_map(x, hblock), aligned, base, sms=sms)
+
+
 def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
                total: int | None = None, hblock: tuple[int, int] | None = None,
                plan: LaunchPlan | None = None) -> torch.Tensor:
@@ -333,8 +350,7 @@ def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
     lib = _lib()
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if plan is None:
-        plan = launch_plan(x.numel(), x.dtype, row_map(x, hblock),
-                           x.data_ptr() % VECTOR_BYTES == 0, base)
+        plan = plan_for(x, (x,), base, hblock, sm_count(x.device.index))
     rc = getattr(lib, f"lrd_fwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), y.data_ptr(), kw.data_ptr(), x.numel(), *index, cut,
         keep_scale(cut), NEGATIVE_SLOPE, *plan.args(),
@@ -349,20 +365,27 @@ def fwd_kernel(x: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
 def bwd_kernel(
     x: torch.Tensor, g: torch.Tensor, kw: torch.Tensor, cut: int, base: int = 0,
     total: int | None = None, hblock: tuple[int, int] | None = None,
+    plan: LaunchPlan | None = None,
 ) -> torch.Tensor:
+    """The backward kernel, launched from `plan` (default: `launch_plan` for
+    x and g; another plan must be one they allow, or the entry point
+    refuses it)."""
     index = _check_kernel_args(x, kw, base, total, hblock)
     if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
         raise ValueError("gradient must match x in dtype, shape and device")
     _check_channels_last(g)
     lib = _lib()
     dx = torch.empty_like(x, memory_format=torch.channels_last)
+    if plan is None:
+        plan = plan_for(x, (x, g), base, hblock, sm_count(x.device.index))
     rc = getattr(lib, f"lrd_bwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), kw.data_ptr(), x.numel(),
-        *index, cut, keep_scale(cut), NEGATIVE_SLOPE,
+        *index, cut, keep_scale(cut), NEGATIVE_SLOPE, *plan.args(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     native.check(lib, "lrd_error_string", rc, "leaky_relu_dropout backward")
     LAUNCHES["leaky_relu_dropout_bwd"] += 1
+    BWD_PATHS[plan.path] += 1
     return dx
 
 

@@ -19,11 +19,12 @@ the least time (`bound`): the bytes at 3.35 TB/s, the mask's integer
 operations at the int32 rate, the float32 ones at 67 TFLOP/s, the largest
 of the three. Each is timed with tools/devtime.py: `ms` with the L2 flushed
 before every call (and `median_ms`, the median of those calls, which a
-few slow calls do not move), `warm_ms` back to back. The forward is also checked
-bit-equal to the plain version once per shape.
+few slow calls do not move), `warm_ms` back to back. Both kernels are also
+checked bit-equal to their plain versions once per shape.
 
-`--sweep` also times the forward at other launch plans of this tree
-(`launch_plan`'s unroll and CTA overrides). `--sass FILE` writes the
+`--sweep` also times each pass at other launch plans of this tree
+(`launch_plan`'s unroll and CTA overrides; the backward only where its
+wrapper takes a plan). `--sass FILE` writes the
 kernels' SASS (`cuobjdump -sass` of the tree's built library) to FILE and
 counts the instructions (and the integer ones) in each kernel's loop per
 element it handles (`loop_counts`, `per_element`).
@@ -35,6 +36,7 @@ as the last line the results as one JSON object (also written to --out).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import re
 import shutil
@@ -167,7 +169,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="checkout whose imagegeneration_tpu_torch is timed")
     ap.add_argument("--out", help="JSON file for the results")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the forward at other launch plans of this tree")
+                    help="also time each pass at other launch plans of this tree")
     ap.add_argument("--sass", help="file for the kernels' SASS; counts their loops")
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
@@ -229,14 +231,19 @@ def main(argv: list[str] | None = None) -> int:
         y = torch.empty_like(x)
         equal = torch.equal(dropout.fwd_kernel(x, kw, cut, 0, total, hblock),
                             dropout.fwd_plain(x, kw, cut, 0, hblock))
+        bwd_equal = torch.equal(dropout.bwd_kernel(x, g, kw, cut, 0, total, hblock),
+                                dropout.bwd_plain(x, g, kw, cut, 0, hblock))
         rec = {"label": label, "shape_nchw": list(x.shape), "hblock": hblock,
-               "fwd_equals_plain": equal,
+               "fwd_equals_plain": equal, "bwd_equals_plain": bwd_equal,
                "fwd": times(lambda: dropout.fwd_kernel(x, kw, cut, 0, total, hblock)),
                "bwd": times(lambda: dropout.bwd_kernel(x, g, kw, cut, 0, total, hblock)),
                "copy": times(lambda: y.copy_(x)),
                "add": times(lambda: torch.add(x, g, out=y)),
                "fwd_bound": bound(2, x.numel(), x.element_size()),
                "bwd_bound": bound(3, x.numel(), x.element_size())}
+        parts = {"fwd": lambda p: dropout.fwd_kernel(x, kw, cut, 0, total, hblock, p)}
+        if "plan" in inspect.signature(dropout.bwd_kernel).parameters:
+            parts["bwd"] = lambda p: dropout.bwd_kernel(x, g, kw, cut, 0, total, hblock, p)
         if args.sweep and hasattr(dropout, "launch_plan"):
             rowmap = dropout.row_map(x, hblock)
             auto = dropout.launch_plan(x.numel(), x.dtype, rowmap)
@@ -251,8 +258,9 @@ def main(argv: list[str] | None = None) -> int:
                                      | {whole}):
                     plan = dropout.launch_plan(x.numel(), x.dtype, rowmap, unroll=unroll,
                                                ctas_x=ctas_x)
-                    rec["sweep"][f"u{unroll}_ctas{plan.ctas}"] = times(
-                        lambda: dropout.fwd_kernel(x, kw, cut, 0, total, hblock, plan))
+                    for part, launch in parts.items():
+                        rec["sweep"][f"{part}_u{unroll}_ctas{plan.ctas}"] = times(
+                            lambda: launch(plan))
         out["shapes"].append(rec)
         fb, bb = rec["fwd_bound"]["bound_ms"], rec["bwd_bound"]["bound_ms"]
         log(f"{label} {tuple(x.shape)}: fwd {rec['fwd']['ms']:.4f} ms flushed (median "
@@ -260,9 +268,10 @@ def main(argv: list[str] | None = None) -> int:
             f"{rec['fwd']['warm_ms']:.4f} warm (bound {fb:.4f}, copy_ {rec['copy']['ms']:.4f} "
             f"/ {rec['copy']['warm_ms']:.4f}); bwd {rec['bwd']['ms']:.4f} / "
             f"{rec['bwd']['warm_ms']:.4f} (bound {bb:.4f}, add {rec['add']['ms']:.4f} / "
-            f"{rec['add']['warm_ms']:.4f}); fwd bit-equal to plain: {equal} ({card})")
+            f"{rec['add']['warm_ms']:.4f}); bit-equal to plain: fwd {equal}, bwd "
+            f"{bwd_equal} ({card})")
         for key, t in rec.get("sweep", {}).items():
-            log(f"    fwd at {key}: {t['ms']:.4f} / {t['warm_ms']:.4f}")
+            log(f"    {key}: {t['ms']:.4f} / {t['warm_ms']:.4f}")
         del x, g, y
     if args.out:
         Path(args.out).write_text(json.dumps(out, indent=1))

@@ -248,6 +248,127 @@ def test_dropout_forward_refuses_a_plan_the_tensor_does_not_allow(cuda):
     assert (dropout.LAUNCHES, dropout.FWD_PATHS) == before
 
 
+def backward_against_plain(x, g, kw, cut, base=0, total=None, hblock=None, path="vector",
+                           plan=None):
+    """The backward kernel bit-equal to the plain version, through `path`."""
+    before = (dict(dropout.BWD_PATHS), dropout.LAUNCHES["leaky_relu_dropout_bwd"])
+    dx = dropout.bwd_kernel(x, g, kw, cut, base, total, hblock, plan)
+    assert dropout.BWD_PATHS[path] == before[0][path] + 1
+    assert dropout.LAUNCHES["leaky_relu_dropout_bwd"] == before[1] + 1
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(dx.view(bits), dropout.bwd_plain(x, g, kw, cut, base, hblock).view(bits))
+    return dx
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DROPOUT_SITES)
+def test_dropout_backward_equals_plain_at_the_headline_sites(cuda, shape, dtype, rate):
+    """Every main-path site, whole (one row, the vector path), and a
+    data-parallel rank's half of it with its row base."""
+    x = dropout_input(cuda, shape, dtype, sum(shape))
+    g = dropout_input(cuda, shape, dtype, sum(shape) + 5)
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(rate)
+    backward_against_plain(x, g, kw, cut)
+    b = shape[0] // 2
+    backward_against_plain(x[b:], g[b:], kw, cut, dropout.rows_base(x, b), x.numel())
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONFIG5_SITES)
+def test_dropout_backward_equals_plain_on_the_config5_shards(cuda, shape, dtype, rate):
+    """Config 5's sites on 2 spatial ranks and on data 2 x spatial 2, as the
+    forward's test; equal to the whole array's elements too."""
+    x = dropout_input(cuda, shape, dtype, sum(shape) + 1)
+    g = dropout_input(cuda, shape, dtype, sum(shape) + 2)
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(rate)
+    full = dropout.bwd_kernel(x, g, kw, cut)
+    b, _, h, _ = shape
+    hh = h // 2
+    for first, s in ((0, 0), (0, 1), (b // 2, 1)):
+        rows, hrows = slice(first, b), slice(s * hh, (s + 1) * hh)
+        xs, gs = (t[rows, :, hrows].contiguous(memory_format=torch.channels_last)
+                  for t in (x, g))
+        dx = backward_against_plain(xs, gs, kw, cut, dropout.rows_base(xs, first, h),
+                                    x.numel(), (s * hh, h))
+        assert torch.equal(dx, full[rows, :, hrows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_backward_tails_and_misaligned_views(cuda, dtype):
+    """Tails of 1 to 7 elements (1 to 3 in float32) past the last vector
+    of a one-row launch; x or g (or both) a view 1 to 7 elements past a
+    16-byte boundary (the scalar path); and a shard whose rows are not whole
+    vectors (W*C = 21, the scalar path)."""
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(0.5)
+    vec = 128 // torch.finfo(dtype).bits
+    for tail in range(1, vec):
+        n = 37 * vec + tail
+        x = dropout_input(cuda, (1, 1, 1, n), dtype, tail)
+        g = dropout_input(cuda, (1, 1, 1, n), dtype, tail + 100)
+        backward_against_plain(x, g, kw, cut)
+        for off in range(1, vec):
+            views = [dropout_input(cuda, (1, 1, 1, n + off), dtype, off + k).view(-1)[off:]
+                     .view(1, 1, 1, n) for k in (0, 100)]
+            assert all(v.data_ptr() % 16 != 0 for v in views)
+            backward_against_plain(views[0], g, kw, cut, path="scalar")
+            backward_against_plain(x, views[1], kw, cut, path="scalar")
+            backward_against_plain(*views, kw, cut, path="scalar")
+    x = dropout_input(cuda, (4, 3, 10, 7), dtype, 9)
+    g = dropout_input(cuda, (4, 3, 10, 7), dtype, 10)
+    xs, gs = (t[:, :, 5:].contiguous(memory_format=torch.channels_last) for t in (x, g))
+    backward_against_plain(xs, gs, kw, cut, 0, x.numel(), (5, 10), path="scalar")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_backward_plans_give_the_same_bits(cuda, dtype):
+    """Every unroll and CTA count the plan could choose, on a whole map
+    and on a shard, and the scalar kernel on aligned data, equal the plain
+    version."""
+    kw = torch.tensor(KW, device=cuda)
+    cut = dropout.dropout_cut(0.5)
+    x = dropout_input(cuda, (6, 64, 18, 33), dtype, 3)
+    g = dropout_input(cuda, (6, 64, 18, 33), dtype, 4)
+    xs, gs = (t[:, :, 9:].contiguous(memory_format=torch.channels_last) for t in (x, g))
+    rowmap = dropout.row_map(xs, (9, 18))
+    for unroll in dropout.UNROLLS:
+        for ctas_x in (1, 7, 132, 1000):
+            plan = dropout.launch_plan(x.numel(), dtype, unroll=unroll, ctas_x=ctas_x)
+            backward_against_plain(x, g, kw, cut, plan=plan)
+            plan = dropout.launch_plan(xs.numel(), dtype, rowmap, unroll=unroll, ctas_x=ctas_x)
+            backward_against_plain(xs, gs, kw, cut, 0, x.numel(), (9, 18), plan=plan)
+    for ctas_x in (1, 1000):
+        plan = dropout.launch_plan(x.numel(), dtype, None, False, ctas_x=ctas_x)
+        backward_against_plain(x, g, kw, cut, plan=plan, path="scalar")
+
+
+def test_dropout_backward_refuses_a_plan_the_tensors_do_not_allow(cuda):
+    """The vector kernel with g off 16 bytes is a CUDA invalid-value error,
+    before any launch, and nothing is counted."""
+    x = dropout_input(cuda, (1, 1, 1, 64), torch.bfloat16, 0)
+    buf = dropout_input(cuda, (1, 1, 1, 65), torch.bfloat16, 1)
+    g = buf.view(-1)[1:].view(1, 1, 1, 64)
+    kw = torch.tensor(KW, device=cuda)
+    plan = dropout.launch_plan(64, torch.bfloat16, None, True)
+    assert plan.path == "vector"
+    before = (dict(dropout.LAUNCHES), dict(dropout.BWD_PATHS))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        dropout.bwd_kernel(x, g, kw, 128, plan=plan)
+    assert (dropout.LAUNCHES, dropout.BWD_PATHS) == before
+
+
+def test_dropout_plans_read_the_cards_sm_count(cuda):
+    x = dropout_input(cuda, DROPOUT_SITES[0], torch.bfloat16, 0)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    assert dropout.sm_count(x.device.index) == sms
+    assert dropout.plan_for(x, (x, x), 0, None, sms) == dropout.launch_plan(
+        x.numel(), x.dtype, sms=sms)
+
+
 def test_dropout_kernel_refuses_nchw_and_bad_keys(cuda):
     x = torch.randn(2, 8, 3, 5, device=cuda)
     kw = torch.tensor([1, 2], device=cuda)

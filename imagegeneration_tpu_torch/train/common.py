@@ -35,6 +35,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from imagegeneration_tpu_torch.core import trace
 from imagegeneration_tpu_torch.ops import adam as adam_op
 from imagegeneration_tpu_torch.parallel import dp
 
@@ -126,14 +127,15 @@ def adam_apply(
 ) -> None:
     """One Keras-form Adam step, in place on params and state: on the card
     one kernel launch over every leaf. With a group, the gradients are
-    first averaged over the ranks."""
-    grads = reduce_grads(grads, group)
-    if params[0].dtype == torch.float64:
-        return _float32_apply(adam_apply, params, grads, state, lr, b1, b2)
-    if state.table is None and params[0].device.type == "cuda":
-        state.table = adam_op.LeafTable(params, state.mu, state.nu)
-    adam_op.adam_apply(params, grads, state.mu, state.nu, state.count, lr, b1, b2,
-                       table=state.table)
+    first averaged over the ranks. One `train.apply` span."""
+    with trace.span("train.apply"):
+        grads = reduce_grads(grads, group)
+        if params[0].dtype == torch.float64:
+            return _float32_apply(adam_apply, params, grads, state, lr, b1, b2)
+        if state.table is None and params[0].device.type == "cuda":
+            state.table = adam_op.LeafTable(params, state.mu, state.nu)
+        adam_op.adam_apply(params, grads, state.mu, state.nu, state.count, lr, b1, b2,
+                           table=state.table)
 
 
 @dataclasses.dataclass
@@ -173,28 +175,30 @@ def rmsprop_apply(
     A None gradient is a zero one (the frozen leaves of a masked update):
     its nu decays, nu = decay * nu, which is what the formula gives exactly
     for g = 0, and its parameter keeps every bit (p + (-lr * 0) = p). With a
-    group, the gradients are first averaged over the ranks."""
-    grads = reduce_grads(grads, group)
-    if params and params[0].dtype == torch.float64:
-        return _float32_apply(rmsprop_apply, params, grads, state, lr, decay, eps)
-    live = [i for i, g in enumerate(grads) if g is not None]
-    frozen = [state.nu[i] for i, g in enumerate(grads) if g is None]
-    if frozen:
-        torch._foreach_mul_(frozen, decay)
-    if not live:
-        return
-    p = [params[i] for i in live]
-    g = [grads[i] for i in live]
-    nu = [state.nu[i] for i in live]
-    g2 = torch._foreach_mul(g, g)
-    torch._foreach_mul_(g2, 1.0 - decay)
-    torch._foreach_mul_(nu, decay)
-    torch._foreach_add_(nu, g2)
-    u = torch._foreach_add(nu, eps)
-    torch._foreach_rsqrt_(u)
-    torch._foreach_mul_(u, g)
-    torch._foreach_mul_(u, -lr)
-    torch._foreach_add_(p, u)
+    group, the gradients are first averaged over the ranks. One
+    `train.apply` span."""
+    with trace.span("train.apply"):
+        grads = reduce_grads(grads, group)
+        if params and params[0].dtype == torch.float64:
+            return _float32_apply(rmsprop_apply, params, grads, state, lr, decay, eps)
+        live = [i for i, g in enumerate(grads) if g is not None]
+        frozen = [state.nu[i] for i, g in enumerate(grads) if g is None]
+        if frozen:
+            torch._foreach_mul_(frozen, decay)
+        if not live:
+            return
+        p = [params[i] for i in live]
+        g = [grads[i] for i in live]
+        nu = [state.nu[i] for i in live]
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1.0 - decay)
+        torch._foreach_mul_(nu, decay)
+        torch._foreach_add_(nu, g2)
+        u = torch._foreach_add(nu, eps)
+        torch._foreach_rsqrt_(u)
+        torch._foreach_mul_(u, g)
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_add_(p, u)
 
 
 def _loss_dtype(x: torch.Tensor) -> torch.Tensor:

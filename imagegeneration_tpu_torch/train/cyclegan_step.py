@@ -56,6 +56,7 @@ import dataclasses
 import torch
 
 from imagegeneration_tpu_torch.core import rng as rnglib
+from imagegeneration_tpu_torch.core import trace
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import cyclegan
 from imagegeneration_tpu_torch.nn.layers import partition
@@ -192,33 +193,38 @@ def make_train_step(cfg: CycleGANTrainConfig, group=None):
         for model in (g_g, g_f, d_x, d_y):
             partition(model, group)
 
-        fake_y = g_g(real_x)
-        cycled_x = g_f(fake_y)
-        fake_x = g_f(real_y)
-        cycled_y = g_g(fake_x)
-        same_x = g_f(real_x)
-        same_y = g_g(real_y)
+        with trace.span("train.forward"):
+            fake_y = g_g(real_x)
+            cycled_x = g_f(fake_y)
+            fake_x = g_f(real_y)
+            cycled_y = g_g(fake_x)
+            same_x = g_f(real_x)
+            same_y = g_g(real_y)
 
-        disc_real_x = d_x(real_x)
-        disc_real_y = d_y(real_y)
-        disc_fake_x = d_x(fake_x)
-        disc_fake_y = d_y(fake_y)
+            disc_real_x = d_x(real_x)
+            disc_real_y = d_y(real_y)
+            disc_fake_x = d_x(fake_x)
+            disc_fake_y = d_y(fake_y)
 
-        gen_g_loss = generator_adv_loss(disc_fake_y)
-        gen_f_loss = generator_adv_loss(disc_fake_x)
-        total_cycle = cycle_loss(real_x, cycled_x, group) + cycle_loss(real_y, cycled_y, group)
-        id_g = identity_loss(real_y, same_y, group)
-        id_f = identity_loss(real_x, same_x, group)
-        total_gen_g = gen_g_loss + total_cycle + id_g
-        total_gen_f = gen_f_loss + total_cycle + id_f
-        disc_x_loss = discriminator_loss(disc_real_x, disc_fake_x)
-        disc_y_loss = discriminator_loss(disc_real_y, disc_fake_y)
+            gen_g_loss = generator_adv_loss(disc_fake_y)
+            gen_f_loss = generator_adv_loss(disc_fake_x)
+            total_cycle = cycle_loss(real_x, cycled_x, group) + cycle_loss(real_y, cycled_y, group)
+            id_g = identity_loss(real_y, same_y, group)
+            id_f = identity_loss(real_x, same_x, group)
+            total_gen_g = gen_g_loss + total_cycle + id_g
+            total_gen_f = gen_f_loss + total_cycle + id_f
+            disc_x_loss = discriminator_loss(disc_real_x, disc_fake_x)
+            disc_y_loss = discriminator_loss(disc_real_y, disc_fake_y)
 
         gg, gf = list(g_g.parameters()), list(g_f.parameters())
         dx, dy = list(d_x.parameters()), list(d_y.parameters())
-        gg_grads = torch.autograd.grad(total_gen_g, gg, retain_graph=True)
-        gf_grads = torch.autograd.grad(total_gen_f, gf, retain_graph=True)
-        d_grads = count_once(torch.autograd.grad(disc_x_loss + disc_y_loss, dx + dy), group)
+        with trace.span("train.backward"):
+            gg_grads = torch.autograd.grad(total_gen_g, gg, retain_graph=True)
+        with trace.span("train.backward"):
+            gf_grads = torch.autograd.grad(total_gen_f, gf, retain_graph=True)
+        with trace.span("train.backward"):
+            d_grads = torch.autograd.grad(disc_x_loss + disc_y_loss, dx + dy)
+        d_grads = count_once(d_grads, group)
 
         lr, b1 = cfg.learning_rate, cfg.beta1
         common.adam_apply(gg, gg_grads, state.gg_opt, lr, b1=b1, group=group)
@@ -264,8 +270,9 @@ def make_epoch_runner(cfg: CycleGANTrainConfig, group=None):
                   perm_y: torch.Tensor):
         per_step = []
         for b in range(perm_x.shape[0]):
-            state, m = step_fn(state, images_x_u8.index_select(0, perm_x[b]),
-                               images_y_u8.index_select(0, perm_y[b]))
+            with trace.span(trace.STEP):
+                state, m = step_fn(state, images_x_u8.index_select(0, perm_x[b]),
+                                   images_y_u8.index_select(0, perm_y[b]))
             per_step.append(m)
         return state, {k: torch.stack([m[k] for m in per_step]) for k in METRIC_KEYS}
 

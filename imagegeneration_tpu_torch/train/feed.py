@@ -35,6 +35,7 @@ import torch
 
 from imagegeneration_tpu_torch.core import data as datalib
 from imagegeneration_tpu_torch.core import mesh as meshlib
+from imagegeneration_tpu_torch.core import trace
 from imagegeneration_tpu_torch.parallel import dp
 
 
@@ -97,8 +98,9 @@ class EpochFeed:
             tensors = [torch.from_numpy(a) for a in batches]
             if pinned:
                 tensors = [t.pin_memory() for t in tensors]
-            state, m = self.step(
-                state, *(t.to(self.device, non_blocking=True) for t in tensors))
+            with trace.span(trace.STEP):
+                state, m = self.step(
+                    state, *(t.to(self.device, non_blocking=True) for t in tensors))
             per_step.append(m)
         return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 

@@ -64,6 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from imagegeneration_tpu_torch.core import rng as rnglib
+from imagegeneration_tpu_torch.core import trace
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import sndcgan
 from imagegeneration_tpu_torch.nn.layers import partition
@@ -213,33 +214,41 @@ def make_train_step(cfg: SNDCGANTrainConfig, group=None):
             return run(x, kw_pass)
 
         # ---- Generator update (D at the old `u`, not written).
-        fake = gen(z, train=True)
-        logits_g = d_on_fake(fake, kw_g)
-        if hinge:
-            g_loss = common.hinge_g_loss(logits_g)
-        else:
-            g_loss = common.bce_logits_mean(torch.ones_like(logits_g), logits_g)
-        g_grads = torch.autograd.grad(g_loss, g_params)
+        with trace.span("train.forward"):
+            fake = gen(z, train=True)
+            logits_g = d_on_fake(fake, kw_g)
+            if hinge:
+                g_loss = common.hinge_g_loss(logits_g)
+            else:
+                g_loss = common.bce_logits_mean(torch.ones_like(logits_g), logits_g)
+        with trace.span("train.backward"):
+            g_grads = torch.autograd.grad(g_loss, g_params)
         apply(g_params, g_grads, state.g_opt, cfg.lr_gen)
         fake = fake.detach()  # the PRE-update generator's batch
 
         if cfg.d_updates == 1:
-            logits_real = disc(x_real, kw_real, update_sn=True, rows=rows)
-            logits_fake = disc(fake, kw_fake, update_sn=False, rows=rows)
-            d_loss_real = loss_real(logits_real)
-            d_loss_fake = loss_fake(logits_fake)
-            d_grads = torch.autograd.grad(d_loss_real + d_loss_fake, d_params)
+            with trace.span("train.forward"):
+                logits_real = disc(x_real, kw_real, update_sn=True, rows=rows)
+                logits_fake = disc(fake, kw_fake, update_sn=False, rows=rows)
+                d_loss_real = loss_real(logits_real)
+                d_loss_fake = loss_fake(logits_fake)
+            with trace.span("train.backward"):
+                d_grads = torch.autograd.grad(d_loss_real + d_loss_fake, d_params)
             apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
         else:
             # ---- D update #1: real batch, writes the new `u`.
-            logits_real = disc(x_real, kw_real, update_sn=True, rows=rows)
-            d_loss_real = loss_real(logits_real)
-            d_grads = torch.autograd.grad(d_loss_real, d_params)
+            with trace.span("train.forward"):
+                logits_real = disc(x_real, kw_real, update_sn=True, rows=rows)
+                d_loss_real = loss_real(logits_real)
+            with trace.span("train.backward"):
+                d_grads = torch.autograd.grad(d_loss_real, d_params)
             apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
             # ---- D update #2: stale fake batch on the real-updated D.
-            logits_fake = d_on_fake(fake, kw_fake)
-            d_loss_fake = loss_fake(logits_fake)
-            d_grads = torch.autograd.grad(d_loss_fake, d_params)
+            with trace.span("train.forward"):
+                logits_fake = d_on_fake(fake, kw_fake)
+                d_loss_fake = loss_fake(logits_fake)
+            with trace.span("train.backward"):
+                d_grads = torch.autograd.grad(d_loss_fake, d_params)
             apply(d_params, d_grads, state.d_opt, cfg.lr_disc)
 
         with torch.no_grad():
@@ -280,7 +289,8 @@ def make_epoch_runner(cfg: SNDCGANTrainConfig, group=None):
     def run_epoch(state: SNDCGANState, images_u8: torch.Tensor, perm: torch.Tensor):
         per_step = []
         for b in range(perm.shape[0]):
-            state, m = step_fn(state, images_u8.index_select(0, perm[b]))
+            with trace.span(trace.STEP):
+                state, m = step_fn(state, images_u8.index_select(0, perm[b]))
             per_step.append(m)
         return state, {k: torch.stack([m[k] for m in per_step]) for k in METRIC_KEYS}
 

@@ -59,6 +59,7 @@ import dataclasses
 import torch
 
 from imagegeneration_tpu_torch.core import rng as rnglib
+from imagegeneration_tpu_torch.core import trace
 from imagegeneration_tpu_torch.core.data import normalize
 from imagegeneration_tpu_torch.models import wgan
 from imagegeneration_tpu_torch.nn.layers import partition
@@ -168,14 +169,16 @@ def make_train_step(cfg: WGANTrainConfig, group=None):
                       gp_inputs: tuple[torch.Tensor, torch.Tensor] | None = None):
         critic = state.critic
         params = list(critic.parameters())
-        penalty = None
-        if gp_inputs is not None:
-            penalty = gradient_penalty(critic, x, *gp_inputs, group=group)
-        scores = critic(x, train=True)
-        loss = common.wasserstein_loss(torch.full_like(scores, label), scores)
-        if penalty is not None:
-            loss = loss + cfg.gp_lambda * penalty
-        grads = torch.autograd.grad(loss, params)
+        with trace.span("train.forward"):
+            penalty = None
+            if gp_inputs is not None:
+                penalty = gradient_penalty(critic, x, *gp_inputs, group=group)
+            scores = critic(x, train=True)
+            loss = common.wasserstein_loss(torch.full_like(scores, label), scores)
+            if penalty is not None:
+                loss = loss + cfg.gp_lambda * penalty
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, params)
         common.rmsprop_apply(params, grads, state.c_opt, lr, group=group)
         if not use_gp:
             wgan.clip_critic_kernels_(critic)
@@ -185,9 +188,11 @@ def make_train_step(cfg: WGANTrainConfig, group=None):
         gen, critic = state.gen, state.critic
         g_params = list(gen.parameters())
         bn_params = wgan.critic_bn_params(critic)
-        scores = critic(gen(z, train=True), train=True)
-        loss = common.wasserstein_loss(torch.full_like(scores, -1.0), scores)
-        grads = torch.autograd.grad(loss, g_params + bn_params)
+        with trace.span("train.forward"):
+            scores = critic(gen(z, train=True), train=True)
+            loss = common.wasserstein_loss(torch.full_like(scores, -1.0), scores)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, g_params + bn_params)
         bn_grads = dict(zip(map(id, bn_params), grads[len(g_params):]))
         c_params = list(critic.parameters())
         common.rmsprop_apply(
@@ -207,7 +212,7 @@ def make_train_step(cfg: WGANTrainConfig, group=None):
         x_real = normalize(batch_u8, mcfg.dtype).permute(0, 3, 1, 2)
         if z_fake is None:
             z_fake = rnglib.normal_z(state.z_gen, rows[1], mcfg.z_size, device)
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("train.forward"):
             x_fake = state.gen(common.global_draw(z_fake, rows, bsz), train=False)
 
         gp_inputs = None
@@ -263,7 +268,8 @@ def make_epoch_runner(cfg: WGANTrainConfig, group=None):
     def run_epoch(state: WGANState, images_u8: torch.Tensor, perm: torch.Tensor):
         per_step = []
         for b in range(perm.shape[0]):
-            state, m = step_fn(state, images_u8.index_select(0, perm[b]))
+            with trace.span(trace.STEP):
+                state, m = step_fn(state, images_u8.index_select(0, perm[b]))
             per_step.append(m)
         return state, {k: torch.stack([m[k] for m in per_step]) for k in METRIC_KEYS}
 

@@ -539,11 +539,21 @@ def test_sndcgan_discriminator_matches_keras(tmp_path):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.fixture
+def keras2():
+    """tf_keras, its session cleared after the test: the default layer
+    names it counts ("conv2d_1", ...) would otherwise run on into the next
+    test of the process, and tests/test_inception.py loads by those names."""
+    pytest.importorskip("tensorflow")
+    keras2 = pytest.importorskip("tf_keras")
+    yield keras2
+    keras2.backend.clear_session()
+
+
 @pytest.mark.parametrize("axis", [-1, 1], ids=["per_channel", "per_h"])
 @torch.no_grad()
-def test_cyclegan_generator_matches_keras(tmp_path, axis):
+def test_cyclegan_generator_matches_keras(tmp_path, axis, keras2):
     tf = pytest.importorskip("tensorflow")
-    keras2 = pytest.importorskip("tf_keras")
     tf.config.set_visible_devices([], "GPU")
     km = _keras_cyclegan_generator(tf, keras2, axis)
     rng = np.random.default_rng(6)

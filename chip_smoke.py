@@ -56,12 +56,21 @@ Phases (any failure raises, and the exit code is non-zero):
      forward within SPLIT_WHOLE_REL); timed in float32 at every shard,
      beside the PyTorch calls that compute each kernel's function
      (tools/split_times.LIBRARY; those of the partials' sums and of the
-     applies first held to the plain versions).
+     applies first held to the plain versions);
+   - the BatchNorm + activation kernels (statistics, apply, reduce, apply
+     back) at the SNDCGAN generator's four sites at batch 128, bf16 and
+     float32, within tools/bn_times.differences' bounds of the plain
+     version, a second run bit-equal; timed in bf16 at every site beside
+     their bounds, the plain version and the library calls
+     (tools/bn_times.time_site).
 4. A small float32 step of each model on the card against the same step on
    the CPU (the plain kernel versions), from the same weights and inputs.
    WGAN (32x48, base 16, batch 4, n_critic 2): four steps, two of them with
    a gan update, once with the weight clip and once with the gradient
-   penalty (gp_lambda 10: cuDNN's double backward); each card step starts
+   penalty (gp_lambda 10: cuDNN's double backward, and the BatchNorm
+   kernels' through the inference-mode critic: each card step's BatchNorm
+   launches are those of `wgan_bn_launches`, the penalty's first and
+   second derivative included); each card step starts
    from the CPU's state before it, since a free run of this trajectory
    amplifies rounding differences past its 1e-3 bound within four steps
    (PERF.md §6). The same four WGAN steps in bfloat16 (`--bf16`), with the
@@ -90,7 +99,8 @@ Phases (any failure raises, and the exit code is non-zero):
      512, float32, n_critic 5, weight clip; bench.py:445-468): one epoch of
      8 steps, then a new engine resumes for a second; gan updates at steps
      5, 10 and 15, critic_count 1 at the end, critic conv weights within
-     +-0.01, and no hand kernel launched (the WGAN path has none);
+     +-0.01, and no hand kernel launched but the BatchNorm kernels, every
+     train-mode forward with its backward;
    - the SNDCGAN step's options at the headline configuration, OPTION_STEPS
      steps each from the seeded state on the same batches (the step is
      the entry point: the JAX engine has no flag for either):
@@ -106,7 +116,8 @@ Phases (any failure raises, and the exit code is non-zero):
      kernels' and the Adam kernel's (launched through ctypes).
 6. Sampling and FID on the SNDCGAN slice's directory, at its full width,
    with the launch counters zeroed before and read after (no hand kernel
-   runs: inference uses neither dropout nor Adam):
+   runs but the generator's inference-mode BatchNorm applies, 4 a pass:
+   inference uses neither dropout nor Adam):
    - the sampling CLI's two variants (exports, checkpoints) give the same
      epochs and bit-equal samples in [0, 1];
    - FIDEvaluator (spectral norm, lowrank cross term) over a 512-image
@@ -140,7 +151,8 @@ Phases (any failure raises, and the exit code is non-zero):
      phase 6 (16 pinned batches of 32 at 144x256, lowrank): FIDs finite and
      >= 0, the same after a resumed evaluation and after an epoch is dropped
      from fids.pickle; two images' Inception features on the card against
-     the CPU within 1e-4 of the largest; no hand kernel launched.
+     the CPU within 1e-4 of the largest; no hand kernel launched but the
+     generator's BatchNorm applies.
    It prints seconds per PD epoch and per Inception-FID epoch (export load,
    features and math; host clock, each span ending in a device sync or a
    copy to the host) and the phase's peak memory, and adds the evaluation path's
@@ -156,8 +168,8 @@ Phases (any failure raises, and the exit code is non-zero):
       CUDA tensors through the host; NCCL runs one rank per card): the
       headline SNDCGANEngine (256x144, global batch 32 as 2 x 16, base 512,
       SN, hinge, bf16) for a 2-step epoch and a resumed one; per rank and
-      step 21 + 21 dropout launches, 3 Adam launches, 3 gradient
-      all-reduces, no Adam gradient copy; the ranks' digests equal after
+      step 21 + 21 dropout launches, 3 Adam launches, 16 BatchNorm
+      launches, 3 gradient all-reduces, no Adam gradient copy; the ranks' digests equal after
       each epoch; artifacts from rank 0 only. Then small float32 2-rank
       steps (SNDCGAN with dropout, WGAN with the clip and with the penalty,
       CycleGAN with the InstanceNorm kernels) against the one-process steps
@@ -239,7 +251,8 @@ Phases (any failure raises, and the exit code is non-zero):
    is sampled by the sampling CLI on the card and on the CPU, and each
    CycleGAN export translates one batch on the card and on the CPU, each
    within MIGRATION_BOUND; exactly 24 InstanceNorm forwards (the
-   per-channel translation) and no other kernel. It prints its seconds and
+   per-channel translation) and no other kernel but the sampled
+   generator's BatchNorm applies. It prints its seconds and
    peak device memory beside the card; the launches are every kernel's
    `launches_by_path["migration"]`. `--only-phase 10` runs the build and
    phase 10 alone.
@@ -294,12 +307,14 @@ from imagegeneration_tpu_torch.models.sndcgan import (
     trunk_hw,
 )
 from imagegeneration_tpu_torch.models.wgan import CLIP_VALUE, WGANConfig, critic_kernels
+from imagegeneration_tpu_torch.nn.layers import BatchNorm
 from imagegeneration_tpu_torch.ops import adam, dropout, native
+from imagegeneration_tpu_torch.ops import batch_norm as bnorm
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
 from imagegeneration_tpu_torch.ops.sqrtm import sqrtm_newton_schulz
 from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.tools import dp_parity
-from imagegeneration_tpu_torch.tools import adam_times, dropout_times
+from imagegeneration_tpu_torch.tools import adam_times, bn_times, dropout_times
 from imagegeneration_tpu_torch.tools import in_plans as in_plans_tool
 from imagegeneration_tpu_torch.tools import split_times
 from imagegeneration_tpu_torch.tools.devtime import L2Flush, device_ms
@@ -337,7 +352,7 @@ CG_BF16_BOUND = 2.0
 EPS = 1e-3  # tfa InstanceNormalization's epsilon, the models' value
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
-KERNELS = ("leaky_relu_dropout", "adam", "instance_norm")
+KERNELS = ("leaky_relu_dropout", "adam", "instance_norm", "batch_norm")
 # Adam gradients copied to their parameter's layout per step (PERF.md §6):
 # none, conv weights, their moments and cuDNN's gradients are channels_last.
 GRAD_COPIES_PER_STEP = {"sndcgan": 0, "cyclegan": 0}
@@ -347,7 +362,11 @@ WGAN_N_CRITIC = 5
 # Every launch counter of the hand kernels: zeroed and read as one set, so
 # that no path can launch a kernel that goes uncounted.
 LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, adam.BF16_LAUNCHES, inorm.LAUNCHES,
-                   inorm.SPLIT_LAUNCHES)
+                   inorm.SPLIT_LAUNCHES, bnorm.LAUNCHES)
+# BatchNorm sites of the SNDCGAN generator (the stem and three maps): each
+# takes one launch of each of the four kernels a train step, one forward
+# apply a generator pass in inference mode.
+SNDCGAN_BN_SITES = 4
 # The SNDCGAN step's options (phase 5): steps per run, the first untimed.
 OPTION_STEPS = 4
 # FID phase: MAX_BATCHES pinned batches of the headline batch size.
@@ -476,6 +495,22 @@ def no_launches() -> dict[str, int]:
 def read_launches() -> dict[str, int]:
     torch.cuda.synchronize()
     return {k: v for counts in LAUNCH_COUNTERS for k, v in counts.items()}
+
+
+def bn_launches(steps: int) -> dict[str, int]:
+    """The BatchNorm kernels' launches of `steps` SNDCGAN train steps: the
+    generator's sites, one forward (statistics, apply) and one backward
+    (reduce, apply) each, 16 a step."""
+    return {k: SNDCGAN_BN_SITES * steps for k in bnorm.LAUNCHES}
+
+
+def bn_inference_only(launches: dict[str, int], sites: int = SNDCGAN_BN_SITES) -> bool:
+    """True for the launches of a path whose only hand kernels are a
+    generator's inference-mode BatchNorm applies: `sites` a pass, at least
+    one pass, and no other launch."""
+    n = launches["batch_norm_fwd_apply"]
+    rest = [v for k, v in launches.items() if k != "batch_norm_fwd_apply"]
+    return n > 0 and n % sites == 0 and not any(rest)
 
 
 def max_ulp_f32(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -954,6 +989,59 @@ def check_instance_norm(card: str) -> list[dict]:
 SPLIT_NAMES = tuple(inorm.SPLIT_LAUNCHES)
 
 
+def check_batch_norm(dev: torch.device, card: str) -> list[dict]:
+    """The four BatchNorm kernels against the plain version at the SNDCGAN
+    headline generator's four sites at the benchmark's batch 128
+    (tools/bn_times.SITES, ReLU), in bfloat16 and float32, each output
+    within tools/bn_times.differences' bounds (one rounding of the output
+    plus float32 statistics and formula rounding at the scale of the terms;
+    the backward fed the plain forward's mean and rstd, so both take the
+    same activation mask); every output of a second run bit-equal to the
+    first's; then each kernel timed at every site in bfloat16, L2 flushed
+    and warm, beside its bound, and per direction beside the plain version
+    and the library calls (tools/bn_times.time_site)."""
+    flush = L2Flush(dev)
+    readings, sites = {}, {}
+    for name, shape in bn_times.SITES:
+        for dtype in (torch.bfloat16, torch.float32):
+            t = bn_times.inputs(shape, dtype, dev, sum(shape))
+            want, _, _ = bn_times.plain(t)
+            plan = bnorm.plan_for(t["x"])
+            _, got = bn_times.kernel_calls(t, plan, want["saved"])
+            _, again = bn_times.kernel_calls(t, plan, want["saved"])
+            at = f"{name} {tuple(shape)} {str(dtype).split('.')[1]}"
+            for k, v in got.items():
+                require(torch.equal(v, again[k]), f"batch_norm {at}: {k} differs between runs")
+            r = readings[at] = bn_times.differences(got, want)
+            require(r["ok"], f"batch_norm {at}: past the bounds against plain: {r}")
+            log(f"batch_norm kernels at {at}: against plain (reading / bound) {r}; a second "
+                f"run bit-equal; plan {plan}")
+            del t, want, got, again
+            torch.cuda.empty_cache()
+        sites[name] = bn_times.time_site(name, shape, torch.bfloat16, dev, flush, card)
+        torch.cuda.empty_cache()
+    del flush
+    records = []
+    for kname in bnorm.LAUNCHES:
+        per_site = {name: {"shape": r["shape"], "plan": r["plan"], **r["kernels"][kname]}
+                    for name, r in sites.items()}
+        direction = "forward" if "fwd" in kname else "backward"
+        records.append({
+            "name": kname, "route": "cuda",
+            "source": "imagegeneration_tpu_torch/csrc/batch_norm.cu",
+            "replaces": "none: XLA fuses flax's BatchNorm and the activation in the JAX package",
+            "tolerance": "tools/bn_times.differences (ULP, ABS_SHARE, SUM_SHARE, STAT_SHARE)",
+            "readings_vs_plain": readings, "launches_per_step": SNDCGAN_BN_SITES,
+            "sites": per_site, "dtype": "bfloat16",
+            "ms_per_step": sum(v["ms"] for v in per_site.values()),
+            "bound_ms_per_step": sum(v["bound_ms"] for v in per_site.values()),
+            direction: {name: r[direction] for name, r in sites.items()},
+        })
+        log(f"{kname}: {records[-1]['ms_per_step']:.4f} ms a step at the four sites "
+            f"(flushed), bound {records[-1]['bound_ms_per_step']:.4f} ({card})")
+    return records
+
+
 def split_shards(x: torch.Tensor, shards: int) -> list[torch.Tensor]:
     """The row blocks of a (B, C, H, W) map, each channels_last."""
     return [t.contiguous(memory_format=torch.channels_last) for t in x.chunk(shards, 2)]
@@ -1209,6 +1297,23 @@ def check_small_cyclegan_step_against_cpu(dev: torch.device) -> None:
         f"translation max abs err {err:.3g}")
 
 
+def wgan_bn_launches(state: wgan_step.WGANState, gp: bool, gan: bool) -> dict[str, int]:
+    """The BatchNorm kernels' launches of one WGAN step: G's inference pass
+    (the fakes) and two critic updates (train forward and backward); with
+    the penalty, the critic's inference forward, its first backward (reduce,
+    apply back) and the penalty's second (the apply back on ddx for dy, the
+    reduce of dy * ddx for scale); with a gan update, G's and the critic's
+    train passes."""
+    kc, kg = (sum(isinstance(m, BatchNorm) for m in model.modules())
+              for model in (state.critic, state.gen))
+    n = {"batch_norm_fwd_stats": 2 * kc, "batch_norm_fwd_apply": kg + 2 * kc,
+         "batch_norm_bwd_reduce": 2 * kc, "batch_norm_bwd_apply": 2 * kc}
+    for k, more in (("batch_norm_fwd_apply", kc * gp), ("batch_norm_bwd_reduce", 2 * kc * gp),
+                    ("batch_norm_bwd_apply", 2 * kc * gp)):
+        n[k] += more
+    return {k: v + (kg + kc) * gan for k, v in n.items()}
+
+
 def check_small_wgan_steps_against_cpu(dev: torch.device) -> None:
     """Four float32 WGAN steps (32x48, base 16, batch 4, n_critic 2) on the
     CPU; each step again on the card from the CPU's state before it, with
@@ -1237,8 +1342,14 @@ def check_small_wgan_steps_against_cpu(dev: torch.device) -> None:
             results = []
             for state, d in ((cpu_state, cpu), (card_state, dev)):
                 eps = gp_eps[i].to(d) if gp_lambda else None
+                zero_launches()
                 _, m = step(state, batches[i].to(d), z_fake[i].to(d), z_gan[i].to(d), eps)
                 results.append({k: float(v) for k, v in m.items()})
+            launches = read_launches()
+            want = {**no_launches(), **wgan_bn_launches(card_state, gp_lambda > 0,
+                                                        i % 2 == 1)}
+            require(launches == want, f"small wgan step {i} (gp {gp_lambda}): launches "
+                    f"{launches}, expected {want}")
             m_cpu, m_gpu = results
             for k, b in m_cpu.items():
                 a = m_gpu[k]
@@ -1257,7 +1368,8 @@ def check_small_wgan_steps_against_cpu(dev: torch.device) -> None:
         require(err <= 1e-3, f"small wgan step samples differ by {err}")
         log(f"small float32 WGAN steps (gp_lambda {gp_lambda}), card vs CPU from the same "
             f"state each step: metrics within {worst:.3g} ({at}; bound 1e-3), gan updates {did}, "
-            f"samples max abs err {err:.3g}")
+            f"samples max abs err {err:.3g}; BatchNorm launches of a gan step "
+            f"{wgan_bn_launches(card_state, gp_lambda > 0, True)}")
 
 
 def check_small_wgan_bf16_steps(dev: torch.device) -> None:
@@ -1412,6 +1524,7 @@ def run_sndcgan_slice(card: str, work: str) -> dict:
         "leaky_relu_dropout_fwd": steplib.N_SITES * steps,
         "leaky_relu_dropout_bwd": steplib.N_SITES * steps,
         "adam": 3 * steps,  # G, then D twice (d_updates=2): one launch each
+        **bn_launches(steps),
     }
     require(launches == want, f"launch counts {launches}, expected {want}")
     # every forward and backward of the main path on the vector path
@@ -1542,8 +1655,15 @@ def run_wgan_slice(card: str) -> dict:
             f"stats.pickle {history}")
     require(samples.shape == (4, HEIGHT, WIDTH, 3) and samples.min() >= 0.0
             and samples.max() <= 1.0, "preview samples")
-    want = dict.fromkeys(launches, 0)
-    require(launches == want, f"launch counts {launches}, expected none")
+    # Only the BatchNorm kernels: every train-mode forward (statistics,
+    # apply) has its backward (reduce, apply); G's inference passes (the
+    # critic updates' fakes, the previews) add forward applies.
+    bn_counts = [launches[k] for k in bnorm.LAUNCHES]
+    others = {k: v for k, v in launches.items() if k not in bnorm.LAUNCHES}
+    require(not any(others.values()), f"launch counts {launches}: a kernel besides BatchNorm")
+    stats, fwd_apply, reduce, bwd_apply = bn_counts
+    require(stats > 0 and stats == reduce == bwd_apply and fwd_apply > stats,
+            f"wgan BatchNorm launches {dict(zip(bnorm.LAUNCHES, bn_counts))}")
     require(copies == 0, f"adam gradient copies {copies} on a path without Adam")
     log(f"wgan slice: {steps} steps over 2 epochs (one resumed), gan updates at steps "
         f"{gan_steps}, critic_count {critic_count}, critic conv weights within "
@@ -1658,7 +1778,7 @@ def run_sndcgan_options(card: str) -> dict:
         want = {**no_launches(),
                 "leaky_relu_dropout_fwd": (3 * n + (2 * n if "remat" in label else 0)) * steps,
                 "leaky_relu_dropout_bwd": 3 * n * steps,
-                "adam_bf16" if bf16 else "adam": 3 * steps}
+                "adam_bf16" if bf16 else "adam": 3 * steps, **bn_launches(steps)}
         require(r["launches"] == want, f"{label}: launches {r['launches']}, expected {want}")
         require(r["grad_copies"] == 0, f"{label}: {r['grad_copies']} adam gradient copies")
         require(r["moments"] == (["torch.bfloat16"] if bf16 else ["torch.float32"]),
@@ -1918,7 +2038,8 @@ def check_image_folder(run: str, work: str, dev: torch.device, card: str) -> dic
 
 
 def run_sampling_and_fid(card: str, work: str, dev: torch.device) -> dict:
-    """Phase 6 on the SNDCGAN slice's directory: no hand kernel may run."""
+    """Phase 6 on the SNDCGAN slice's directory: no hand kernel may run but
+    the generator's inference-mode BatchNorm applies."""
     run = f"{work}/sndcgan"
     zero_launches()
     torch.cuda.synchronize()
@@ -1928,7 +2049,8 @@ def run_sampling_and_fid(card: str, work: str, dev: torch.device) -> dict:
            "image_folder": check_image_folder(run, work, dev, card)}
     launches = read_launches()
     out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    require(set(launches.values()) == {0}, f"hand kernels launched in sampling/FID: {launches}")
+    require(bn_inference_only(launches), f"hand kernels launched in sampling/FID besides the "
+            f"generator's BatchNorm applies: {launches}")
     log(f"sampling and FID: launches {launches}; peak allocated "
         f"{out['peak_allocated_bytes'] / 2**30:.2f} GiB ({card})")
     out["launches"] = launches
@@ -2092,8 +2214,8 @@ def check_inception_fid(run: str, work: str, dev: torch.device, card: str) -> di
     diff = max(abs(a - b) for a, b in zip(again[0], results[0]))
     require(diff <= 1e-6 * max(map(abs, results[0])),
             f"epoch 0 again: {again[0]} vs {results[0]}")
-    require(set(launches.values()) == {0}, f"hand kernels launched in the inception FID: "
-            f"{launches}")
+    require(bn_inference_only(launches), f"hand kernels launched in the inception FID "
+            f"besides the generator's BatchNorm applies: {launches}")
 
     images = ev.load_init()["img_real_used"][0][:2]
     card_feats = ev.features(images)
@@ -2341,7 +2463,8 @@ def check_dp_engine_ranks(ranks: list[dict], label: str, card: str, ecfg: dict) 
             ph = r["phases"][p]
             steps = ph["steps"]
             want = {**no_launches(), "leaky_relu_dropout_fwd": steplib.N_SITES * steps,
-                    "leaky_relu_dropout_bwd": steplib.N_SITES * steps, "adam": 3 * steps}
+                    "leaky_relu_dropout_bwd": steplib.N_SITES * steps, "adam": 3 * steps,
+                    **bn_launches(steps)}
             require(ph["launches"] == want,
                     f"{label} rank {r['rank']} phase {p}: launches {ph['launches']}, "
                     f"expected {want}")
@@ -2403,9 +2526,9 @@ def run_data_parallel(card: str, work: str, dev: torch.device) -> dict:
     for name, want in one.items():
         got = [r["small"][name] for r in ranks]
         require(got[0]["digest"] == got[1]["digest"], f"small 2-rank {name}: digests differ")
-        # the WGAN path has no hand kernel; the others launch theirs
+        # every path launches its kernels (the WGAN's: BatchNorm)
         require(got[0]["launches"] == got[1]["launches"] == want["launches"]
-                and any(want["launches"].values()) != name.startswith("wgan"),
+                and any(want["launches"].values()),
                 f"small 2-rank {name}: launches {got[0]['launches']}, one process "
                 f"{want['launches']}")
         err = small_dp_errors(got[0], want)
@@ -3354,7 +3477,10 @@ def run_migration(card: str, work: str, dev: torch.device) -> dict:
     launches = read_launches()
     want = no_launches()
     want["instance_norm_fwd"] = IN_PER_TRANSLATION
-    require(launches == want, f"phase 10: launches {launches}, expected {want}")
+    want["batch_norm_fwd_apply"] = launches["batch_norm_fwd_apply"]
+    require(launches == want and bn_inference_only({**want, "instance_norm_fwd": 0}),
+            f"phase 10: launches {launches}, expected {want} with BatchNorm applies of "
+            "whole SNDCGAN generator passes")
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - held
     log(f"phase 10 (reference-weights migration): {seconds:.1f} s, peak device memory "
@@ -3426,6 +3552,7 @@ def main(argv=None) -> int:
     kernels.append(check_adam_bf16(dev, card))
     kernels += check_instance_norm(card)
     kernels += check_split_instance_norm(card)
+    kernels += check_batch_norm(dev, card)
     check_small_step_against_cpu(dev)
     check_small_cyclegan_step_against_cpu(dev)
     check_small_wgan_steps_against_cpu(dev)
@@ -3472,7 +3599,7 @@ def main(argv=None) -> int:
         # form runs on the SNDCGAN step with opt_moments="bf16"; the split
         # norm runs on the CycleGAN spatial path alone.
         k["launches"] = k["launches_by_path"][
-            "sndcgan" if k["name"].startswith("leaky") else
+            "sndcgan" if k["name"].startswith(("leaky", "batch_norm")) else
             "sndcgan_bf16" if k["name"] == "adam_bf16" else
             "cyclegan_spatial" if k["name"] in SPLIT_NAMES else "cyclegan"]
         require(k["launches"] > 0, f"{k['name']}: no launch on its path")

@@ -93,14 +93,14 @@ class Generator(nn.Module):
 
     def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
         bn_inference = (not train) or self.cfg.quirk_eval_bn
-        x = torch.relu(self.stem_bn(self.stem(z), bn_inference))
+        x = self.stem_bn(self.stem(z), bn_inference, 0.0)  # BN, then ReLU
         x = x.view(x.shape[0], *self.hw8, -1).permute(0, 3, 1, 2)
         lo, hi = spatial_row_range(self.group, self.hw8[0])
         x = x[:, :, lo:hi]
         for i in range(3):
             up = getattr(self, f"up{i}")
             bn = getattr(self, f"up{i}_bn")
-            x = torch.relu(bn(up(x), bn_inference))
+            x = bn(up(x), bn_inference, 0.0)
         return torch.tanh(self.to_rgb(x).float())
 
 

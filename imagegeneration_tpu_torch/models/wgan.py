@@ -102,7 +102,7 @@ class Critic(nn.Module):
         x = x.to(self.cfg.dtype)
         for i, (_, _, _, alpha) in enumerate(CRITIC_TRUNK):
             x = getattr(self, f"conv{i}")(x)
-            x = F.leaky_relu(getattr(self, f"conv{i}_bn")(x, not train), alpha)
+            x = getattr(self, f"conv{i}_bn")(x, not train, alpha)  # BN, then LeakyReLU
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.head(x).float()
 
@@ -137,7 +137,7 @@ class Generator(nn.Module):
         x = x[:, :, lo:hi]
         for i in range(3):
             up, bn = getattr(self, f"up{i}"), getattr(self, f"up{i}_bn")
-            x = F.leaky_relu(bn(up(x), not train), 0.2)
+            x = bn(up(x), not train, 0.2)
         return torch.tanh(self.to_rgb(x).float())
 
 

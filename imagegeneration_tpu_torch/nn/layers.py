@@ -75,6 +75,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagegeneration_tpu_torch.core.mesh import spatial_row_range
+from imagegeneration_tpu_torch.ops.batch_norm import batch_norm
 from imagegeneration_tpu_torch.ops.instance_norm import instance_norm
 from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.parallel.halo import halo
@@ -374,7 +375,12 @@ class BatchNorm(nn.Module):
     input, which spatial peers hold whole. Its backward sums the cotangents
     over the same ranks; each rank's loss is the mean over its own rows and
     the gradients are then averaged (parallel/dp.py), which gives the
-    global-batch gradient."""
+    global-batch gradient.
+
+    The activation that follows the norm in a model is part of the call
+    (`slope`), so that on the card the norm and the activation are one
+    pass each way (ops/batch_norm.py); there the per-channel sums are
+    all-reduced between the kernels' two passes."""
 
     def __init__(
         self, features: int, momentum: float = 0.99, epsilon: float = 1e-3,
@@ -390,34 +396,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.group = None  # a core.mesh.DataGroup: global batch statistics
 
-    def _moments(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(E[x], E[x^2]) per channel over this rank's batch, or over the
-        group's global batch."""
-        dims = [d for d in range(xf.dim()) if d != 1]
-        if self.group is None:
-            return xf.mean(dims), (xf * xf).mean(dims)
-        over = "world" if xf.dim() > 2 else "data"
-        sums = dp.all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), self.group,
-                                 over)
-        n = xf.numel() // xf.shape[1] * self.group.size_of(over)
-        return sums[0] / n, sums[1] / n
-
-    def forward(self, x: torch.Tensor, use_running_average: bool) -> torch.Tensor:
-        ct = torch.promote_types(x.dtype, torch.float32)
-        xf = x.to(ct)
-        shape = [1, -1] + [1] * (x.dim() - 2)
-        if use_running_average:
-            mean, var = self.mean, self.var
-        else:
-            mean, mean2 = self._moments(xf)
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(self.dtype or ct)
+    def forward(self, x: torch.Tensor, use_running_average: bool,
+                slope: float | None = None) -> torch.Tensor:
+        """The norm, then the activation that follows it in the model
+        (`slope`: None, 0.0 for ReLU, else LeakyReLU's negative slope):
+        through the BatchNorm kernels for a CUDA tensor, the plain version
+        for a CPU one (ops/batch_norm.py)."""
+        return batch_norm(x, self.scale, self.bias, self.mean, self.var, use_running_average,
+                          self.momentum, self.epsilon, self.dtype, slope, self.group)
 
 
 def partition(module: nn.Module, group) -> None:

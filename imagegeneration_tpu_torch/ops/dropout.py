@@ -60,6 +60,7 @@ import torch
 
 from imagegeneration_tpu_torch.core.rng import fmix32
 from imagegeneration_tpu_torch.ops import native
+from imagegeneration_tpu_torch.ops.native import H100_SXM_SMS, sm_count
 
 NEGATIVE_SLOPE = 0.1
 _U32 = 0xFFFFFFFF
@@ -163,19 +164,12 @@ def bwd_plain(
 
 # -------------------------------------------------------------- launch plan
 THREADS = 256  # a CTA's threads (kThreads in the source)
-H100_SXM_SMS = 132  # the plan's SM count where no card is given (tools, tests)
 CTAS_PER_SM = 4  # CTAs resident per SM: one wave is sms * CTAS_PER_SM
 DEEP_WAVES = 16  # waves of single-trip CTAs at 4 vectors a thread that take 4
 VECTOR_BYTES = 16
 UNROLLS = (2, 4)  # vectors a thread loads before it hashes any
 MAX_ROWS = 65535  # a grid's y extent
 _ELEMENT_SIZE = {torch.float32: 4, torch.bfloat16: 2}
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """The SMs of CUDA device `index`, read once per device."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @dataclasses.dataclass(frozen=True)

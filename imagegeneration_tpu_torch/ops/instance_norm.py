@@ -457,21 +457,6 @@ def active_clusters(plan: LaunchPlan, c: int, hw: int, dtype: torch.dtype,
     return n
 
 
-_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _tickets(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
-    """The backward kernels' per-channel-block ticket counters on `stream`.
-    They start at 0 and every launch leaves them at 0 (atomicInc wraps at
-    the number of CTAs that take a ticket: B, or chunks x B for the split
-    partial), so one zeroed buffer per stream serves every call."""
-    key = (device.index, stream.cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-    return t
-
-
 def _check_activation(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"instance_norm kernel: {name} must be a CUDA tensor, got {t.device}")
@@ -544,7 +529,7 @@ def in_bwd_kernel(
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
     partials = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
-    tickets = _tickets(x.device, stream, plan.blocks)
+    tickets = native.tickets(x.device, stream, plan.blocks)
     rc = getattr(lib, f"in_bwd_{_DTYPES[x.dtype]}")(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
@@ -618,7 +603,7 @@ def in_bwd_partial_kernel(
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
     chunks = torch.empty((plan.chunks, b, c, 2), dtype=torch.float32, device=x.device)
-    tickets = _tickets(x.device, stream, plan.blocks)
+    tickets = native.tickets(x.device, stream, plan.blocks)
     rc = getattr(lib, f"in_bwd_partial_{_DTYPES[x.dtype]}")(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), sums.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),

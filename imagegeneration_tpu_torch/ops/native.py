@@ -17,12 +17,15 @@ import time: the CPU-only test environment has no `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -112,3 +115,29 @@ def check(lib: ctypes.CDLL, error_fn: str, rc: int, what: str) -> None:
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {rc}: {fn(rc).decode()}")
+
+
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def tickets(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """The ticket counters of the kernels whose last CTA of a block adds
+    the others' partials (InstanceNorm's backward, BatchNorm's statistics
+    and reduce passes), one buffer per stream. They start at 0 and every
+    launch leaves them at 0 (atomicInc wraps at the number of CTAs that
+    take a ticket), so one zeroed buffer serves every call on the stream."""
+    key = (device.index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return t
+
+
+H100_SXM_SMS = 132  # a launch plan's SM count where no card is given (tools, tests)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, read once per device (the dropout and
+    BatchNorm launch plans)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

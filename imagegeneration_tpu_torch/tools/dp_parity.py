@@ -34,6 +34,7 @@ import torch
 from imagegeneration_tpu_torch import bridge
 from imagegeneration_tpu_torch.core import mesh as meshlib
 from imagegeneration_tpu_torch.ops import adam, dropout
+from imagegeneration_tpu_torch.ops import batch_norm as bnorm
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
 from imagegeneration_tpu_torch.parallel import dp
 from imagegeneration_tpu_torch.train import cyclegan_step, sndcgan_step, wgan_step
@@ -44,7 +45,7 @@ FAMILIES = {
     "cyclegan": (cyclegan_step, bridge.load_jax_cyclegan_state, bridge.jax_cyclegan_state),
 }
 LAUNCH_COUNTERS = (dropout.LAUNCHES, adam.LAUNCHES, adam.BF16_LAUNCHES, inorm.LAUNCHES,
-                   inorm.SPLIT_LAUNCHES)
+                   inorm.SPLIT_LAUNCHES, bnorm.LAUNCHES)
 
 
 def launches() -> dict[str, int]:

@@ -35,7 +35,8 @@ Phases:
    "plain_dropout", "plain_adam"; cyclegan: "plain_instance_norm",
    "plain_adam"), in turns k 1 2 2 1 k, twice. nvidia-smi samples the SM
    clock and the power draw every 100 ms beside the windows. Skipped for
-   wgan, whose path runs no hand kernel.
+   wgan, whose only hand kernels are the BatchNorm ones, which have no
+   variant here.
 5. data: the engine's resident and streaming epochs, in turns r s s r:
    steps/s of the second epoch of a fresh engine.
 
@@ -459,7 +460,7 @@ def smi_samples(path: Path):
 
 def phase_ab(loop: StepLoop, variants: dict, out: Path) -> dict | None:
     if len(variants) == 1:
-        return None  # no hand kernel on the path: nothing to swap
+        return None  # no variant to swap in
     first, second = [v for v in variants if v != "kernels"]
     order = ("kernels", first, second, second, first, "kernels") * 2
     windows = []

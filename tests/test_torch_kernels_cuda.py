@@ -13,6 +13,13 @@ operations in both), on ragged, misaligned and channels_last leaf lists
 and on lists longer than one launch's table. The shapes include odd,
 non-power-of-two extents so that the grid-stride tail is exercised.
 
+The BatchNorm kernels (ops/batch_norm.py) are held to their plain version
+within tools/bn_times.differences' bounds (one rounding of the output plus
+float32 statistics summed in another order, at the tensor's scale; the
+backward fed the plain forward's mean and rstd, so both take the same
+activation mask), and their autograd wrapper bit for bit to the kernels
+called one by one.
+
 The InstanceNorm kernels sum their statistics in another order than the
 plain version, so they are held to the bounds of the JAX package's own
 kernel tests (tests/test_pallas_ops.py): rtol/atol 2e-5 for y, dx, dgamma
@@ -33,8 +40,9 @@ import torch
 from imagegeneration_tpu_torch.models.cyclegan import CycleGANConfig
 from imagegeneration_tpu_torch.models.sndcgan import SNDCGANConfig
 from imagegeneration_tpu_torch.ops import adam, dropout
+from imagegeneration_tpu_torch.ops import batch_norm as bnorm
 from imagegeneration_tpu_torch.ops import instance_norm as inorm
-from imagegeneration_tpu_torch.tools import split_times
+from imagegeneration_tpu_torch.tools import bn_times, split_times
 from imagegeneration_tpu_torch.train import cyclegan_step
 from imagegeneration_tpu_torch.train import sndcgan_step as steplib
 
@@ -937,3 +945,114 @@ def test_small_cyclegan_step_on_card_matches_cpu(cuda):
         assert m_gpu[k] == pytest.approx(m_cpu[k], rel=1e-3, abs=1e-4), k
     for a, b in zip(p_gpu, p_cpu):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------------------------------------- BatchNorm
+# (B, features) inputs (the SNDCGAN stem's width at batch 16 and at batch
+# 2, where a channel's variance is that of two values, whose E[x^2] - E[x]^2
+# cancels: bn_times.differences scales its bound by the channel's
+# cancellation factor; and a narrow one) and channels_last maps: the
+# generator's channel counts, a ragged last chunk, the scalar path (C = 3)
+# and the WGAN critic's widest map.
+BN_SHAPES = [(16, 294912), (6, 40), (8, 256, 9, 16), (8, 128, 18, 32), (8, 64, 36, 64),
+             (5, 64, 37, 41), (4, 3, 5, 7), (16, 512, 9, 16), (2, 294912)]
+BN_SLOPES = {"none": None, "relu": 0.0, "leaky": 0.2}
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "inference"])
+@pytest.mark.parametrize("slope", list(BN_SLOPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(cuda, shape, dtype, slope, train):
+    t = bn_times.inputs(shape, dtype, cuda, sum(shape))
+    want, _, _ = bn_times.plain(t, BN_SLOPES[slope], train)
+    plan = bnorm.plan_for(t["x"])
+    _, got = bn_times.kernel_calls(t, plan, want["saved"], BN_SLOPES[slope], train)
+    readings = bn_times.differences(got, want)
+    assert readings["ok"], (plan, readings)
+
+
+@pytest.mark.parametrize("overrides", [{"lanes": 32}, {"chunks": 1}, {"chunks": 7},
+                                       {"lanes": 16, "chunks": 300}])
+def test_batch_norm_plan_variants_match_plain(cuda, overrides):
+    t = bn_times.inputs((8, 256, 18, 32), torch.bfloat16, cuda, 5)
+    want, _, _ = bn_times.plain(t)
+    plan = bn_times.plan_variant(8 * 18 * 32, 256, torch.bfloat16, **overrides)
+    _, got = bn_times.kernel_calls(t, plan, want["saved"])
+    readings = bn_times.differences(got, want)
+    assert readings["ok"], (plan, readings)
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "inference"])
+@pytest.mark.parametrize("slope", list(BN_SLOPES))
+@pytest.mark.parametrize("shape", [(4, 2048), (8, 128, 18, 32)])
+def test_batch_norm_autograd_is_the_kernels(cuda, shape, slope, train):
+    """batch_norm() on a CUDA tensor: one launch of each kernel (no
+    statistics pass in inference mode), its output, gradients and running
+    statistics bit-equal to the kernels called one by one, twice."""
+    t = bn_times.inputs(shape, torch.bfloat16, cuda, 3)
+    s = BN_SLOPES[slope]
+    x = t["x"].detach().clone().requires_grad_(True)
+    scale = t["scale"].clone().requires_grad_(True)
+    bias = t["bias"].clone().requires_grad_(True)
+    rm, rv = t["mean"].clone(), t["var"].clone()
+    before = dict(bnorm.LAUNCHES)
+    y = bnorm.batch_norm(x, scale, bias, rm, rv, not train, bn_times.MOMENTUM, bn_times.EPS,
+                         torch.bfloat16, s)
+    y.backward(t["dy"])
+    launches = {k: bnorm.LAUNCHES[k] - before[k] for k in before}
+    assert launches == {"batch_norm_fwd_stats": int(train), "batch_norm_fwd_apply": 1,
+                        "batch_norm_bwd_reduce": 1, "batch_norm_bwd_apply": 1}
+    plan = bnorm.plan_for(t["x"])
+    for _ in range(2):
+        _, got = bn_times.kernel_calls(t, plan, None, s, train)
+        assert torch.equal(y, got["y"]) and torch.equal(x.grad, got["dx"])
+        assert torch.equal(scale.grad, got["dscale"]) and torch.equal(bias.grad, got["dbias"])
+        assert torch.equal(rm, got["mean"]) and torch.equal(rv, got["var"])
+
+
+def test_batch_norm_takes_any_layout_and_refuses_what_it_cannot_run(cuda):
+    t = bn_times.inputs((4, 64, 6, 10), torch.float32, cuda, 9)
+    nchw = t["x"].contiguous()
+    y = bnorm.batch_norm(nchw, t["scale"], t["bias"], t["mean"].clone(), t["var"].clone(),
+                         False, 0.99, 1e-3, torch.float32, 0.0)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="output dtype"):
+        bnorm.batch_norm(t["x"].bfloat16(), t["scale"], t["bias"], t["mean"], t["var"], True,
+                         0.99, 1e-3, torch.float32)
+    with pytest.raises(TypeError):
+        bnorm.batch_norm(t["x"].double(), t["scale"], t["bias"], t["mean"], t["var"], True,
+                         0.99, 1e-3, torch.float64)
+    x = t["x"].detach().clone().requires_grad_(True)
+    y = bnorm.batch_norm(x, t["scale"].clone().requires_grad_(True), t["bias"], t["mean"],
+                         t["var"].clone(), False, 0.99, 1e-3, torch.float32, 0.2)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(y.sum(), x, create_graph=True)
+
+
+def test_batch_norm_inference_second_derivative_matches_plain(cuda):
+    """A gradient penalty through the inference form on the card (the
+    WGAN-GP critic's route) against the plain version's double backward:
+    the first derivative and the penalty's gradients of x, dy and scale.
+    The kernels compute both derivatives: one forward apply, then a reduce
+    and an apply back for each."""
+    t = bn_times.inputs((4, 64, 6, 10), torch.float32, cuda, 13)
+    out = []
+    for route in ("plain", "kernels"):
+        x = t["x"].detach().clone().requires_grad_(True)
+        dy = t["dy"].detach().clone().requires_grad_(True)
+        scale = t["scale"].clone().requires_grad_(True)
+        args = (scale, t["bias"], t["mean"], t["var"], True, 0.99, 1e-3, torch.float32, 0.2)
+        before = dict(bnorm.LAUNCHES)
+        y = bnorm.bn_plain(x, *args) if route == "plain" else bnorm.batch_norm(x, *args)
+        (g,) = torch.autograd.grad(y, x, dy, create_graph=True)
+        penalty = ((g * g).sum() - 1.0) ** 2
+        penalty.backward()
+        launches = {k: bnorm.LAUNCHES[k] - before[k] for k in before}
+        assert launches == ({k: 0 for k in before} if route == "plain" else {
+            "batch_norm_fwd_stats": 0, "batch_norm_fwd_apply": 1, "batch_norm_bwd_reduce": 2,
+            "batch_norm_bwd_apply": 2}), launches
+        out.append((g.detach(), penalty.detach(),
+                    *[torch.zeros_like(v) if v.grad is None else v.grad for v in (x, dy, scale)]))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -382,13 +382,13 @@ def test_bf16_batchnorm_statistics_are_float32_like_jax(monkeypatch):
     (flax, statistics in float32 from the bf16 input) within BN_STAT_BOUND
     of each channel's std (mean) and variance (var); statistics taken in
     bf16 (one more rounding of
-    E[x] and E[x^2]: the planted fault, `_moments` on a bf16 copy) miss it
+    E[x] and E[x^2]: the planted fault, `moments_plain` on a bf16 copy) miss it
     by >= 10x. test_bf16_step_rounds_like_jax cannot see that rounding
     through a whole step's bf16 noise."""
     import jax.numpy as jnp
 
     from imagegeneration_tpu.nn.layers import BatchNorm as JaxBatchNorm
-    from imagegeneration_tpu_torch.nn import layers as tl
+    from imagegeneration_tpu_torch.ops import batch_norm as bn_ops
 
     x = np.random.default_rng(31).normal(3.0, 2.0, BN_SHAPE).astype(np.float32)
     jx = jnp.asarray(x).astype(jnp.bfloat16)
@@ -407,9 +407,9 @@ def test_bf16_batchnorm_statistics_are_float32_like_jax(monkeypatch):
                 for k in ("mean", "var")}
 
     sound = errors(_bn_statistics(x))
-    moments = tl.BatchNorm._moments
-    monkeypatch.setattr(tl.BatchNorm, "_moments",
-                        lambda self, xf: moments(self, xf.to(torch.bfloat16)))
+    moments = bn_ops.moments_plain
+    monkeypatch.setattr(bn_ops, "moments_plain",
+                        lambda xf, group=None: moments(xf.to(torch.bfloat16), group))
     planted = errors(_bn_statistics(x))
     assert max(sound.values()) <= BN_STAT_BOUND, sound
     assert min(planted.values()) >= 10 * BN_STAT_BOUND, planted
